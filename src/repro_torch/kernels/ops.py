@@ -1,0 +1,51 @@
+"""Public batched entry point for the SIMD² unit kernel (K1).
+
+Counterpart of ``repro/kernels/ops.py::semiring_mmo``.  The reference vmaps
+its 2-D Pallas kernel over leading batch dims; here the leading dims are
+flattened onto the kernel's request axis, which is a grid axis of one
+launch (``blockIdx.z``), not a loop.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import semiring as sr_mod
+from repro_torch.kernels import semiring_mmo as _sm
+
+Tensor = torch.Tensor
+
+
+def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
+                 op: str = "mma", k_valid=None) -> Tensor:
+  """D = C ⊕ (A ⊗ B) over any leading batch dims, one kernel launch.
+
+  ``k_valid`` broadcasts over the batch dims (one live-K count per request),
+  so a (R, M, K) batch takes an (R,) vector of per-request K counts — the
+  ragged masked-K serving path.  ``c`` is cast to the ring's output dtype
+  and folded in the kernel's epilogue.
+  """
+  sr = sr_mod.get(op)
+  batch = tuple(a.shape[:-2])
+  if tuple(b.shape[:-2]) != batch:
+    raise ValueError(f"batch dims differ: a {tuple(a.shape)}, b "
+                     f"{tuple(b.shape)}")
+  m, k = a.shape[-2:]
+  n = b.shape[-1]
+  r = math.prod(batch)
+  if sr.boolean:
+    a, b = a.to(torch.bool), b.to(torch.bool)
+  a3 = a.reshape(r, m, k).contiguous()
+  b3 = b.reshape(r, k, n).contiguous()
+  c3 = None
+  if c is not None:
+    c3 = (c.to(sr.acc_dtype(a.dtype)).broadcast_to(batch + (m, n))
+          .reshape(r, m, n).contiguous())
+  kv = None
+  if k_valid is not None:
+    kv = (torch.as_tensor(k_valid, dtype=torch.int32, device=a.device)
+          .broadcast_to(batch).reshape(r).contiguous())
+  out = _sm.semiring_mmo(a3, b3, c3, op=sr.name, k_valid=kv)
+  return out.reshape(batch + (m, n))

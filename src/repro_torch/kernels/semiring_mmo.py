@@ -1,0 +1,222 @@
+"""K1, the SIMD² unit: D = C ⊕ (A ⊗ B) over a stack of requests.
+
+``semiring_mmo`` is the wrapper of the hand-written CUDA kernel in
+``csrc/semiring_mmo.cu`` (which replaces the Pallas TPU kernel
+``repro/kernels/semiring_mmo.py::semiring_mmo``; the source note there says
+what bounds it and how its design answers that).  Beside it,
+``semiring_mmo_plain`` computes the same function in plain PyTorch: blocked
+broadcast-⊗ plus ⊕-reduce, like ``core.mmo._contract_vector``.
+
+The wrapper takes the plain version only for tensors on the CPU.  For a CUDA
+tensor it launches the kernel or raises: there is no fallback.  The library
+is built with ``nvcc`` at first use into ``build/kernels/`` under the
+checkout (one shared library with a plain C interface, loaded with ctypes)
+and cached there by the source's content hash.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.core import semiring as sr_mod
+
+Tensor = torch.Tensor
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "semiring_mmo.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+# Output tile (BM, BN) and K step (BK) compiled into the kernel.
+TILE = (64, 64, 16)
+_MAX_GRID_YZ = 65535
+# Elements of the plain version's (R, M, bk, N) intermediate per K block.
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+_OP_CODES = {op: i for i, op in enumerate(sr_mod.ALL_OPS)}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+_lib = None
+_lib_lock = threading.Lock()
+_build_log = ""
+
+
+def _nvcc() -> str:
+  path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+  if not os.path.exists(path):
+    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda/bin: "
+                       "the semiring_mmo kernel cannot be built")
+  return path
+
+
+def library_path() -> Path:
+  """Where the built library for the current source lives."""
+  tag = hashlib.sha256(SOURCE.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+  return BUILD_DIR / f"libsimd2_semiring_mmo_{tag}.so"
+
+
+def build_library() -> Path:
+  """Compile the kernel unless this source's library already exists.
+
+  ``-Xptxas -v`` output (registers, shared memory, spills) is kept for
+  ``build_log()``.  The library is written under a temporary name and moved
+  into place, so a concurrent process never loads a half-written file.
+  """
+  global _build_log
+  out = library_path()
+  if out.exists():
+    return out
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+  cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
+  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+  if proc.returncode != 0:
+    raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                       f"{proc.stdout}{proc.stderr}")
+  os.replace(tmp, out)
+  _build_log = proc.stdout + proc.stderr
+  return out
+
+
+def build_log() -> str:
+  """The compiler's report from this process's build ('' if it loaded a
+  library built earlier)."""
+  return _build_log
+
+
+def load():
+  """Build (if needed) and load the kernel library; idempotent."""
+  global _lib
+  with _lib_lock:
+    if _lib is None:
+      lib = ctypes.CDLL(str(build_library()))
+      fn = lib.simd2_semiring_mmo
+      fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+      fn.restype = ctypes.c_int
+      _lib = lib
+    return _lib
+
+
+def _check(a: Tensor, b: Tensor, c: Optional[Tensor],
+           k_valid: Optional[Tensor], sr: sr_mod.Semiring) -> None:
+  if a.ndim != 3 or b.ndim != 3:
+    raise ValueError(f"semiring_mmo takes (R, M, K) and (R, K, N), got "
+                     f"{tuple(a.shape)} and {tuple(b.shape)}")
+  r, m, k = a.shape
+  if b.shape[0] != r or b.shape[1] != k:
+    raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}")
+  n = b.shape[2]
+  if b.device != a.device:
+    raise ValueError(f"a on {a.device}, b on {b.device}")
+  if b.dtype != a.dtype:
+    raise TypeError(f"a is {a.dtype}, b is {b.dtype}")
+  allowed = (torch.bool,) if sr.boolean else (torch.float32, torch.bfloat16)
+  if a.dtype not in allowed:
+    raise TypeError(f"{sr.name} takes {allowed}, got {a.dtype}")
+  if c is not None:
+    if tuple(c.shape) != (r, m, n):
+      raise ValueError(f"c must be {(r, m, n)}, got {tuple(c.shape)}")
+    if c.dtype != sr.acc_dtype(a.dtype) or c.device != a.device:
+      raise TypeError(f"c must be {sr.acc_dtype(a.dtype)} on {a.device}, got "
+                      f"{c.dtype} on {c.device}")
+  if k_valid is not None:
+    if (tuple(k_valid.shape) != (r,) or k_valid.dtype != torch.int32
+        or k_valid.device != a.device):
+      raise TypeError(f"k_valid must be int32 of shape {(r,)} on {a.device}, "
+                      f"got {k_valid.dtype} {tuple(k_valid.shape)} on "
+                      f"{k_valid.device}")
+
+
+def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
+                 op: str = "mma", k_valid: Optional[Tensor] = None) -> Tensor:
+  """K1: D[r] = C[r] ⊕ (A[r] ⊗ B[r]) for a (R, M, K) × (R, K, N) stack.
+
+  ``c`` is in the ring's output dtype (``acc_dtype`` of the input);
+  ``k_valid`` (int32, one per request) bounds the live K lanes — lanes at or
+  past it contribute the ⊕-identity and whole K steps past it are skipped.
+  CPU tensors run ``semiring_mmo_plain``; CUDA tensors launch the kernel on
+  the current stream and add one to ``semiring_mmo.launches``.
+  """
+  sr = sr_mod.get(op)
+  _check(a, b, c, k_valid, sr)
+  if a.device.type == "cpu":
+    return semiring_mmo_plain(a, b, c, op=sr.name, k_valid=k_valid)
+  if a.device.type != "cuda":
+    raise ValueError(f"semiring_mmo runs on cuda or cpu, not {a.device}")
+  tensors = (a, b) + tuple(t for t in (c, k_valid) if t is not None)
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError("semiring_mmo's kernel takes contiguous tensors")
+  r, m, k = a.shape
+  n = b.shape[2]
+  if r > _MAX_GRID_YZ or math.ceil(m / TILE[0]) > _MAX_GRID_YZ:
+    raise ValueError(f"grid too large: R={r}, M={m}")
+  if max(m, k, n) >= 2 ** 31:
+    raise ValueError(f"dimension too large for the kernel: M={m} K={k} N={n}")
+  out = torch.empty((r, m, n), dtype=sr.acc_dtype(a.dtype), device=a.device)
+  if out.numel() == 0:
+    return out
+  if sr.boolean:  # the kernel reads and writes {0,1} bytes
+    a, b = a.view(torch.uint8), b.view(torch.uint8)
+    c = None if c is None else c.view(torch.uint8)
+    d = out.view(torch.uint8)
+  else:
+    d = out
+  lib = load()
+  with torch.cuda.device(a.device):
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.simd2_semiring_mmo(
+        _OP_CODES[sr.name], _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+        None if c is None else c.data_ptr(),
+        None if k_valid is None else k_valid.data_ptr(), d.data_ptr(),
+        r, m, k, n, stream)
+  if rc != 0:
+    raise RuntimeError(f"semiring_mmo kernel launch failed for {sr.name} "
+                       f"{a.dtype} R={r} M={m} K={k} N={n}: error code {rc}")
+  semiring_mmo.launches += 1
+  return out
+
+
+semiring_mmo.launches = 0
+
+
+def semiring_mmo_plain(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
+                       op: str = "mma",
+                       k_valid: Optional[Tensor] = None) -> Tensor:
+  """The kernel's function in plain PyTorch: blocked broadcast-⊗ + ⊕-reduce.
+
+  Same arithmetic as the kernel: operands widen to f32 (bool for orand),
+  lanes at or past ``k_valid`` take the contraction pads, the result rounds
+  once to the output dtype.  K blocks are sized so one block's
+  (R, M, bk, N) intermediate stays near ``_PLAIN_BLOCK_ELEMS`` elements.
+  """
+  sr = sr_mod.get(op)
+  r, m, k = a.shape
+  n = b.shape[-1]
+  work = torch.bool if sr.boolean else torch.float32
+  af, bf = a.to(work), b.to(work)
+  kmax = k
+  if k_valid is not None:
+    pa, pb = (False, False) if sr.boolean else sr_mod.contraction_pads(sr)
+    kv = k_valid.to(a.device).clamp(0, k)
+    live = torch.arange(k, device=a.device)[None, :] < kv[:, None]  # (R, K)
+    af = torch.where(live[:, None, :], af, pa)
+    bf = torch.where(live[:, :, None], bf, pb)
+    kmax = int(kv.max()) if r else 0
+  acc = sr.identity_like((r, m, n), work, device=a.device)
+  bk = max(1, min(kmax, _PLAIN_BLOCK_ELEMS // max(1, r * m * n)))
+  for k0 in range(0, kmax, bk):
+    prod = sr.otimes(af[:, :, k0:k0 + bk, None], bf[:, None, k0:k0 + bk, :])
+    acc = sr.oplus(acc, sr_mod.oplus_reduce(sr, prod, dim=2))
+  if c is not None:
+    acc = sr.oplus(acc, c.to(work))
+  return acc.to(sr.acc_dtype(a.dtype))

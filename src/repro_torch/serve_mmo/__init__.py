@@ -1,0 +1,47 @@
+"""MMO serving engine — shape-bucketed batching for semiring workloads.
+
+Counterpart of ``repro.serve_mmo`` in batch mode with the FIFO policy:
+
+  api.py        — problem requests (apsp / knn / reachability / raw mmo) and
+                  result futures,
+  scheduler.py  — request queue bucketed by (kind, op, padded shape, dtype,
+                  static params); bucket picking delegates to a policy,
+  policy.py     — scheduling policies (FIFO),
+  batching.py   — pad-and-stack micro-batcher: one batch function per bucket
+                  executes a whole request batch on the device (per-request
+                  convergence masks for closures),
+  cache.py      — executable cache keyed by (bucket, batch, backend),
+  engine.py     — submit()/futures, synchronous step() or a background
+                  serving loop, per-request latency stats, NaN validation.
+
+Quickstart::
+
+    from repro_torch.serve_mmo import MMOEngine, apsp_request
+
+    eng = MMOEngine(backend="pallas", max_batch=8)   # device="cuda"
+    futs = [eng.submit(apsp_request(w)) for w in weight_matrices]
+    eng.run_until_idle()
+    dist = futs[0].result().value
+"""
+from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
+                                       MMOResult, NonFiniteResultError,
+                                       ProblemRequest, RejectedError,
+                                       apsp_request, closure_request,
+                                       knn_request, mmo_request,
+                                       reachability_request)
+from repro_torch.serve_mmo.cache import ExecutableCache
+from repro_torch.serve_mmo.engine import EngineStats, MMOEngine
+from repro_torch.serve_mmo.policy import (FifoPolicy, QueueEntry,
+                                          SchedulingPolicy, make_policy)
+from repro_torch.serve_mmo.scheduler import (BucketKey, BucketScheduler,
+                                             bucket_dim, contract_shape,
+                                             request_bucket)
+
+__all__ = [
+    "BucketKey", "BucketScheduler", "DeadlineExceededError", "EngineStats",
+    "ExecutableCache", "FifoPolicy", "MMOEngine", "MMOFuture", "MMOResult",
+    "NonFiniteResultError", "ProblemRequest", "QueueEntry", "RejectedError",
+    "SchedulingPolicy", "apsp_request", "bucket_dim", "closure_request",
+    "contract_shape", "knn_request", "make_policy", "mmo_request",
+    "reachability_request", "request_bucket",
+]

@@ -1,0 +1,466 @@
+"""The MMO serving engine: micro-batching over shape buckets, batch mode.
+
+Counterpart of ``repro/serve_mmo/engine.py`` with ``mode="batch"`` and the
+FIFO policy.  One engine owns a bucket scheduler, an executable cache and
+the request bookkeeping; it runs on one device (``device="cuda"`` by
+default, which raises without a card).  Two ways to run it:
+
+  * synchronous — ``submit()`` then ``step()`` / ``run_until_idle()`` (or
+    just ``future.result()``, which drives steps lazily);
+  * background loop — ``start()`` spawns a serving thread that batches
+    whatever is queued as fast as it drains; ``submit()`` is then fully
+    async and ``future.result()`` blocks on the completion event.
+
+Batches execute outside the queue lock, so a long closure batch never
+blocks concurrent ``submit`` calls.  A batch's results are NaN-validated
+before any future is fulfilled; a failed batch fails all of its requests
+(retry and bisection come with the resilience layer).
+
+The reference engine's other knobs belong to modules not ported yet.  Each
+is accepted by name and raises ``NotImplementedError`` naming its
+ROADMAP.md item when set to anything but its inert value; none is silently
+ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.mmo import BACKENDS
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.serve_mmo import batching
+from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
+                                       NonFiniteResultError, ProblemRequest)
+from repro_torch.serve_mmo.cache import ExecutableCache
+from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
+                                             bucket_dim)
+
+_ITEM6_ADMISSION = "Queue 1 item 6 (admission control)"
+_ITEM6_ESTIMATOR = "Queue 1 item 6 (service estimator and batch cap)"
+_ITEM7 = "Queue 1 item 7 (tuning: cost table and auto dispatch)"
+_ITEM8 = "Queue 1 item 8 (request arena)"
+_ITEM9_OBS = "Queue 1 item 9 (metrics, tracing and HTTP observability)"
+_ITEM9_RES = "Queue 1 item 9 (resilience: faults, retries, breakers)"
+_ITEM11 = "Queue 1 item 11 (distributed schedules)"
+
+# reference knob → (values that ask for nothing, ROADMAP.md item porting it)
+_UNPORTED_KNOBS = {
+    "cost_table": ((None,), _ITEM7),
+    "mesh": ((None,), _ITEM11),
+    "schedule": (("auto", "local"), _ITEM11),
+    "shard_flops": ((None,), _ITEM11),
+    "max_queue": ((None,), _ITEM6_ADMISSION),
+    "tenant_quota": ((None,), _ITEM6_ADMISSION),
+    "max_backlog_s": ((None,), _ITEM6_ADMISSION),
+    "admission": ((None,), _ITEM6_ADMISSION),
+    "adaptive": ((False,), _ITEM6_ESTIMATOR),
+    "estimator": ((None,), _ITEM6_ESTIMATOR),
+    "max_batch_seconds": ((None,), _ITEM6_ESTIMATOR),
+    "deadline_lookback_s": ((None,), _ITEM6_ESTIMATOR),
+    "metrics_window": ((None,), _ITEM9_OBS),
+    "trace": ((False,), _ITEM9_OBS),
+    "trace_capacity": ((None,), _ITEM9_OBS),
+    "tracer": ((None,), _ITEM9_OBS),
+    "faults": ((None,), _ITEM9_RES),
+    "transient_retries": ((0,), _ITEM9_RES),
+    "retry_backoff_s": ((None,), _ITEM9_RES),
+    "bisect": ((False,), _ITEM9_RES),
+    "breaker_threshold": ((None,), _ITEM9_RES),
+    "breaker_probe_s": ((None,), _ITEM9_RES),
+    "watchdog_s": ((None,), _ITEM9_RES),
+    "fallback_backends": ((None,), _ITEM9_RES),
+    "resilience": ((None,), _ITEM9_RES),
+    "arena_capacity": ((None,), _ITEM8),
+    "arena_g": ((None,), _ITEM8),
+}
+
+
+def _check_knobs(knobs: dict) -> None:
+  for name, value in knobs.items():
+    if name not in _UNPORTED_KNOBS:
+      raise TypeError(f"MMOEngine() got an unexpected keyword argument "
+                      f"{name!r}")
+    inert, item = _UNPORTED_KNOBS[name]
+    if not any(value is v or (type(value) is type(v) and value == v)
+               for v in inert):
+      raise NotImplementedError(
+          f"MMOEngine({name}={value!r}) is not ported yet: see ROADMAP.md "
+          f"{item}")
+
+
+def bucket_label(key) -> str:
+  return f"{key.kind}/{key.op}/{'x'.join(str(d) for d in key.shape)}"
+
+
+def _to_numpy(x) -> np.ndarray:
+  return x.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class RequestRecord:
+  request_id: int
+  kind: str
+  op: str
+  bucket: tuple
+  batch_size: int
+  arrival_s: float
+  scheduled_s: float
+  completed_s: float
+
+  @property
+  def latency_s(self) -> float:
+    return self.completed_s - self.arrival_s
+
+
+@dataclasses.dataclass
+class EngineStats:
+  completed: int
+  batches: int
+  mean_batch: float
+  latencies_s: np.ndarray
+  cache: dict
+  rejected: int = 0
+  expired: int = 0
+
+  def percentile(self, q: float) -> float:
+    if len(self.latencies_s) == 0:
+      return float("nan")
+    return float(np.percentile(self.latencies_s, q))
+
+  def summary(self) -> str:
+    if len(self.latencies_s):
+      lat = (f"p50={self.percentile(50) * 1e3:.1f}ms "
+             f"p99={self.percentile(99) * 1e3:.1f}ms")
+    else:
+      lat = "p50=n/a p99=n/a"
+    return (f"completed={self.completed} batches={self.batches} "
+            f"mean_batch={self.mean_batch:.2f} {lat} "
+            f"rejected={self.rejected} expired={self.expired} "
+            f"cache_hits={self.cache['hits']} "
+            f"cache_misses={self.cache['misses']}")
+
+
+class MMOEngine:
+  """Serving engine for semiring problem requests (see api.py).
+
+  ``backend`` is one of ``core.mmo.BACKENDS`` for every bucket ('pallas' —
+  the SIMD² unit kernel — by default); ``max_batch`` bounds a batch and
+  ``min_bucket`` floors the padded shape.  ``clock`` injects a monotonic
+  time source for arrival/deadline bookkeeping.  Requests carrying
+  ``deadline_s`` that are still queued past their deadline fail with
+  ``DeadlineExceededError``.
+  """
+
+  def __init__(self, *, backend: str = "pallas", max_batch: int = 8,
+               min_bucket: int = MIN_BUCKET, device=DEFAULT_DEVICE,
+               policy="fifo", clock=None, validate_results: bool = True,
+               mode: str = "batch", **knobs):
+    _check_knobs(knobs)
+    if mode == "arena":
+      raise NotImplementedError(
+          f"mode='arena' is not ported yet: see ROADMAP.md {_ITEM8}")
+    if mode != "batch":
+      raise ValueError(f"unknown mode {mode!r}; one of ('batch', 'arena')")
+    if backend == "auto":
+      raise NotImplementedError(
+          f"backend='auto' is not ported yet: see ROADMAP.md {_ITEM7}")
+    if backend == "megakernel":
+      raise NotImplementedError(
+          "backend='megakernel' needs kernel K2: see ROADMAP.md Queue 2, K2")
+    if backend not in BACKENDS:
+      raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    self.device = resolve_device(device)
+    self.backend = backend
+    self.mode = mode
+    self.validate_results = bool(validate_results)
+    self._clock = clock if clock is not None else time.perf_counter
+    self._decisions: dict = {}  # BucketKey → (backend, block cfg)
+    self.scheduler = BucketScheduler(policy=policy, min_bucket=min_bucket,
+                                     max_batch=max_batch, clock=self._clock)
+    self.cache = ExecutableCache()
+    self._lock = threading.RLock()
+    self._work = threading.Condition(self._lock)
+    self._idle = threading.Condition(self._lock)  # signaled: _pending empty
+    self._records: list[RequestRecord] = []
+    self._batches = 0
+    self._expired = 0
+    self._next_id = 0
+    self._pending: dict[int, MMOFuture] = {}
+    self._inflight: set[int] = set()  # popped from the queue, executing now
+    self._thread: Optional[threading.Thread] = None
+    self._running = False
+    self._stopped = False  # stop() was called; submit refuses until start()
+
+  # -- submission ------------------------------------------------------------
+
+  def submit(self, req: ProblemRequest) -> MMOFuture:
+    """Queue one request; returns its future.  Raises RuntimeError after
+    ``stop()`` until ``start()`` is called again."""
+    fut = MMOFuture(self, req)
+    with self._work:
+      if self._stopped:
+        raise RuntimeError(
+            "submit() on a stopped engine: stop() shut the serving loop "
+            "down; call start() to resume accepting requests")
+      req.request_id = self._next_id
+      self._next_id += 1
+      req.arrival_s = self._clock()
+      if req.deadline_s is not None and req.deadline_at is None:
+        req.deadline_at = req.arrival_s + float(req.deadline_s)
+      self.scheduler.add(req)
+      self._pending[req.request_id] = fut
+      self._work.notify()
+    return fut
+
+  def pending(self) -> int:
+    with self._lock:
+      return len(self._pending)
+
+  # -- execution -------------------------------------------------------------
+
+  @staticmethod
+  def _batch_bucket(r: int) -> int:
+    """Round the batch size up to a power of two: the request axis is
+    bucketed like the problem axes, so one bucket spawns at most
+    log2(max_batch)+1 executables instead of one per arrival count."""
+    return bucket_dim(r, 1)
+
+  def resolve_backend(self, key) -> tuple:
+    """(backend, block cfg) for one bucket — the dispatch decision, memoized
+    under the engine lock so cache keys stay stable.  Without tuning every
+    bucket takes the engine's backend with its default block."""
+    with self._lock:
+      dec = self._decisions.get(key)
+      if dec is None:
+        dec = (self.backend, ())
+        self._decisions[key] = dec
+      return dec
+
+  def _exec_key(self, key, rb: int, backend: str, block: tuple,
+                schedule: str) -> tuple:
+    """Executable-cache key, laid out as the reference's (placement
+    included; the mesh slot stays None until sharding is ported)."""
+    return (key, rb, backend, block, schedule, None)
+
+  def _build(self, key, rb: int, args):
+    backend, block = self.resolve_backend(key)
+    return self.cache.get_or_compile(
+        self._exec_key(key, rb, backend, block, "local"),
+        lambda: batching.make_batch_fn(key, backend=backend, block=block,
+                                       device=self.device),
+        args)
+
+  def _expire_locked(self, reqs) -> None:
+    """Fail requests whose deadline passed while queued.  Engine lock held."""
+    self._expired += len(reqs)
+    for r in reqs:
+      fut = self._pending.pop(r.request_id, None)
+      if fut is not None:
+        fut._fail(DeadlineExceededError(
+            f"request {r.request_id} ({r.kind}/{r.op}) missed its "
+            f"{r.deadline_s:g}s deadline while queued"))
+    if not self._pending:
+      self._idle.notify_all()
+
+  def step(self) -> int:
+    """Schedule + execute one bucket batch; returns #requests completed."""
+    with self._lock:
+      picked = self.scheduler.next_batch(now=self._clock())
+      expired = self.scheduler.take_expired()
+      if expired:
+        self._expire_locked(expired)
+      if picked is None:
+        return 0
+      key, reqs = picked
+      self._inflight.update(r.request_id for r in reqs)
+    scheduled_s = self._clock()
+    try:
+      results = self._execute(key, reqs)
+    except Exception as e:  # noqa: BLE001 — the batch fails, serving goes on
+      self._fail_requests(reqs, e)
+      return 0
+    return self._complete(key, reqs, results, scheduled_s)
+
+  def _execute(self, key, reqs) -> list:
+    """Stack, build (cache), run on the device, validate and split."""
+    rb = self._batch_bucket(len(reqs))
+    # fill the padded batch slots with copies of the last request — wasted
+    # compute bounded at 2×, in exchange for a bounded executable set
+    stacked = batching.stack_batch(key, reqs + [reqs[-1]] * (rb - len(reqs)))
+    compiled = self._build(key, rb, stacked)
+    out = compiled(*batching.to_device(stacked, self.device))
+    out = (tuple(_to_numpy(x) for x in out)
+           if isinstance(out, (tuple, list)) else _to_numpy(out))
+    if self.validate_results:
+      bad = batching.validate_finite(key, out, len(reqs))
+      if bad:
+        # NaN means the arm misbehaved (±inf is legitimate tropical output)
+        raise NonFiniteResultError(bucket_label(key), bad)
+    results = batching.split_results(key, reqs, out)
+    if len(results) != len(reqs):
+      raise RuntimeError(f"split_results returned {len(results)} results "
+                         f"for {len(reqs)} requests in {bucket_label(key)}")
+    return results
+
+  def _complete(self, key, reqs, results, scheduled_s: float) -> int:
+    completed_s = self._clock()
+    with self._lock:
+      self._batches += 1
+      for r, res in zip(reqs, results):
+        self._inflight.discard(r.request_id)
+        self._records.append(RequestRecord(
+            request_id=r.request_id, kind=r.kind, op=r.op, bucket=tuple(key),
+            batch_size=len(reqs), arrival_s=r.arrival_s,
+            scheduled_s=scheduled_s, completed_s=completed_s))
+        fut = self._pending.pop(r.request_id, None)
+        if fut is not None:
+          fut._fulfill(res)
+      if not self._pending:
+        self._idle.notify_all()
+    return len(reqs)
+
+  def _fail_requests(self, reqs, exc) -> None:
+    with self._lock:
+      for r in reqs:
+        self._inflight.discard(r.request_id)
+        fut = self._pending.pop(r.request_id, None)
+        if fut is not None:
+          fut._fail(exc)
+      if not self._pending:
+        self._idle.notify_all()
+
+  def run_until_idle(self) -> int:
+    """Drain the queue synchronously; returns total requests completed."""
+    total = 0
+    while True:
+      done = self.step()
+      with self._lock:
+        drained = len(self.scheduler) == 0
+      if done == 0 and drained:
+        return total
+      total += done
+
+  def _check_dropped(self, fut: MMOFuture):
+    """Raise if the scheduler lost this request: still pending, but neither
+    queued nor inside an executing batch — an engine bug."""
+    rid = fut.request.request_id
+    with self._lock:
+      dropped = (rid in self._pending and rid not in self._inflight
+                 and len(self.scheduler) == 0)
+    if dropped:
+      raise RuntimeError(
+          f"request {rid} ({fut.request.kind}/{fut.request.op}) was "
+          f"dropped: the queue drained without completing it — engine bug")
+
+  def _drive(self, fut: MMOFuture, timeout: Optional[float]):
+    """Future.result() plumbing: wait on the loop, or step synchronously."""
+    deadline = None if timeout is None else time.perf_counter() + timeout
+    while (self._thread is not None and self._thread.is_alive()
+           and not fut.done()):
+      self._check_dropped(fut)
+      if deadline is not None and time.perf_counter() > deadline:
+        return
+      wait = 0.05 if deadline is None else max(
+          0.0, min(0.05, deadline - time.perf_counter()))
+      if fut._event.wait(wait):
+        return
+    while not fut.done():
+      if deadline is not None and time.perf_counter() > deadline:
+        return
+      if self.step() == 0 and not fut.done():
+        self._check_dropped(fut)
+        wait = 0.005 if deadline is None else max(
+            0.0, min(0.005, deadline - time.perf_counter()))
+        fut._event.wait(wait)
+
+  def prewarm(self, sample_reqs) -> int:
+    """Build every (bucket, pow2-batch) executable the sample's buckets can
+    produce, without executing anything.  Returns #executables built; after
+    it, traffic confined to those buckets causes zero cache misses."""
+    from repro_torch.serve_mmo.scheduler import request_bucket
+    with self._lock:
+      min_bucket = self.scheduler.min_bucket
+      max_batch = self.scheduler.max_batch
+    seen = {request_bucket(req, min_bucket) for req in sample_reqs}
+    before = self.cache.misses
+    for key in seen:
+      rb = 1
+      while True:
+        self._build(key, rb, batching.abstract_batch(key, rb))
+        if rb >= max_batch:
+          break
+        rb = self._batch_bucket(min(2 * rb, max_batch))
+    return self.cache.misses - before
+
+  # -- background serving loop -----------------------------------------------
+
+  def start(self):
+    """Spawn the background serving thread (idempotent; re-arms submit
+    after a stop())."""
+    with self._lock:
+      self._stopped = False
+      if self._running:
+        return
+      self._running = True
+    self._thread = threading.Thread(target=self._loop, name="mmo-serve",
+                                    daemon=True)
+    self._thread.start()
+
+  def stop(self, *, drain: bool = True):
+    """Stop the loop; with ``drain`` finish everything queued first (without
+    a running loop, drain synchronously).  Later ``submit`` calls raise
+    until ``start()`` is called again."""
+    with self._lock:
+      self._stopped = True
+    if drain:
+      if self._thread is not None and self._thread.is_alive():
+        with self._idle:
+          while self._pending and self._thread.is_alive():
+            self._idle.wait(timeout=0.5)
+      else:
+        self.run_until_idle()
+    with self._work:
+      self._running = False
+      self._work.notify_all()
+    if self._thread is not None:
+      self._thread.join()
+      self._thread = None
+
+  def _loop(self):
+    if self.device.type == "cuda":
+      torch.cuda.set_device(self.device)
+    while True:
+      with self._work:
+        while self._running and len(self.scheduler) == 0:
+          self._work.wait()
+        if not self._running:
+          return
+      self.step()
+
+  # -- stats -----------------------------------------------------------------
+
+  def stats(self) -> EngineStats:
+    with self._lock:
+      recs = list(self._records)
+      batches = self._batches
+      expired = self._expired
+    lat = np.asarray([r.latency_s for r in recs], dtype=np.float64)
+    return EngineStats(
+        completed=len(recs),
+        batches=batches,
+        mean_batch=(len(recs) / batches) if batches else 0.0,
+        latencies_s=lat,
+        cache=self.cache.stats(),
+        expired=expired,
+    )
+
+  def reset_stats(self):
+    with self._lock:
+      self._records.clear()
+      self._batches = 0
+      self._expired = 0

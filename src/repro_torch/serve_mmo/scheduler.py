@@ -1,0 +1,139 @@
+"""Shape-bucketed request scheduler for the MMO serving engine.
+
+Counterpart of ``repro/serve_mmo/scheduler.py``.  Requests land in buckets
+keyed by (kind, op, padded shape, dtypes, static params).  Padding each
+dimension up to the next power of two (with a floor) collapses the long
+tail of problem shapes onto a handful of executables while bounding wasted
+compute at <4×.
+
+Which bucket batches next, and in what order requests leave it, is the
+``SchedulingPolicy``'s decision (FIFO in this slice).  Deadline bookkeeping
+lives here: ``add`` stamps each request's absolute ``deadline_at`` and
+``next_batch`` diverts requests whose deadline already passed into the
+``take_expired`` side channel instead of the batch.
+"""
+from __future__ import annotations
+
+import heapq
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+from repro_torch.serve_mmo.api import ProblemRequest
+from repro_torch.serve_mmo.policy import QueueEntry, make_policy
+from repro_torch.tuning.cost_table import MIN_BUCKET, bucket_dim, bucket_shape
+
+__all__ = ["MIN_BUCKET", "BucketKey", "bucket_dim", "bucket_shape",
+           "contract_shape", "request_bucket", "BucketScheduler"]
+
+
+class BucketKey(NamedTuple):
+  kind: str
+  op: str
+  shape: tuple     # padded problem shape
+  dtypes: tuple    # one dtype string per operand, in operand order
+  params: tuple
+
+
+def contract_shape(key: BucketKey) -> tuple:
+  """The (M, K, N) contraction a bucket's executable runs per request."""
+  if key.kind == "mmo":
+    return key.shape
+  if key.kind == "closure":
+    (nb,) = key.shape
+    return (nb, nb, nb)
+  if key.kind == "knn":
+    qb, rb, db = key.shape  # addnorm contracts the feature dim
+    return (qb, db, rb)
+  raise ValueError(f"unknown kind {key.kind!r}")
+
+
+def request_bucket(req: ProblemRequest,
+                   min_bucket: int = MIN_BUCKET) -> BucketKey:
+  """Deterministic bucket assignment for one request.  Every operand's dtype
+  goes into the key: an executable is dtype-exact, so two requests may share
+  it only if all their operands agree."""
+  dtypes = tuple(str(np.dtype(a.dtype)) for a in req.arrays.values())
+  return BucketKey(kind=req.kind, op=req.op,
+                   shape=bucket_shape(req.shape, min_bucket),
+                   dtypes=dtypes, params=req.params)
+
+
+class BucketScheduler:
+  """Request queue + policy-driven bucket picker (host-side)."""
+
+  def __init__(self, *, policy="fifo", min_bucket: int = MIN_BUCKET,
+               max_batch: int = 8, clock=None):
+    if max_batch < 1:
+      raise ValueError("max_batch must be >= 1")
+    self.policy = make_policy(policy)
+    self.min_bucket = min_bucket
+    self.max_batch = max_batch
+    self._clock = clock if clock is not None else time.perf_counter
+    self._buckets: dict[BucketKey, list[QueueEntry]] = {}  # heaps
+    self._seq = 0
+    self._expired: list[ProblemRequest] = []
+
+  def __len__(self) -> int:
+    return sum(len(q) for q in self._buckets.values())
+
+  def add(self, req: ProblemRequest) -> BucketKey:
+    now = self._clock()
+    if req.deadline_s is not None and req.deadline_at is None:
+      req.deadline_at = now + float(req.deadline_s)
+    key = request_bucket(req, self.min_bucket)
+    entry = QueueEntry(self._seq, req, self.policy.request_rank(req, now))
+    self._seq += 1
+    heapq.heappush(self._buckets.setdefault(key, []), entry)
+    self.policy.on_add(entry, key, self)
+    return key
+
+  def next_batch(self, now: Optional[float] = None) -> Optional[tuple]:
+    """(BucketKey, [requests]) for the policy's chosen bucket, or None.
+
+    Requests whose deadline already passed are diverted to
+    ``take_expired``; a pick whose bucket expires away entirely falls
+    through to the next pick, so a non-None return always carries at least
+    one live request.
+    """
+    if now is None:
+      now = self._clock()
+    while True:
+      key = self.policy.pick(self, now)
+      if key is None:
+        return None
+      cap = min(self.max_batch, self.policy.batch_cap(key, self, now))
+      batch = self._take(key, cap, now)
+      if batch:
+        return key, batch
+
+  def _take(self, key, cap: int, now: float) -> list:
+    """Pop up to ``cap`` live requests from one bucket's heap; expired
+    entries go to the side channel and do not count toward the cap."""
+    heap = self._buckets.get(key)
+    if not heap:
+      self._buckets.pop(key, None)
+      return []
+    batch = []
+    while heap and len(batch) < cap:
+      entry = heapq.heappop(heap)
+      if entry.taken:
+        continue
+      entry.taken = True
+      deadline = entry.req.deadline_at
+      if ((deadline is not None and deadline < now)
+          or self.policy.fail_fast(entry, key, self, now)):
+        self._expired.append(entry.req)
+        continue
+      batch.append(entry.req)
+    if not heap:
+      del self._buckets[key]
+    if batch:
+      self.policy.on_batch(key, batch, self)
+    return batch
+
+  def take_expired(self) -> list:
+    """Requests diverted by deadline expiry since the last call."""
+    expired, self._expired = self._expired, []
+    return expired

@@ -1,0 +1,114 @@
+"""K1's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA GPU and ``nvcc``; each is marked ``cuda``
+and skips with a reason where there is none.  The file imports nothing of
+JAX, so it runs on a machine that has only the port's dependencies:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: bit-exact for the min/max rings and orand in f32, rtol 1e-5 /
+atol 1e-4 for mma and addnorm (the kernel's FMA order differs), 3e-2 for
+bf16.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.semiring import ALL_OPS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import semiring_mmo as sm  # noqa: E402
+
+MMO_SHAPES = [(128, 128, 128), (64, 200, 96), (13, 7, 5), (256, 384, 128),
+              (1, 128, 1)]
+EXACT = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin",
+         "orand")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+  return torch.device("cuda")
+
+
+def assert_parity(got, want, op, *, bf16=False):
+  got = got.float().cpu().numpy().astype(np.float64)
+  want = want.float().cpu().numpy().astype(np.float64)
+  if bf16:
+    np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+  elif op in EXACT:
+    np.testing.assert_array_equal(got, want)
+  else:
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _operands(op, shape, device, batch=1, seed=1):
+  m, k, n = shape
+  g = torch.Generator().manual_seed(seed)
+  a = torch.randn(batch, m, k, generator=g)
+  b = torch.randn(batch, k, n, generator=g)
+  c = torch.randn(batch, m, n, generator=g)
+  if op == "orand":
+    a, b, c = a > 0.8, b > 0.8, c > 1.5
+  return a.to(device), b.to(device), c.to(device)
+
+
+@pytest.mark.parametrize("op", ALL_OPS)
+@pytest.mark.parametrize("shape", MMO_SHAPES)
+def test_kernel_matches_plain(cuda, op, shape):
+  a, b, c = _operands(op, shape, cuda)
+  before = sm.semiring_mmo.launches
+  got = sm.semiring_mmo(a, b, c, op=op)
+  torch.cuda.synchronize()
+  assert sm.semiring_mmo.launches == before + 1
+  assert_parity(got, sm.semiring_mmo_plain(a, b, c, op=op), op)
+
+
+@pytest.mark.parametrize("op", ALL_OPS)
+def test_kernel_per_request_k_valid_matches_plain(cuda, op):
+  """Lanes past each request's k_valid are masked to the ⊕-identity —
+  with real data behind them, so the mask itself is what is checked."""
+  a, b, c = _operands(op, (70, 150, 90), cuda, batch=4, seed=2)
+  kv = torch.tensor([150, 64, 17, 0], dtype=torch.int32, device=cuda)
+  got = sm.semiring_mmo(a, b, c, op=op, k_valid=kv)
+  assert_parity(got, sm.semiring_mmo_plain(a, b, c, op=op, k_valid=kv), op)
+
+
+@pytest.mark.parametrize("op", ["mma", "minplus", "maxmin", "addnorm"])
+def test_kernel_bf16_matches_plain(cuda, op):
+  g = torch.Generator().manual_seed(4)
+  a = torch.randn(2, 64, 96, generator=g).to(cuda, torch.bfloat16)
+  b = torch.randn(2, 96, 32, generator=g).to(cuda, torch.bfloat16)
+  got = sm.semiring_mmo(a, b, op=op)
+  want = sm.semiring_mmo_plain(a, b, op=op)
+  assert got.dtype == want.dtype
+  assert_parity(got, want, op, bf16=True)
+
+
+def test_kernel_propagates_nan_like_torch_minimum(cuda):
+  a = torch.ones(1, 8, 8, device=cuda)
+  a[0, 3, 2] = float("nan")
+  got = sm.semiring_mmo(a, a, a, op="minplus")
+  want = sm.semiring_mmo_plain(a, a, a, op="minplus")
+  assert torch.equal(torch.isnan(got), torch.isnan(want))
+  assert bool(torch.isnan(got[0, 3]).any())
+
+
+def test_batched_entry_point_launches_once(cuda):
+  a, b, _ = _operands("minplus", (32, 40, 24), cuda, batch=6)
+  before = sm.semiring_mmo.launches
+  got = ops.semiring_mmo(a.reshape(2, 3, 32, 40), b.reshape(2, 3, 40, 24),
+                         op="minplus", k_valid=40)
+  assert sm.semiring_mmo.launches == before + 1
+  assert_parity(got.reshape(6, 32, 24), sm.semiring_mmo_plain(a, b,
+                                                              op="minplus"),
+                "minplus")
+
+
+def test_wrapper_refuses_non_contiguous_operands(cuda):
+  a, b, _ = _operands("minplus", (16, 16, 16), cuda)
+  with pytest.raises(ValueError, match="contiguous"):
+    sm.semiring_mmo(a.transpose(1, 2), b, op="minplus")

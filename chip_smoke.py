@@ -6,18 +6,35 @@
 Phases (any failure exits non-zero):
 
   1. device and card — needs CUDA; prints the nvidia-smi name/power line;
-  2. build — compiles the SIMD² unit kernel (K1) from the checkout's source;
-  3. kernel vs its plain PyTorch version on the card — all nine rings at
-     three shapes, a batched ragged k_valid case, bf16, and one 4096³
-     minplus step C ⊕ C⊗C;
-  4. main path — ``MMOEngine(backend="pallas", max_batch=8)`` serves a
-     mixed stream sized from the paper's Table 4 "small" column (APSP 4096,
-     reachability 1024, KNN 4096 queries × 16384×16 corpus, a 4096³ minplus
-     mmo, and a ragged bucket of 8 APSP requests with n in 200–256), with
-     the kernel's launch counter reset just before and read just after;
-     every result is then held against the plain path on the card;
-  5. timing — the kernel, its plain version and (for mma) torch.matmul at
-     the main path's shapes, with each shape's bound on this card.
+  2. build — compiles the SIMD² unit kernel (K1) and the fused closure
+     fixpoint (K2) from the checkout's sources, one nvcc each, in parallel,
+     and prints each one's ptxas summary;
+  3. kernels vs their plain PyTorch versions on the card — K1: all nine
+     rings at three shapes, a batched ragged k_valid case, bf16, and one
+     4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
+     algorithms at n̄ ∈ {12, 64, 200} (ragged kv, budgets that differ, a
+     frozen request), a NaN edge, and one minplus Leyzorek chunk (g = 2) at
+     4096; then K2's fused arm against the K1 dispatch arm, which must be
+     bit-identical on every ring, mma included;
+  4. main path, batch mode — ``MMOEngine(backend="pallas", max_batch=8)``
+     serves a mixed stream sized from the paper's Table 4 "small" column
+     (APSP 4096, reachability 1024, KNN 4096 queries × 16384×16 corpus, a
+     4096³ minplus mmo, and a ragged bucket of 8 APSP requests with n in
+     200–256), with the kernels' launch counters reset just before and read
+     just after; every result is then held against the plain path on the
+     card;
+  4b. the fused arm — ``MMOEngine(backend="megakernel")`` serves the
+     stream's closure requests; every result must equal the 'pallas'
+     engine's, K2 must launch and K1 must not;
+  4c. arena mode — ``MMOEngine(mode="arena", arena_capacity=8, arena_g=4)``
+     serves the same closure requests plus 48 small ones (n ∈ {12, 24, 48};
+     minplus, orand, maxmin) in three waves, each submitted while slots of
+     the earlier waves are live; every result must equal batch mode on the
+     'pallas' arm, with no executable built after prewarm;
+  5. timing — K1, its plain version and (for mma) torch.matmul at the main
+     path's shapes; K2 per chunk at the main path's shapes and its plain
+     version; the APSP-4096 fixpoint on the dispatch arm (one host sync per
+     iteration) against the fused arm; each with its bound on this card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -92,6 +109,19 @@ def bound_ms(op: str, dtype: str, r: int, m: int, k: int, n: int,
           "operations" if t_ops >= t_bytes else "bytes")
 
 
+def fixpoint_bound_ms(dtype: str, r: int, n: int, live_steps_kv: int,
+                      has_adj: bool) -> tuple:
+  """Least time for one K2 chunk: Σ over live (request, step) pairs of
+  2·n²·kv ring operations at the card's peak for the type, or the stack read
+  once and written once (plus the constant A for Bellman-Ford) at HBM
+  bandwidth — whichever is larger."""
+  isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
+  t_ops = 2.0 * n * n * live_steps_kv / PEAK_OPS[dtype]
+  t_bytes = isz * r * n * n * (2 + int(has_adj)) / PEAK_BYTES_S
+  return (max(t_ops, t_bytes) * 1e3,
+          "operations" if t_ops >= t_bytes else "bytes")
+
+
 def cuda_time_ms(fn, reps: int) -> float:
   import torch
   fn()
@@ -146,6 +176,154 @@ def phase_kernel_vs_plain(sm, torch, gen):
   torch.cuda.synchronize()
 
 
+IDENTITY_RINGS = ("mma", "minplus", "maxplus", "minmul", "maxmul", "minmax",
+                  "maxmin", "orand")
+
+
+def rand_closure_stack(cl, torch, op: str, n: int, r: int, seed: int):
+  """(R, n, n) prepared adjacencies in ring ``op``'s conventions; mma
+  strictly upper-triangular so its closure stays finite."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  missing, _ = cl.closure_pad_values(op)
+  if op == "orand":
+    w = rng.random((r, n, n)) > 0.9
+  else:
+    w = rng.uniform(0.2, 1.5, (r, n, n)).astype(np.float32)
+    if op == "mma":
+      w = np.triu(0.1 * w, k=1).astype(np.float32)
+    w = np.where(rng.random((r, n, n)) > 0.7, w,
+                 np.float32(missing)).astype(w.dtype)
+  return cl.prepare_adjacency(torch.from_numpy(w), op=op)
+
+
+def chunk_case(cl, torch, op, algorithm, n, seed):
+  """Four requests: ragged kv, budgets that differ, one frozen request."""
+  dev = "cuda"
+  c = rand_closure_stack(cl, torch, op, n, 4, seed).to(dev).contiguous()
+  kv = torch.tensor([n, max(1, n - 3), max(1, n // 2), n], dtype=torch.int32,
+                    device=dev)
+  act = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+  it = torch.tensor([0, 2, 5, 7], dtype=torch.int32, device=dev)
+  glim = torch.tensor([4, 2, 1, 4], dtype=torch.int32, device=dev)
+  return c, (c if algorithm == "bellman_ford" else None), kv, act, it, glim
+
+
+def check_chunk(name, got, want, op) -> float:
+  """K2 vs its plain version: counters and flags exact, the iterate under
+  ``check``'s tolerance for the ring."""
+  import torch
+  if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+    raise AssertionError(f"{name}: counters/flags {got[1].tolist()} "
+                         f"{got[2].tolist()} vs {want[1].tolist()} "
+                         f"{want[2].tolist()}")
+  return check(name, got[0], want[0], op)
+
+
+def phase_fixpoint_vs_plain(mk, cl, torch, adj_big) -> float:
+  """Phase 3, K2: every ⊗-identity ring × both algorithms at three sizes,
+  a NaN edge, and one 4096 minplus Leyzorek chunk (g = 2).  Returns the
+  4096 chunk's max |err|."""
+  for op in IDENTITY_RINGS:
+    for algorithm in ("leyzorek", "bellman_ford"):
+      for n in (12, 64, 200):
+        c, adj, kv, act, it, glim = chunk_case(cl, torch, op, algorithm, n,
+                                               seed=n)
+        got = mk.fixpoint_chunk(c, adj, kv, act, it, glim, op=op, g_steps=4)
+        want = mk.fixpoint_chunk_plain(c, adj, kv, act, it, glim, op=op,
+                                       g_steps=4)
+        check_chunk(f"K2 {op} {algorithm} n={n} kv={kv.tolist()} "
+                    f"glim={glim.tolist()} act={act.tolist()}", got, want,
+                    op)
+        if not torch.equal(got[0][3], c[3]):
+          raise AssertionError(f"K2 {op} {algorithm} n={n}: frozen moved")
+  c = rand_closure_stack(cl, torch, "minplus", 64, 2, seed=3)
+  c[0, 0, 1] = float("nan")
+  c = c.cuda().contiguous()
+  vec = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+  one = torch.ones(2, dtype=torch.int32, device="cuda")
+  zero = torch.zeros(2, dtype=torch.int32, device="cuda")
+  got = mk.fixpoint_chunk(c, c, vec, one, zero, vec, op="minplus",
+                          g_steps=64)
+  want = mk.fixpoint_chunk_plain(c, c, vec, one, zero, vec, op="minplus",
+                                 g_steps=64)
+  check_chunk(f"K2 minplus NaN edge, converged at {got[1].tolist()}", got,
+              want, "minplus")
+  if got[2].tolist() != [0, 0]:
+    raise AssertionError("K2: the NaN-edge request did not converge")
+  one = torch.ones(1, dtype=torch.int32, device="cuda")
+  vec = torch.tensor([adj_big.shape[-1]], dtype=torch.int32, device="cuda")
+  two = torch.tensor([2], dtype=torch.int32, device="cuda")
+  zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+  got = mk.fixpoint_chunk(adj_big, None, vec, one, zero, two, op="minplus",
+                          g_steps=2)
+  want = mk.fixpoint_chunk_plain(adj_big, None, vec, one, zero, two,
+                                 op="minplus", g_steps=2)
+  err = check_chunk("K2 minplus leyzorek 4096 g=2", got, want, "minplus")
+  torch.cuda.synchronize()
+  return err
+
+
+def phase_fused_vs_dispatch(cl, torch) -> None:
+  """Phase 3, K2 against K1: the fused arm and the per-iteration dispatch
+  arm must agree bit for bit, iteration counts included, on every ring."""
+  solvers = {"leyzorek": cl.batched_leyzorek_closure,
+             "bellman_ford": cl.batched_bellman_ford_closure}
+  valid = [96, 70, 33]
+  for op in IDENTITY_RINGS:
+    adj = rand_closure_stack(cl, torch, op, 96, 3, seed=7)
+    for i, v in enumerate(valid):  # isolated-vertex padding past v
+      adj[i] = torch.from_numpy(cl.pad_adjacency(adj[i, :v, :v].numpy(), 96,
+                                                 op=op))
+    adj = adj.cuda()
+    kv = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    for algorithm, solve in solvers.items():
+      want, want_it = solve(adj, op=op, backend="pallas", valid_n=kv)
+      got, it = solve(adj, op=op, fixpoint_backend="megakernel",
+                      megakernel_g=3, valid_n=kv)
+      same = torch.equal(it, want_it) and equal_nan(got, want)
+      log(f"[check] K2 fused vs K1 dispatch {op} {algorithm} R=3 n=96 "
+          f"valid={valid}: iterations={it.tolist()} "
+          f"{'bit-identical' if same else 'FAIL'}")
+      if not same:
+        raise AssertionError(f"fused arm differs from dispatch: {op} "
+                             f"{algorithm}")
+  torch.cuda.synchronize()
+
+
+def small_waves(graphs, api):
+  """48 small closure requests in three waves of 16: n ∈ {12, 24, 48};
+  minplus (Bellman-Ford on sparse graphs, so slots stay live for several
+  ticks), orand and maxmin (Leyzorek)."""
+  waves = []
+  for w in range(3):
+    wave = []
+    for i in range(16):
+      n = (12, 24, 48)[(w + i) % 3]
+      seed = 1000 + 16 * w + i
+      kind = i % 3
+      if kind == 0:
+        wave.append(api.apsp_request(graphs.weighted_digraph(
+            n, 2.5 / n, seed=seed), algorithm="bellman_ford"))
+      elif kind == 1:
+        wave.append(api.reachability_request(graphs.boolean_digraph(
+            n, 1.5 / n, seed=seed)))
+      else:
+        wave.append(api.closure_request(graphs.capacity_graph(
+            n, 0.1, seed=seed), op="maxmin"))
+    waves.append(wave)
+  return waves
+
+
+def same_result(got, want) -> bool:
+  import numpy as np
+  return (got.value.dtype == want.value.dtype
+          and got.value.shape == want.value.shape
+          and np.array_equal(got.value, want.value,
+                             equal_nan=got.value.dtype.kind == "f")
+          and got.extras["iterations"] == want.extras["iterations"])
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -167,18 +345,30 @@ def main() -> int:
   from repro_torch.apps import graphs
   from repro_torch.apps.solvers import smallest_k
   from repro_torch.core import closure as cl
+  from repro_torch import serve_mmo as api
+  from repro_torch.kernels import closure_megakernel as mk
+  from repro_torch.kernels import nvcc
   from repro_torch.kernels import semiring_mmo as sm
   from repro_torch.serve_mmo import (MMOEngine, apsp_request, knn_request,
                                      mmo_request, reachability_request)
 
   # -- phase 2: build ---------------------------------------------------------
   t0 = time.perf_counter()
-  sm.build_library()
+  nvcc.build_all([sm.LIBRARY, mk.LIBRARY])
   sm.load()
-  log(f"[build] {sm.library_path().name} in {time.perf_counter() - t0:.1f}s")
+  mk.load()
+  log(f"[build] {sm.library_path().name}, {mk.library_path().name} in "
+      f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel)")
   regs = sorted({line.split("Used")[1].split(",")[0].strip()
                  for line in sm.build_log().splitlines() if "Used" in line})
   log(f"[build] ptxas: {regs}")
+  k2_ptxas = sorted({line.split("Used", 1)[1].strip()
+                     for line in mk.build_log().splitlines()
+                     if "Used" in line})
+  spills = sorted({line.strip() for line in mk.build_log().splitlines()
+                   if "spill" in line and not line.strip().startswith(
+                       "0 bytes")})
+  log(f"[build] K2 ptxas: {k2_ptxas} spills: {spills}")
 
   # -- phase 3: kernel vs plain ---------------------------------------------
   gen = torch.Generator().manual_seed(0)
@@ -191,6 +381,8 @@ def main() -> int:
   step_p = sm.semiring_mmo_plain(adj_big, adj_big, adj_big, op="minplus")
   big_err = check("minplus step C ⊕ C⊗C 4096³", step_k, step_p, "minplus")
   del step_k, step_p
+  k2_err = phase_fixpoint_vs_plain(mk, cl, torch, adj_big)
+  phase_fused_vs_dispatch(cl, torch)
 
   # -- phase 4: the main path -----------------------------------------------
   rng = np.random.default_rng(7)
@@ -209,6 +401,7 @@ def main() -> int:
   built = engine.prewarm(reqs)
   log(f"[main] prewarm built {built} executables")
   sm.semiring_mmo.launches = 0
+  mk.fixpoint_chunk.launches = 0
   engine.start()
   try:
     t0 = time.perf_counter()
@@ -218,6 +411,8 @@ def main() -> int:
   finally:
     engine.stop()
   launches = sm.semiring_mmo.launches
+  if mk.fixpoint_chunk.launches != 0:
+    raise AssertionError("the 'pallas' engine launched K2")
   st = engine.stats()
   log(f"[main] {st.summary()}")
   log(f"[main] stream: {len(reqs)} requests in {wall:.3f}s = "
@@ -292,6 +487,86 @@ def main() -> int:
     raise AssertionError("APSP 4096 spot rows fail the plain checks")
   log(f"[main] apsp 4096: iterations={it_big}, spot rows ok")
 
+  # -- phase 4b: the fused arm serves the closure requests --------------------
+  closure_idx = [i for i, r in enumerate(reqs) if r.kind == "closure"]
+  fused = MMOEngine(backend="megakernel", max_batch=8, device="cuda")
+  built_fused = fused.prewarm([reqs[i] for i in closure_idx])
+  sm.semiring_mmo.launches = 0
+  mk.fixpoint_chunk.launches = 0
+  fused.start()
+  try:
+    t0 = time.perf_counter()
+    ffuts = [fused.submit(reqs[i]) for i in closure_idx]
+    fres = [f.result(timeout=900) for f in ffuts]
+    fwall = time.perf_counter() - t0
+  finally:
+    fused.stop()
+  k2_batch, k1_fused = mk.fixpoint_chunk.launches, sm.semiring_mmo.launches
+  fst = fused.stats()
+  log(f"[fused] {fst.summary()}")
+  log(f"[fused] {len(closure_idx)} closure requests in {fwall:.3f}s, "
+      f"p50={fst.percentile(50) * 1e3:.1f}ms "
+      f"p99={fst.percentile(99) * 1e3:.1f}ms, closure_megakernel "
+      f"launches={k2_batch}, semiring_mmo launches={k1_fused}")
+  if k2_batch <= 0 or k1_fused != 0:
+    raise AssertionError(f"fused arm: K2 launches {k2_batch}, K1 {k1_fused}")
+  if fused.cache.misses != built_fused:
+    raise AssertionError(f"cache built during serving: {fused.cache.stats()}")
+  for i, got in zip(closure_idx, fres):
+    if not same_result(got, results[i]):
+      raise AssertionError(f"fused arm differs from 'pallas' on request {i}")
+  log(f"[fused] all {len(fres)} results equal the 'pallas' engine's "
+      f"(values and iterations)")
+
+  # -- phase 4c: arena mode, Table-4 closures + three waves of small ones ----
+  waves = small_waves(graphs, api)
+  arena_eng = MMOEngine(mode="arena", arena_capacity=8, arena_g=4,
+                        device="cuda")
+  table4 = [reqs[i] for i in closure_idx]
+  built_arena = arena_eng.prewarm(table4 + [r for w in waves for r in w])
+  sm.semiring_mmo.launches = 0
+  mk.fixpoint_chunk.launches = 0
+  t0 = time.perf_counter()
+  afuts = [arena_eng.submit(r) for r in table4 + waves[0]]
+  arena_eng.step()
+  wave_futs = [afuts[len(table4):]]
+  for wave in waves[1:]:
+    live = sum(not f.done() for f in wave_futs[-1])
+    if live == 0:
+      raise AssertionError("no slot of the previous wave is still live")
+    log(f"[arena] submitting a wave of {len(wave)} with {live} of the "
+        f"previous wave's requests still resident")
+    wave_futs.append([arena_eng.submit(r) for r in wave])
+    afuts += wave_futs[-1]
+    arena_eng.step()
+  arena_eng.run_until_idle()
+  awall = time.perf_counter() - t0
+  ares = [f.result(timeout=60) for f in afuts]
+  k2_arena, k1_arena = mk.fixpoint_chunk.launches, sm.semiring_mmo.launches
+  ticks = sum(a["ticks"] for a in arena_eng.arena_stats().values())
+  ast = arena_eng.stats()
+  log(f"[arena] {ast.summary()}")
+  log(f"[arena] {len(afuts)} requests in {awall:.3f}s, "
+      f"p50={ast.percentile(50) * 1e3:.1f}ms "
+      f"p99={ast.percentile(99) * 1e3:.1f}ms, ticks={ticks}, "
+      f"closure_megakernel launches={k2_arena}, semiring_mmo launches="
+      f"{k1_arena}, arenas={len(arena_eng.arena_stats())}")
+  if k2_arena <= 0 or k1_arena != 0:
+    raise AssertionError(f"arena: K2 launches {k2_arena}, K1 {k1_arena}")
+  if arena_eng.cache.misses != built_arena:
+    raise AssertionError(f"arena built after prewarm: "
+                         f"{arena_eng.cache.stats()}")
+  small = [r for w in waves for r in w]
+  batch_small = MMOEngine(backend="pallas", max_batch=8, device="cuda")
+  bfuts = [batch_small.submit(r) for r in small]
+  batch_small.run_until_idle()
+  want_all = [results[i] for i in closure_idx] + [f.result() for f in bfuts]
+  for j, (got, want) in enumerate(zip(ares, want_all)):
+    if not same_result(got, want):
+      raise AssertionError(f"arena result {j} differs from batch 'pallas'")
+  log(f"[arena] all {len(ares)} results equal batch mode on 'pallas' "
+      f"(values and iterations); cache misses after prewarm: 0")
+
   # -- phase 5: timing at the main path's shapes ------------------------------
   cases = []
   x = adj_big
@@ -334,14 +609,72 @@ def main() -> int:
            "library_ms": lib_ms, "max_abs_err": err}
     rows_out.append(row)
     log(f"[time] {json.dumps(row)}")
+  # K2 per chunk at the main path's shapes: the first chunk of each
+  # closure bucket (g = 8, the fused arm's default), from the adjacency
+  k2_rows = []
+  k2_cases = [("minplus", adj_big, None, "APSP 4096 chunk"),
+              ("orand", reach_t, None, "GTC 1024 chunk"),
+              ("minplus", rag, rag_kv, "ragged APSP 8x256 chunk")]
+  for op, x, kv, label in k2_cases:
+    r, n = x.shape[0], x.shape[-1]
+    kv = (torch.full((r,), n, dtype=torch.int32, device="cuda")
+          if kv is None else kv)
+    act = torch.ones(r, dtype=torch.int32, device="cuda")
+    it0 = torch.zeros(r, dtype=torch.int32, device="cuda")
+    glim = torch.full((r,), 8, dtype=torch.int32, device="cuda")
+    args = (x, None, kv, act, it0, glim)
+    got = mk.fixpoint_chunk(*args, op=op, g_steps=8)
+    big = n >= 4096
+    ms = cuda_time_ms(lambda: mk.fixpoint_chunk(*args, op=op, g_steps=8),
+                      2 if big else 10)
+    plain_ms = cuda_time_ms(
+        lambda: mk.fixpoint_chunk_plain(*args, op=op, g_steps=8), 1)
+    want = mk.fixpoint_chunk_plain(*args, op=op, g_steps=8)
+    err = max_abs_err(got[0], want[0])
+    steps = got[1].to(torch.int64)
+    live_kv = int((steps * kv.clamp(0, n)).sum())
+    b_ms, b_by = fixpoint_bound_ms(str(x.dtype).removeprefix("torch."), r, n,
+                                   live_kv, False)
+    row = {"case": label, "op": op, "shape": [r, n], "g": 8,
+           "steps": got[1].tolist(), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "max_abs_err": err}
+    k2_rows.append(row)
+    log(f"[time] K2 {json.dumps(row)}")
+  # the same fixpoints on both arms, host clock to the result: dispatch
+  # (K1 + one sync per iteration) vs fused (K2 + one sync per chunk), in
+  # turns, for APSP 4096 and the ragged 8x256 bucket
+  arms = {"dispatch": dict(backend="pallas"),
+          "fused": dict(fixpoint_backend="megakernel")}
+  for label, x, kv in (("APSP 4096", adj_big, None),
+                       ("ragged APSP 8x256", rag, rag_kv)):
+    walls = {a: [] for a in arms}
+    for arm in ("dispatch", "fused", "fused", "dispatch") * 2:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      _, it_f = cl.batched_leyzorek_closure(x, op="minplus", valid_n=kv,
+                                            **arms[arm])
+      torch.cuda.synchronize()
+      walls[arm].append((time.perf_counter() - t0) * 1e3)
+    log(f"[time] {label} fixpoint (iterations {it_f.tolist()}), host clock "
+        f"ms: dispatch {walls['dispatch']} fused {walls['fused']}")
+
   head = rows_out[0]
+  k2 = k2_rows[0]
   record = {"kernels": [{
       "name": "semiring_mmo", "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
       "launches": launches, "max_abs_err": big_err, "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-      "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]}
+      "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
+      "name": "closure_megakernel", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
+      "replaces": "src/repro/kernels/closure_megakernel.py:164",
+      "launches": k2_batch + k2_arena, "max_abs_err": k2_err,
+      "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+      "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+      "library_ms": None}]}
   log(json.dumps(record))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,11 @@ Counterpart of ``repro/core/closure.py``:
   * Floyd-Warshall as the classic O(V³) one-pass reference.
 
 The reference runs each fixpoint as one ``lax.while_loop`` that never syncs
-with the host.  Here the loop is Python over device tensors and syncs once
-per iteration, to read whether any request is still changing
-(``bool(active.any())``); the fused fixpoint kernel K2 (ROADMAP Queue 2)
-removes that sync.
+with the host.  Here the per-iteration ('dispatch') loop is Python over
+device tensors and syncs once per iteration, to read whether any request is
+still changing (``bool(active.any())``); the fused arm
+(``fixpoint_backend="megakernel"``, kernel K2) syncs once per chunk of
+``megakernel_g`` iterations.
 """
 from __future__ import annotations
 
@@ -146,17 +147,29 @@ def _batched_fixpoint(adj: Tensor, step_fn, max_iters: int,
   return c, iters
 
 
-def _check_batched(adj: Tensor, fixpoint_backend: str, backend: str):
+def _fused_arm(adj: Tensor, fixpoint_backend: str, backend: str) -> bool:
+  """Validate the batched solvers' arm choice; True for the fused arm
+  (``fixpoint_backend="megakernel"``, or the cost-table spelling
+  ``backend="megakernel"``)."""
   if adj.ndim < 3:
     raise ValueError(f"batched closure needs (R, n, n) input, got "
                      f"{tuple(adj.shape)}")
   if fixpoint_backend == "megakernel" or backend == "megakernel":
-    raise NotImplementedError(
-        "the fused fixpoint arm needs kernel K2 (closure_megakernel), which "
-        "is not ported yet (ROADMAP Queue 2, K2)")
+    return True
   if fixpoint_backend != "dispatch":
     raise ValueError(f"unknown fixpoint_backend {fixpoint_backend!r}; "
                      f"one of ('dispatch', 'megakernel')")
+  return False
+
+
+def _megakernel_fixpoint(adj, *, op, algorithm, max_iters, valid_n,
+                         megakernel_g):
+  """The fused arm's dispatch target (imported here, on use, so that
+  kernels/ and core/ import each other only at call time)."""
+  from repro_torch.kernels.closure_megakernel import megakernel_fixpoint
+  return megakernel_fixpoint(adj, op=op, algorithm=algorithm,
+                             max_iters=max_iters, valid_n=valid_n,
+                             g=megakernel_g)
 
 
 def batched_leyzorek_closure(adj: Tensor,
@@ -172,15 +185,21 @@ def batched_leyzorek_closure(adj: Tensor,
 
   ``valid_n`` (R,) carries each request's true problem size for ragged
   masked-K work skipping.  Returns (closure (R, n, n), per-request iteration
-  counts (R,) int32).  ``fixpoint_backend="megakernel"`` raises until K2 is
-  ported; ``megakernel_g`` belongs to that arm.
+  counts (R,) int32).
+
+  ``fixpoint_backend="megakernel"`` (or ``backend="megakernel"``) runs the
+  whole fixpoint through the fused kernel K2 in chunks of ``megakernel_g``
+  iterations (kernels/closure_megakernel.py): the same outputs and
+  iteration counts, bit for bit, with one host sync per chunk.
   """
-  del megakernel_g
-  _check_batched(adj, fixpoint_backend, backend)
+  iters = _iters_leyzorek(adj.shape[-1], max_iters)
+  if _fused_arm(adj, fixpoint_backend, backend):
+    return _megakernel_fixpoint(adj, op=op, algorithm="leyzorek",
+                                max_iters=iters, valid_n=valid_n,
+                                megakernel_g=megakernel_g)
   f = mmo_fn or _default_mmo
   return _batched_fixpoint(adj, lambda c, kv: f(c, c, c, op, backend, kv),
-                           _iters_leyzorek(adj.shape[-1], max_iters),
-                           valid_n=valid_n)
+                           iters, valid_n=valid_n)
 
 
 def batched_bellman_ford_closure(adj: Tensor,
@@ -194,10 +213,12 @@ def batched_bellman_ford_closure(adj: Tensor,
                                  megakernel_g: int = 8):
   """All-pairs Bellman-Ford D ← D ⊕ (D ⊗ A) over a (R, n, n) request stack
   (see ``batched_leyzorek_closure``)."""
-  del megakernel_g
-  _check_batched(adj, fixpoint_backend, backend)
-  f = mmo_fn or _default_mmo
   iters = max_iters if max_iters is not None else adj.shape[-1]
+  if _fused_arm(adj, fixpoint_backend, backend):
+    return _megakernel_fixpoint(adj, op=op, algorithm="bellman_ford",
+                                max_iters=iters, valid_n=valid_n,
+                                megakernel_g=megakernel_g)
+  f = mmo_fn or _default_mmo
   return _batched_fixpoint(adj, lambda d, kv: f(d, adj, d, op, backend, kv),
                            iters, valid_n=valid_n)
 

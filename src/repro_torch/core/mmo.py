@@ -8,8 +8,9 @@ reference's so engine and executable-cache keys translate:
               reference's 'vector' arm).  Correct on any device; its
               O(M·bk·N) intermediate per K block makes it slow on the card.
   'xla'     — the ``torch.matmul`` rewrites where an exact one exists
-              (mma → matmul, addnorm → ‖a‖²+‖b‖²−2ab expansion as the
-              reference has it, orand → count > 0), otherwise 'vector'.
+              (mma → matmul, addnorm → ‖a‖²+‖b‖²−2ab expansion on
+              translated coordinates, orand → count > 0), otherwise
+              'vector'.
               The reference's 'xla' arm left the same matmuls to XLA.
   'pallas'  — the hand-written SIMD² unit kernel (``kernels/ops.py`` →
               ``kernels/csrc/semiring_mmo.cu``), the reference's Pallas arm.
@@ -17,8 +18,10 @@ reference's so engine and executable-cache keys translate:
   'auto'    — not ported yet: it needs the cost table and dispatcher
               (ROADMAP Queue 1 item 7), so it raises.
 
-The addnorm rewrite of 'xla' cancels catastrophically at large coordinates
-(ROADMAP Queue 3); 'pallas' and 'vector' compute Σ(a−b)² directly.
+'pallas' and 'vector' compute addnorm's Σ(a−b)² directly.  The reference's
+'xla' expansion cancels catastrophically when coordinates are large; the
+port's first translates both operands by one of B's points, which leaves
+every distance unchanged and the expansion's terms small.
 
 Ragged contraction: ``k_valid`` (an int scalar, or one per leading request)
 declares how many leading K lanes are live.  The caller guarantees K lanes
@@ -131,10 +134,20 @@ def _contract_matmul(a: Tensor, b: Tensor, sr: sr_mod.Semiring) -> Tensor:
 
 
 def _contract_addnorm(a: Tensor, b: Tensor, sr: sr_mod.Semiring) -> Tensor:
-  """Σ_k (a−b)² = Σa² − 2Σab + Σb², as the reference rewrites it (and with
-  its cancellation at large magnitudes: ROADMAP Queue 3)."""
+  """Σ_k (a−b)² = Σa² − 2Σab + Σb² on coordinates translated by B's first
+  column.
+
+  A shared translation leaves every (a−b) unchanged, and it keeps the three
+  terms near the points' spread instead of their magnitude, so they no
+  longer cancel catastrophically at large coordinates.  B's first column is
+  a real point in every padded serving layout (pads are appended), unlike
+  a mean over its columns, which padded zero columns would drag away.
+  """
   del sr
   a, b = a.to(torch.float32), b.to(torch.float32)
+  if b.shape[-1] > 0:
+    origin = b[..., :, :1]  # (..., K, 1): one point of B, per feature
+    a, b = a - origin.transpose(-1, -2), b - origin
   ab = torch.matmul(a, b)
   a2 = torch.sum(a * a, dim=-1, keepdim=True)
   b2 = torch.sum(b * b, dim=-2, keepdim=True)
@@ -180,8 +193,7 @@ def mmo(a: Tensor,
     raise ValueError(
         "backend 'megakernel' fuses whole closure fixpoints, not single "
         "contractions — select it via batched_leyzorek_closure / "
-        "batched_bellman_ford_closure(fixpoint_backend='megakernel') once "
-        "kernel K2 is ported (ROADMAP Queue 2, K2)")
+        "batched_bellman_ford_closure(fixpoint_backend='megakernel')")
   if backend == "auto":
     raise NotImplementedError(
         "backend='auto' needs the cost table and dispatcher, which are not "

@@ -11,30 +11,21 @@ The wrapper takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  The library
 is built with ``nvcc`` at first use into ``build/kernels/`` under the
 checkout (one shared library with a plain C interface, loaded with ctypes)
-and cached there by the source's content hash.
+and cached there by the sources' content hash (``kernels/nvcc.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.core import semiring as sr_mod
+from repro_torch.kernels import nvcc
 
 Tensor = torch.Tensor
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "semiring_mmo.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 # Output tile (BM, BN) and K step (BK) compiled into the kernel.
 TILE = (64, 64, 16)
 _MAX_GRID_YZ = 65535
@@ -44,67 +35,15 @@ _PLAIN_BLOCK_ELEMS = 1 << 26
 _OP_CODES = {op: i for i, op in enumerate(sr_mod.ALL_OPS)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
-_lib = None
-_lib_lock = threading.Lock()
-_build_log = ""
-
-
-def _nvcc() -> str:
-  path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-  if not os.path.exists(path):
-    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda/bin: "
-                       "the semiring_mmo kernel cannot be built")
-  return path
-
-
-def library_path() -> Path:
-  """Where the built library for the current source lives."""
-  tag = hashlib.sha256(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f"libsimd2_semiring_mmo_{tag}.so"
-
-
-def build_library() -> Path:
-  """Compile the kernel unless this source's library already exists.
-
-  ``-Xptxas -v`` output (registers, shared memory, spills) is kept for
-  ``build_log()``.  The library is written under a temporary name and moved
-  into place, so a concurrent process never loads a half-written file.
-  """
-  global _build_log
-  out = library_path()
-  if out.exists():
-    return out
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-  cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  if proc.returncode != 0:
-    raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                       f"{proc.stdout}{proc.stderr}")
-  os.replace(tmp, out)
-  _build_log = proc.stdout + proc.stderr
-  return out
-
-
-def build_log() -> str:
-  """The compiler's report from this process's build ('' if it loaded a
-  library built earlier)."""
-  return _build_log
-
-
-def load():
-  """Build (if needed) and load the kernel library; idempotent."""
-  global _lib
-  with _lib_lock:
-    if _lib is None:
-      lib = ctypes.CDLL(str(build_library()))
-      fn = lib.simd2_semiring_mmo
-      fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-      fn.restype = ctypes.c_int
-      _lib = lib
-    return _lib
+LIBRARY = nvcc.KernelLibrary(
+    "semiring_mmo", "simd2_semiring_mmo",
+    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
+SOURCE = LIBRARY.source
+library_path = LIBRARY.path
+build_library = LIBRARY.build
+build_log = LIBRARY.build_log
+load = LIBRARY.load
 
 
 def _check(a: Tensor, b: Tensor, c: Optional[Tensor],
@@ -171,10 +110,10 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
     d = out.view(torch.uint8)
   else:
     d = out
-  lib = load()
+  launch = load()
   with torch.cuda.device(a.device):
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.simd2_semiring_mmo(
+    rc = launch(
         _OP_CODES[sr.name], _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         None if c is None else c.data_ptr(),
         None if k_valid is None else k_valid.data_ptr(), d.data_ptr(),

@@ -20,10 +20,10 @@ import time
 import numpy as np
 
 from repro_torch.apps import graphs
-from repro_torch.core.mmo import BACKENDS
 from repro_torch.serve_mmo import (DeadlineExceededError, MMOEngine,
                                    RejectedError, apsp_request, knn_request,
                                    mmo_request, reachability_request)
+from repro_torch.serve_mmo.engine import ENGINE_BACKENDS
 
 TENANTS = ("alpha", "beta", "gamma")
 
@@ -65,7 +65,7 @@ def main(argv=None):
                   help="mean arrival rate (problems/s)")
   ap.add_argument("--duration", type=float, default=3.0,
                   help="traffic window (s)")
-  ap.add_argument("--backend", default="pallas", choices=BACKENDS)
+  ap.add_argument("--backend", default="pallas", choices=ENGINE_BACKENDS)
   ap.add_argument("--max-batch", type=int, default=8)
   ap.add_argument("--min-bucket", type=int, default=8)
   ap.add_argument("--sizes", default="12,24,48",

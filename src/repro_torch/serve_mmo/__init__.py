@@ -1,6 +1,7 @@
 """MMO serving engine — shape-bucketed batching for semiring workloads.
 
-Counterpart of ``repro.serve_mmo`` in batch mode with the FIFO policy:
+Counterpart of ``repro.serve_mmo`` with the FIFO policy, in batch and arena
+mode:
 
   api.py        — problem requests (apsp / knn / reachability / raw mmo) and
                   result futures,
@@ -10,9 +11,12 @@ Counterpart of ``repro.serve_mmo`` in batch mode with the FIFO policy:
   batching.py   — pad-and-stack micro-batcher: one batch function per bucket
                   executes a whole request batch on the device (per-request
                   convergence masks for closures),
+  arena.py      — device-resident slot buffer for closure buckets: admit
+                  between fused K2 ticks, evict on convergence,
   cache.py      — executable cache keyed by (bucket, batch, backend),
   engine.py     — submit()/futures, synchronous step() or a background
-                  serving loop, per-request latency stats, NaN validation.
+                  serving loop, per-request latency stats, NaN validation;
+                  ``mode="arena"`` serves closures from arenas.
 
 Quickstart::
 
@@ -29,6 +33,7 @@ from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
                                        apsp_request, closure_request,
                                        knn_request, mmo_request,
                                        reachability_request)
+from repro_torch.serve_mmo.arena import Eviction, RequestArena
 from repro_torch.serve_mmo.cache import ExecutableCache
 from repro_torch.serve_mmo.engine import EngineStats, MMOEngine
 from repro_torch.serve_mmo.policy import (FifoPolicy, QueueEntry,
@@ -39,8 +44,9 @@ from repro_torch.serve_mmo.scheduler import (BucketKey, BucketScheduler,
 
 __all__ = [
     "BucketKey", "BucketScheduler", "DeadlineExceededError", "EngineStats",
-    "ExecutableCache", "FifoPolicy", "MMOEngine", "MMOFuture", "MMOResult",
-    "NonFiniteResultError", "ProblemRequest", "QueueEntry", "RejectedError",
+    "Eviction", "ExecutableCache", "FifoPolicy", "MMOEngine", "MMOFuture",
+    "MMOResult", "NonFiniteResultError", "ProblemRequest", "QueueEntry",
+    "RejectedError", "RequestArena",
     "SchedulingPolicy", "apsp_request", "bucket_dim", "closure_request",
     "contract_shape", "knn_request", "make_policy", "mmo_request",
     "reachability_request", "request_bucket",

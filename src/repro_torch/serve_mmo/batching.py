@@ -14,7 +14,8 @@ Counterpart of ``repro/serve_mmo/batching.py``.  Three pieces per bucket:
                        so the kernel may skip dead K work.
   ``make_batch_fn``  — the function the executable cache builds:
                        mmo_batched / batched_*_closure (per-request
-                       convergence masks) / addnorm + top-k.
+                       convergence masks; per-iteration or the fused K2
+                       arm) / addnorm + top-k.
   ``split_results``  — slice the padded batch output back to each request's
                        true shape.
 """
@@ -139,22 +140,25 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
   """Function over the stacked device operands for one bucket.
 
   ``backend``/``block`` are the bucket's dispatch decision, baked into the
-  executable-cache key.  Building it for the 'pallas' arm on a card also
-  loads (building if needed) the kernel library, so the first batch pays no
-  build.  Only the single-device ``schedule="local"`` is ported; mesh
-  schedules wait for ROADMAP Queue 1 item 11.
+  executable-cache key.  ``backend="megakernel"`` serves closure buckets
+  through the fused fixpoint K2, with the chunk length G taken from
+  ``block[0]`` (default 8); ``mmo`` refuses it for single contractions.
+  Building for a kernel arm on a card also loads (building if needed) the
+  kernel's library, so the first batch pays no build.  Only the
+  single-device ``schedule="local"`` is ported; mesh schedules wait for
+  ROADMAP Queue 1 item 11.
   """
   if mesh is not None or schedule != "local":
     raise NotImplementedError(
         "sharded bucket schedules are not ported yet (ROADMAP Queue 1 item "
         "11, distributed schedules)")
-  if backend == "megakernel":
-    raise NotImplementedError(
-        "the megakernel arm needs kernel K2, which is not ported yet "
-        "(ROADMAP Queue 2, K2)")
-  if backend == "pallas" and torch.device(device).type == "cuda":
-    from repro_torch.kernels import semiring_mmo as _sm
-    _sm.load()
+  if torch.device(device).type == "cuda":
+    if backend == "pallas":
+      from repro_torch.kernels import semiring_mmo as _sm
+      _sm.load()
+    elif backend == "megakernel":
+      from repro_torch.kernels import closure_megakernel as _mk
+      _mk.load()
 
   def contract(a, b, c, op, kv):
     return mmo_batched(a, b, c, op=op, backend=backend, block=block,
@@ -175,6 +179,15 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
     (algorithm,) = key.params
     solver = (cl_mod.batched_leyzorek_closure if algorithm == "leyzorek"
               else cl_mod.batched_bellman_ford_closure)
+
+    if backend == "megakernel":
+      g = int(block[0]) if block else 8
+
+      def fn(adj, valid):
+        return solver(adj, op=key.op, fixpoint_backend="megakernel",
+                      megakernel_g=g, valid_n=valid)
+
+      return fn
 
     def mmo_fn(a, b, c, op, bk, k_valid=None):
       return mmo(a, b, c, op=op, backend=bk, block=block, k_valid=k_valid)

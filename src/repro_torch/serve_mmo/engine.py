@@ -1,9 +1,13 @@
-"""The MMO serving engine: micro-batching over shape buckets, batch mode.
+"""The MMO serving engine: micro-batching over shape buckets.
 
-Counterpart of ``repro/serve_mmo/engine.py`` with ``mode="batch"`` and the
-FIFO policy.  One engine owns a bucket scheduler, an executable cache and
-the request bookkeeping; it runs on one device (``device="cuda"`` by
-default, which raises without a card).  Two ways to run it:
+Counterpart of ``repro/serve_mmo/engine.py`` with the FIFO policy, in both
+modes: ``mode="batch"`` serves each bucket batch to completion, and
+``mode="arena"`` serves closure buckets from a device-resident slot buffer
+(serve_mmo/arena.py) that admits requests between fused K2 ticks, while
+other buckets still batch.  One engine owns a bucket scheduler, an
+executable cache and the request bookkeeping; it runs on one device
+(``device="cuda"`` by default, which raises without a card).  Two ways to
+run it:
 
   * synchronous — ``submit()`` then ``step()`` / ``run_until_idle()`` (or
     just ``future.result()``, which drives steps lazily);
@@ -13,8 +17,9 @@ default, which raises without a card).  Two ways to run it:
 
 Batches execute outside the queue lock, so a long closure batch never
 blocks concurrent ``submit`` calls.  A batch's results are NaN-validated
-before any future is fulfilled; a failed batch fails all of its requests
-(retry and bisection come with the resilience layer).
+before any future is fulfilled; a failed batch fails all of its requests,
+and a failed arena tick fails every resident of that arena (retry and
+bisection come with the resilience layer).
 
 The reference engine's other knobs belong to modules not ported yet.  Each
 is accepted by name and raises ``NotImplementedError`` naming its
@@ -35,7 +40,10 @@ from repro_torch.core.mmo import BACKENDS
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.serve_mmo import batching
 from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
-                                       NonFiniteResultError, ProblemRequest)
+                                       MMOResult, NonFiniteResultError,
+                                       ProblemRequest)
+from repro_torch.serve_mmo.arena import (DEFAULT_ARENA_G, DEFAULT_CAPACITY,
+                                         RequestArena)
 from repro_torch.serve_mmo.cache import ExecutableCache
 from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
                                              bucket_dim)
@@ -43,7 +51,6 @@ from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
 _ITEM6_ADMISSION = "Queue 1 item 6 (admission control)"
 _ITEM6_ESTIMATOR = "Queue 1 item 6 (service estimator and batch cap)"
 _ITEM7 = "Queue 1 item 7 (tuning: cost table and auto dispatch)"
-_ITEM8 = "Queue 1 item 8 (request arena)"
 _ITEM9_OBS = "Queue 1 item 9 (metrics, tracing and HTTP observability)"
 _ITEM9_RES = "Queue 1 item 9 (resilience: faults, retries, breakers)"
 _ITEM11 = "Queue 1 item 11 (distributed schedules)"
@@ -75,9 +82,11 @@ _UNPORTED_KNOBS = {
     "watchdog_s": ((None,), _ITEM9_RES),
     "fallback_backends": ((None,), _ITEM9_RES),
     "resilience": ((None,), _ITEM9_RES),
-    "arena_capacity": ((None,), _ITEM8),
-    "arena_g": ((None,), _ITEM8),
 }
+# the engine-wide backends: the per-contraction arms, and the fused
+# fixpoint arm, which serves closure buckets (others take 'pallas')
+ENGINE_BACKENDS = BACKENDS + ("megakernel",)
+MODES = ("batch", "arena")
 
 
 def _check_knobs(knobs: dict) -> None:
@@ -148,35 +157,43 @@ class EngineStats:
 class MMOEngine:
   """Serving engine for semiring problem requests (see api.py).
 
-  ``backend`` is one of ``core.mmo.BACKENDS`` for every bucket ('pallas' —
-  the SIMD² unit kernel — by default); ``max_batch`` bounds a batch and
-  ``min_bucket`` floors the padded shape.  ``clock`` injects a monotonic
-  time source for arrival/deadline bookkeeping.  Requests carrying
-  ``deadline_s`` that are still queued past their deadline fail with
-  ``DeadlineExceededError``.
+  ``backend`` is one of ``ENGINE_BACKENDS`` ('pallas' — the SIMD² unit
+  kernel — by default; 'megakernel' runs closure buckets through the fused
+  fixpoint K2 and every other bucket through 'pallas'); ``max_batch`` bounds
+  a batch and ``min_bucket`` floors the padded shape.  ``clock`` injects a
+  monotonic time source for arrival/deadline bookkeeping.  Requests
+  carrying ``deadline_s`` that are still queued past their deadline fail
+  with ``DeadlineExceededError``.
+
+  ``mode="arena"`` serves closure buckets from one ``RequestArena`` each
+  (``arena_capacity`` slots, ``arena_g`` fused iterations per tick): queued
+  closure requests enter free slots the moment they reach the queue head,
+  every live slot advances one K2 launch per step, and each request
+  completes when its slot converges — whatever the arm ``backend`` names.
   """
 
   def __init__(self, *, backend: str = "pallas", max_batch: int = 8,
                min_bucket: int = MIN_BUCKET, device=DEFAULT_DEVICE,
                policy="fifo", clock=None, validate_results: bool = True,
-               mode: str = "batch", **knobs):
+               mode: str = "batch", arena_capacity: int = DEFAULT_CAPACITY,
+               arena_g: int = DEFAULT_ARENA_G, **knobs):
     _check_knobs(knobs)
-    if mode == "arena":
-      raise NotImplementedError(
-          f"mode='arena' is not ported yet: see ROADMAP.md {_ITEM8}")
-    if mode != "batch":
-      raise ValueError(f"unknown mode {mode!r}; one of ('batch', 'arena')")
+    if mode not in MODES:
+      raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if backend == "auto":
       raise NotImplementedError(
           f"backend='auto' is not ported yet: see ROADMAP.md {_ITEM7}")
-    if backend == "megakernel":
-      raise NotImplementedError(
-          "backend='megakernel' needs kernel K2: see ROADMAP.md Queue 2, K2")
-    if backend not in BACKENDS:
-      raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend not in ENGINE_BACKENDS:
+      raise ValueError(f"unknown backend {backend!r}; one of "
+                       f"{ENGINE_BACKENDS}")
+    if arena_capacity < 1 or arena_g < 1:
+      raise ValueError(f"arena_capacity and arena_g must be >= 1, got "
+                       f"{arena_capacity} and {arena_g}")
     self.device = resolve_device(device)
     self.backend = backend
     self.mode = mode
+    self.arena_capacity = int(arena_capacity)
+    self.arena_g = int(arena_g)
     self.validate_results = bool(validate_results)
     self._clock = clock if clock is not None else time.perf_counter
     self._decisions: dict = {}  # BucketKey → (backend, block cfg)
@@ -192,6 +209,7 @@ class MMOEngine:
     self._next_id = 0
     self._pending: dict[int, MMOFuture] = {}
     self._inflight: set[int] = set()  # popped from the queue, executing now
+    self._arenas: dict = {}  # closure BucketKey → RequestArena
     self._thread: Optional[threading.Thread] = None
     self._running = False
     self._stopped = False  # stop() was called; submit refuses until start()
@@ -233,11 +251,16 @@ class MMOEngine:
   def resolve_backend(self, key) -> tuple:
     """(backend, block cfg) for one bucket — the dispatch decision, memoized
     under the engine lock so cache keys stay stable.  Without tuning every
-    bucket takes the engine's backend with its default block."""
+    bucket takes the engine's backend with its default block; the fused
+    arm serves closure buckets only, so under 'megakernel' the others take
+    the per-contraction kernel arm."""
     with self._lock:
       dec = self._decisions.get(key)
       if dec is None:
-        dec = (self.backend, ())
+        backend = self.backend
+        if backend == "megakernel" and key.kind != "closure":
+          backend = "pallas"
+        dec = (backend, ())
         self._decisions[key] = dec
       return dec
 
@@ -268,6 +291,16 @@ class MMOEngine:
       self._idle.notify_all()
 
   def step(self) -> int:
+    """Serve one engine step; returns #requests completed.  Batch mode
+    schedules + executes one bucket batch.  Arena mode admits queued
+    closure requests into free slots, runs one batch step when the queue
+    head is not closure traffic, then ticks every live arena and completes
+    its evictions."""
+    if self.mode == "arena":
+      return self._step_arena()
+    return self._step_batch()
+
+  def _step_batch(self) -> int:
     """Schedule + execute one bucket batch; returns #requests completed."""
     with self._lock:
       picked = self.scheduler.next_batch(now=self._clock())
@@ -334,24 +367,128 @@ class MMOEngine:
       if not self._pending:
         self._idle.notify_all()
 
+  # -- arena mode ------------------------------------------------------------
+
+  def _arena_for_locked(self, key) -> RequestArena:
+    """One arena per closure bucket, created on first use.  Engine lock
+    held."""
+    arena = self._arenas.get(key)
+    if arena is None:
+      arena = RequestArena(key, capacity=self.arena_capacity, g=self.arena_g,
+                           cache=self.cache, device=self.device,
+                           clock=self._clock)
+      self._arenas[key] = arena
+    return arena
+
+  def _arena_live_locked(self) -> bool:
+    """Whether any arena holds resident requests.  Engine lock held; part
+    of every drain condition — an empty queue alone no longer means idle."""
+    return any(a.live_slots() for a in self._arenas.values())
+
+  def _step_arena(self) -> int:
+    """One arena-mode step: admit → (batch step) → tick and evict."""
+    completed = self._step_batch() if self._arena_admit_phase() else 0
+    with self._lock:
+      arenas = [(k, a) for k, a in self._arenas.items() if a.live_slots()]
+    for key, arena in arenas:
+      completed += self._tick_arena(key, arena)
+    return completed
+
+  def _arena_admit_phase(self) -> bool:
+    """Move queued closure requests into free arena slots in the policy's
+    bucket order.  Returns True when the queue head is not closure traffic
+    (the caller then runs one batch step).  Admission stops at a full
+    arena: its slots free up at the next sweep, so no more requests leave
+    the queue than there are slots."""
+    while True:
+      with self._lock:
+        now = self._clock()
+        key = self.scheduler.peek_bucket(now)
+        if key is None:
+          return False
+        if key.kind != "closure":
+          return True
+        arena = self._arena_for_locked(key)
+        free = arena.free_slots()
+        if free <= 0:
+          return False
+        taken = self.scheduler.take_from(key, free, now=now)
+        expired = self.scheduler.take_expired()
+        if expired:
+          self._expire_locked(expired)
+        for r in taken:
+          self._inflight.add(r.request_id)
+          arena.admit(r, now=self._clock())
+
+  def _tick_arena(self, key, arena) -> int:
+    """One tick of one arena — the fused chunk launch and the eviction
+    sweep.  A tick that raises fails every resident request and resets the
+    arena (the reference's behaviour once its retry budget is spent)."""
+    try:
+      arena.tick()
+      evictions = arena.sweep()  # waits for the tick's device flags
+    except Exception as e:  # noqa: BLE001 — the residents fail, serving goes on
+      self._fail_requests(arena.reset(), e)
+      return 0
+    with self._lock:
+      self._batches += 1
+    return self._finish_evictions(key, evictions)
+
+  def _finish_evictions(self, key, evictions) -> int:
+    """Turn evictions into results.  A NaN slot fails alone; its
+    neighbours complete."""
+    completed = 0
+    for ev in evictions:
+      r, value = ev.request, ev.value
+      if (self.validate_results and np.issubdtype(value.dtype, np.floating)
+          and bool(np.isnan(value).any())):
+        self._fail_requests([r], NonFiniteResultError(bucket_label(key),
+                                                      [ev.slot]))
+        continue
+      res = MMOResult(value=value, extras={"iterations": int(ev.iterations)})
+      now = self._clock()
+      with self._lock:
+        self._inflight.discard(r.request_id)
+        self._records.append(RequestRecord(
+            request_id=r.request_id, kind=r.kind, op=r.op, bucket=tuple(key),
+            batch_size=1, arrival_s=r.arrival_s, scheduled_s=ev.admit_s,
+            completed_s=now))
+        fut = self._pending.pop(r.request_id, None)
+        if fut is not None:
+          fut._fulfill(res)
+        if not self._pending:
+          self._idle.notify_all()
+      completed += 1
+    return completed
+
+  def arena_stats(self) -> dict:
+    """Per-arena slot statistics, keyed by bucket label."""
+    with self._lock:
+      arenas = dict(self._arenas)
+    return {bucket_label(k): a.stats() for k, a in arenas.items()}
+
   def run_until_idle(self) -> int:
-    """Drain the queue synchronously; returns total requests completed."""
+    """Drain the queue (and, in arena mode, every resident slot)
+    synchronously; returns total requests completed."""
     total = 0
     while True:
       done = self.step()
       with self._lock:
-        drained = len(self.scheduler) == 0
+        drained = (len(self.scheduler) == 0
+                   and not self._arena_live_locked())
       if done == 0 and drained:
         return total
       total += done
 
   def _check_dropped(self, fut: MMOFuture):
     """Raise if the scheduler lost this request: still pending, but neither
-    queued nor inside an executing batch — an engine bug."""
+    queued nor inside an executing batch or an arena slot — an engine
+    bug."""
     rid = fut.request.request_id
     with self._lock:
       dropped = (rid in self._pending and rid not in self._inflight
-                 and len(self.scheduler) == 0)
+                 and len(self.scheduler) == 0
+                 and not self._arena_live_locked())
     if dropped:
       raise RuntimeError(
           f"request {rid} ({fut.request.kind}/{fut.request.op}) was "
@@ -380,8 +517,9 @@ class MMOEngine:
 
   def prewarm(self, sample_reqs) -> int:
     """Build every (bucket, pow2-batch) executable the sample's buckets can
-    produce, without executing anything.  Returns #executables built; after
-    it, traffic confined to those buckets causes zero cache misses."""
+    produce, without executing anything — in arena mode, a closure bucket's
+    three arena programs instead.  Returns #executables built; after it,
+    traffic confined to those buckets causes zero cache misses."""
     from repro_torch.serve_mmo.scheduler import request_bucket
     with self._lock:
       min_bucket = self.scheduler.min_bucket
@@ -389,6 +527,11 @@ class MMOEngine:
     seen = {request_bucket(req, min_bucket) for req in sample_reqs}
     before = self.cache.misses
     for key in seen:
+      if self.mode == "arena" and key.kind == "closure":
+        with self._lock:
+          arena = self._arena_for_locked(key)
+        arena.prewarm()
+        continue
       rb = 1
       while True:
         self._build(key, rb, batching.abstract_batch(key, rb))
@@ -436,7 +579,8 @@ class MMOEngine:
       torch.cuda.set_device(self.device)
     while True:
       with self._work:
-        while self._running and len(self.scheduler) == 0:
+        while (self._running and len(self.scheduler) == 0
+               and not self._arena_live_locked()):
           self._work.wait()
         if not self._running:
           return

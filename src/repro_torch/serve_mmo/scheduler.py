@@ -10,7 +10,9 @@ Which bucket batches next, and in what order requests leave it, is the
 ``SchedulingPolicy``'s decision (FIFO in this slice).  Deadline bookkeeping
 lives here: ``add`` stamps each request's absolute ``deadline_at`` and
 ``next_batch`` diverts requests whose deadline already passed into the
-``take_expired`` side channel instead of the batch.
+``take_expired`` side channel instead of the batch.  The request arena's
+admission path uses ``peek_bucket`` / ``take_from`` instead: it looks at the
+policy's choice first, then pops only as many requests as it has free slots.
 """
 from __future__ import annotations
 
@@ -108,9 +110,34 @@ class BucketScheduler:
       if batch:
         return key, batch
 
+  def peek_bucket(self, now: Optional[float] = None):
+    """The policy's current bucket choice, popping nothing: the arena
+    admission path peeks to decide whether the queue head is closure
+    traffic (arena-served) or goes through the batch path.  Stale picks are
+    cleaned up as in ``next_batch``."""
+    if now is None:
+      now = self._clock()
+    while True:
+      key = self.policy.pick(self, now)
+      if key is None:
+        return None
+      if self._buckets.get(key):
+        return key
+      self._buckets.pop(key, None)
+
+  def take_from(self, key, limit: int, now: Optional[float] = None) -> list:
+    """Pop up to ``limit`` live requests from one given bucket — the arena
+    admission path, where the free slot count (not max_batch) bounds how
+    many leave the queue.  Same mechanics as ``next_batch``: expired
+    entries are diverted and the policy's bookkeeping runs."""
+    if now is None:
+      now = self._clock()
+    return self._take(key, limit, now)
+
   def _take(self, key, cap: int, now: float) -> list:
     """Pop up to ``cap`` live requests from one bucket's heap; expired
-    entries go to the side channel and do not count toward the cap."""
+    entries go to the side channel and do not count toward the cap.  The
+    shared core of ``next_batch`` and ``take_from``."""
     heap = self._buckets.get(key)
     if not heap:
       self._buckets.pop(key, None)

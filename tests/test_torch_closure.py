@@ -108,12 +108,11 @@ def test_pad_adjacency_refuses_shrinking():
 
 
 def test_megakernel_arm_raises_until_k2_is_ported():
+  """K2 is ported (tests/test_torch_megakernel.py holds the fused arm); what
+  still raises is an unknown fixpoint_backend and a stack that is not
+  (R, n, n)."""
   adj = torch.zeros(1, 4, 4)
   for solver in SOLVERS.values():
-    with pytest.raises(NotImplementedError, match="K2"):
-      solver(adj, op="minplus", fixpoint_backend="megakernel")
-    with pytest.raises(NotImplementedError, match="K2"):
-      solver(adj, op="minplus", backend="megakernel")
     with pytest.raises(ValueError, match="fixpoint_backend"):
       solver(adj, op="minplus", fixpoint_backend="fused")
     with pytest.raises(ValueError, match="R, n, n"):

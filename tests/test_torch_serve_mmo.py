@@ -117,9 +117,8 @@ def test_each_unported_knob_raises(knob):
   tserve.MMOEngine(device="cpu", **{knob: inert[0]})  # inert: accepted
 
 
-@pytest.mark.parametrize("kw", [dict(mode="arena"), dict(policy="deadline"),
-                                dict(policy="fair"), dict(backend="auto"),
-                                dict(backend="megakernel")])
+@pytest.mark.parametrize("kw", [dict(policy="deadline"), dict(policy="fair"),
+                                dict(backend="auto")])
 def test_unported_modes_raise(kw):
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     tserve.MMOEngine(device="cpu", **kw)
@@ -138,10 +137,21 @@ def test_knn_large_coordinates_exact_on_the_kernel_arm():
   """The reference's failing case (coordinates near 1e6), on the port's
   kernel arm: the top-4 of an exact float64 computation on the same float32
   inputs, ties to the lower index — the rewrite's cancellation is gone."""
+  _assert_large_coordinate_knn_exact("pallas")
+
+
+def test_knn_large_coordinates_exact_on_the_xla_arm():
+  """The same case on the 'xla' arm, whose ‖a‖²−2ab+‖b‖² expansion now runs
+  on coordinates translated by one corpus point (corpus rows padded to the
+  bucket are zeros, so a mean would not do)."""
+  _assert_large_coordinate_knn_exact("xla")
+
+
+def _assert_large_coordinate_knn_exact(backend):
   ref_pts, qry_pts = graphs.knn_points(21, 7, 5, seed=3)
   ref_pts = ref_pts + 1.0e6
   qry_pts = qry_pts + 1.0e6
-  eng = tserve.MMOEngine(backend="pallas", device="cpu")
+  eng = tserve.MMOEngine(backend=backend, device="cpu")
   res = eng.submit(tserve.knn_request(qry_pts, ref_pts, k=4)).result()
   d64 = ((qry_pts.astype(np.float64)[:, None, :]
           - ref_pts.astype(np.float64)[None, :, :]) ** 2).sum(-1)
@@ -149,6 +159,26 @@ def test_knn_large_coordinates_exact_on_the_kernel_arm():
   np.testing.assert_array_equal(res.extras["indices"], want)
   np.testing.assert_allclose(res.value, np.take_along_axis(d64, want, 1),
                              rtol=1e-5, atol=1e-4)
+
+
+def test_megakernel_backend_serves_closures_fused_and_the_rest_on_k1(
+    stream):
+  """backend='megakernel' runs closure buckets through the fused fixpoint
+  and every other bucket through the kernel arm: the same results as the
+  'pallas' engine, bit for bit."""
+  payloads, _ = stream
+  want = _serve(tserve.MMOEngine(backend="pallas", device="cpu"), tserve,
+                payloads)
+  eng = tserve.MMOEngine(backend="megakernel", device="cpu")
+  got = _serve(eng, tserve, payloads)
+  for (kind, _), g, w in zip(payloads, got, want):
+    np.testing.assert_array_equal(g.value, w.value)
+    assert g.extras.keys() == w.extras.keys()
+    for k in g.extras:
+      np.testing.assert_array_equal(g.extras[k], w.extras[k])
+  decisions = {key.kind: dec for key, dec in eng._decisions.items()}
+  assert decisions == {"closure": ("megakernel", ()), "mmo": ("pallas", ()),
+                       "knn": ("pallas", ())}
 
 
 def test_background_loop_serves_and_stop_is_terminal():

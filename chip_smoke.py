@@ -6,16 +6,19 @@
 Phases (any failure exits non-zero):
 
   1. device and card — needs CUDA; prints the nvidia-smi name/power line;
-  2. build — compiles the SIMD² unit kernel (K1) and the fused closure
-     fixpoint (K2) from the checkout's sources, one nvcc each, in parallel,
-     and prints each one's ptxas summary;
+  2. build — compiles the SIMD² unit kernel (K1), the fused closure
+     fixpoint (K2) and flash attention (K3) from the checkout's sources, one
+     nvcc each, in parallel, and prints each one's ptxas summary;
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
      rings at three shapes, a batched ragged k_valid case, bf16, and one
      4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
      algorithms at n̄ ∈ {12, 64, 200} (ragged kv, budgets that differ, a
      frozen request), a NaN edge, and one minplus Leyzorek chunk (g = 2) at
      4096; then K2's fused arm against the K1 dispatch arm, which must be
-     bit-identical on every ring, mma included;
+     bit-identical on every ring, mma included; K3 at the LM main path's
+     shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
+     FA_CASES in f32 (a window, head dim 80, Sq ≠ Skv), head dim 128 in
+     bf16, and rows that see no key;
   4. main path, batch mode — ``MMOEngine(backend="pallas", max_batch=8)``
      serves a mixed stream sized from the paper's Table 4 "small" column
      (APSP 4096, reachability 1024, KNN 4096 queries × 16384×16 corpus, a
@@ -34,7 +37,15 @@ Phases (any failure exits non-zero):
   5. timing — K1, its plain version and (for mma) torch.matmul at the main
      path's shapes; K2 per chunk at the main path's shapes and its plain
      version; the APSP-4096 fixpoint on the dispatch arm (one host sync per
-     iteration) against the fused arm; each with its bound on this card.
+     iteration) against the fused arm; each with its bound on this card;
+  6. LM serving — tinyllama-1.1b at full width (22 layers, d 2048) with
+     random weights from a seeded generator serves 4 prompts of 2048
+     tokens, 32 new tokens each, through ``Engine(impl="pallas")``; K3 must
+     launch 22 times for the prefill and never for the decode; the prefill
+     logits are held against the 'xla' arm's and the greedy tokens against
+     the ``Engine(impl="xla")`` tokens under the near-tie rule; then K3, its
+     plain version and scaled_dot_product_attention (the library yardstick,
+     not used by the port) are timed at the main path's shape.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -57,6 +68,23 @@ PEAK_BYTES_S = 3.35e12
 MIN_MAX_RINGS = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin")
 TOL = {"rtol": 1e-5, "atol": 1e-4}   # mma / addnorm: summation order differs
 BF16_TOL = {"rtol": 3e-2, "atol": 3e-2}  # the reference's own bf16 tolerance
+# K3 vs its plain version: the reference kernel test's own tolerances
+# (tests/test_kernels.py): f32 atol 2e-5 (the summation order differs),
+# bf16 atol 3e-2 (one bf16 rounding of the output on top of that)
+FA_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# H100 SXM special-function units: 16 exp2 results per clock per SM
+# (CUDA programming guide, compute capability 9.0) at the 1.98 GHz boost
+# clock on 132 SMs
+SFU_EXP_S = 132 * 16 * 1.98e9
+# LM main path: tinyllama-1.1b prefill of 4 × 2048 tokens, 32 new tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "tinyllama-1.1b", 4, 2048, 32
+# pallas vs xla prefill logits at full width: both arms compute in bf16 and
+# round attention outputs differently (K3 scales after q·k, the xla arm
+# before); a bf16 ulp of difference in a layer's attention output carries
+# through 22 residual layers.  Logits are ~N(0, 1), a bf16 ulp at 1-4 is
+# 0.008-0.03; the bound below is 4 ulps at 4.
+LM_LOGIT_ATOL = 0.125
+TIE_GAP = 2e-2  # the reference's near-tie rule (tests/test_serve.py)
 
 
 def log(msg: str) -> None:
@@ -323,6 +351,240 @@ def same_result(got, want) -> bool:
                              equal_nan=got.value.dtype.kind == "f")
           and got.extras["iterations"] == want.extras["iterations"])
 
+FA_CASES = [
+    # b, h, hkv, sq, skv, d, causal, window (tests/test_kernels.py)
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 96, 160, 32, True, None),
+    (2, 4, 4, 128, 128, 64, False, None),
+    (1, 4, 1, 200, 200, 64, True, 96),
+    (1, 2, 2, 64, 256, 128, True, None),
+    (1, 4, 4, 160, 160, 80, True, None),
+]
+LM_FA_CASE = (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 64, True, None)
+
+
+def fa_inputs(torch, case, dtype, seed):
+  b, h, hkv, sq, skv, d = case[:6]
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  q = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+  k = torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(dtype)
+  v = torch.randn(b, hkv, skv, d, generator=gen, device="cuda").to(dtype)
+  return q, k, v
+
+
+def check_fa(fa, torch, case, dtype, seed=0) -> float:
+  """K3 against its plain version on one case, at FA_ATOL for the dtype."""
+  causal, window = case[6], case[7]
+  q, k, v = fa_inputs(torch, case, dtype, seed)
+  got = fa.flash_attention(q, k, v, causal=causal, window=window)
+  want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+  torch.cuda.synchronize()
+  name = str(dtype).removeprefix("torch.")
+  err = max_abs_err(got, want)
+  ok = (got.dtype == want.dtype and got.shape == want.shape
+        and not bool(torch.isnan(got).any()) and err <= FA_ATOL[name])
+  log(f"[check] K3 {name} {case}: max_abs_err={err!r} "
+      f"{'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError(f"K3 disagrees with its plain version on {case}")
+  return err
+
+
+def phase_flash_vs_plain(fa, torch) -> float:
+  """Phase 3, K3: the LM main path's shape, FA_CASES in f32, head dim 128
+  in bf16, and rows that see no key.  Returns the main shape's max |err|."""
+  main_err = check_fa(fa, torch, LM_FA_CASE, torch.bfloat16)
+  for case in FA_CASES:
+    check_fa(fa, torch, case, torch.float32)
+  check_fa(fa, torch, (1, 16, 2, 300, 300, 128, True, None), torch.bfloat16)
+  # Sq > Skv, causal: rows 0..31 see no key and end as the mean of V (the
+  # TPU kernel's finite mask sentinel), not NaN
+  case = (1, 2, 2, 96, 64, 32, True, None)
+  check_fa(fa, torch, case, torch.float32, seed=5)
+  q, k, v = fa_inputs(torch, case, torch.float32, 5)
+  got = fa.flash_attention(q, k, v, causal=True)[:, :, :32]
+  mean_v = v.mean(dim=2, keepdim=True).expand_as(got)
+  if not torch.allclose(got, mean_v, rtol=0, atol=1e-5):
+    raise AssertionError("K3: rows with no key are not the mean of V")
+  log("[check] K3 rows with no key: the mean of V, as the TPU kernel's")
+  return main_err
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+  """(query, key) pairs a row-aligned causal/window mask lets through."""
+  import numpy as np
+  qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+  hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+  lo = np.maximum(qpos - window + 1, 0) if window is not None else 0
+  return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_bound_ms(case, dtype: str) -> tuple:
+  """Least time for one attention call: 4·D flops and one exp per visible
+  (query, key) pair per head, at the tensor-core peak for the type and the
+  SFU exp rate; or q, k, v read once and out written once at HBM bandwidth
+  — whichever is largest."""
+  b, h, hkv, sq, skv, d, causal, window = case
+  pairs = b * h * visible_pairs(sq, skv, causal, window)
+  isz = {"float32": 4, "bfloat16": 2}[dtype]
+  nbytes = isz * d * (2 * b * h * sq + 2 * b * hkv * skv)
+  t_ops = max(4.0 * d * pairs / PEAK_OPS[dtype], pairs / SFU_EXP_S)
+  t_bytes = nbytes / PEAK_BYTES_S
+  return (max(t_ops, t_bytes) * 1e3,
+          "operations" if t_ops >= t_bytes else "bytes")
+
+
+def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
+  """The 'xla' engine's per-step logits along its own greedy tokens: the
+  same prefill, cache seating and decode steps as ``Engine.generate``."""
+  from repro_torch.launch.serve import seat_cache
+  from repro_torch.train.steps import make_prefill_step
+  last, cache = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+  cache = seat_cache(cfg, cache, max_len, "cuda")
+  steps = [last.float()]
+  for t in range(toks.shape[1] - 1):
+    logits, cache, _ = zoo.forward(model, cfg, {"tokens": toks[:, t:t + 1]},
+                                   mode="decode", cache=cache)
+    steps.append(logits[:, -1].float())
+  return torch.stack(steps, dim=1)  # (B, n_new, V)
+
+
+def phase_lm_serving(fa, torch, card: str) -> dict:
+  """Phase 6: tinyllama-1.1b at full width through ``Engine``."""
+  import numpy as np
+  from repro_torch import configs
+  from repro_torch.launch.serve import Engine
+  from repro_torch.models import zoo
+  from repro_torch.models.transformer import padded_vocab
+  from repro_torch.train.steps import make_prefill_step
+  cfg = configs.get_config(LM_ARCH)
+  t0 = time.perf_counter()
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+  torch.cuda.synchronize()
+  log(f"[lm] {cfg.name}: {zoo.param_count(model)} parameters "
+      f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+      f"{cfg.n_kv_heads} kv heads, head dim {cfg.hd}) built in "
+      f"{time.perf_counter() - t0:.1f}s")
+  prompts = np.random.default_rng(0).integers(
+      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+  max_len = LM_PROMPT + LM_NEW
+  eng = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
+  xla = Engine(cfg, model, max_len=max_len, impl="xla", device="cuda")
+  eng.generate(prompts[:, :128], 2)  # warm-up: cuBLAS, the K3 library
+  xla.generate(prompts[:, :128], 2)
+  fa.flash_attention.launches = 0
+  eng.generate(prompts, 1)
+  prefill_launches = fa.flash_attention.launches
+  # the main path: counts set to 0 just before, read just after
+  fa.flash_attention.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  toks = eng.generate(prompts, LM_NEW)
+  launches = fa.flash_attention.launches
+  peak = torch.cuda.max_memory_allocated()
+  tm = eng.last_timing
+  log(f"[lm] main path: prompts {prompts.shape}, {LM_NEW} new tokens; "
+      f"flash_attention launches: {prefill_launches} for a prefill alone, "
+      f"{launches} for the whole generate")
+  if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
+    raise AssertionError(f"K3 launches: prefill {prefill_launches}, "
+                         f"generate {launches}; want {cfg.n_layers} and "
+                         f"{cfg.n_layers} (none in the decode)")
+  if toks.shape != (LM_BATCH, LM_NEW) or not (
+      (toks >= 0) & (toks < padded_vocab(cfg))).all():
+    raise AssertionError(f"bad tokens {toks.shape}")
+  step_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
+  lm = {"prefill_ms": tm["prefill_s"] * 1e3, "decode_ms_per_token": step_ms,
+        "prefill_tokens_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
+        "decode_tokens_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
+        "generate_tokens_s": LM_BATCH * LM_NEW / (tm["prefill_s"]
+                                                  + tm["decode_s"]),
+        "max_memory_allocated_gib": peak / 2 ** 30, "k3_launches": launches,
+        "card": card}
+  log(f"[lm] {json.dumps(lm)}")
+  xla_toks = xla.generate(prompts, LM_NEW)
+  log(f"[lm] xla arm: prefill {xla.last_timing['prefill_s'] * 1e3:.1f}ms, "
+      f"decode {xla.last_timing['decode_s'] / (LM_NEW - 1) * 1e3:.2f}"
+      f"ms/token")
+  # prefill logits: pallas vs xla on the same model
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  with torch.inference_mode():
+    lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
+    lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+    d = (lp.float() - lx.float()).abs()
+    log(f"[lm] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
+        f"mean |d|={float(d.mean())!r} (atol {LM_LOGIT_ATOL}), logits std "
+        f"{float(lx.float().std())!r}")
+    if not bool(torch.isfinite(lp.float()).all()) or float(
+        d.max()) > LM_LOGIT_ATOL:
+      raise AssertionError("pallas and xla prefill logits disagree")
+    steps = xla_logits_along(cfg, model, zoo, torch, tokens,
+                             torch.as_tensor(xla_toks, device="cuda"), max_len)
+  if not np.array_equal(steps.argmax(dim=-1).cpu().numpy(), xla_toks):
+    raise AssertionError("the xla engine's tokens are not its logits' argmax")
+  top2 = steps.topk(2, dim=-1).values
+  gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+  compared = 0
+  for b in range(LM_BATCH):
+    ties = np.nonzero(gaps[b] < TIE_GAP)[0]
+    upto = int(ties[0]) if len(ties) else LM_NEW
+    if not np.array_equal(toks[b, :upto], xla_toks[b, :upto]):
+      raise AssertionError(f"row {b}: pallas tokens {toks[b, :upto]} vs "
+                           f"xla {xla_toks[b, :upto]} before any near-tie")
+    compared += upto
+  log(f"[lm] greedy tokens pallas == xla on {compared} of "
+      f"{LM_BATCH * LM_NEW} positions (the rest follow a top-2 gap under "
+      f"{TIE_GAP}); identical overall: {np.array_equal(toks, xla_toks)}")
+  profile_generate(torch, eng, prompts, LM_NEW)
+  return lm
+
+
+def profile_generate(torch, eng, prompts, n_new: int) -> None:
+  """Where one generate() spends its time: torch.profiler's kernel time on
+  the card, summed by kernel, against the host wall time of the same call
+  under the profiler and of the unprofiled main-path call before it."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  unprofiled = eng.last_timing["prefill_s"] + eng.last_timing["decode_s"]
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    eng.generate(prompts, n_new)
+    wall = time.perf_counter() - t0
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  busy = sum(e.self_device_time_total for e in kernels) / 1e6
+  log(f"[lm] profile of generate({tuple(prompts.shape)}, {n_new}): "
+      f"{sum(e.count for e in kernels)} kernels, {busy * 1e3:.1f}ms on the "
+      f"card; wall {wall * 1e3:.1f}ms under the profiler "
+      f"({busy / wall:.1%} busy), {unprofiled * 1e3:.1f}ms without "
+      f"({busy / unprofiled:.1%} busy)")
+  for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                  reverse=True)[:8]:
+    log(f"[lm]   {e.self_device_time_total / 1e3:9.2f}ms x{e.count:<6} "
+        f"{e.key[:100]}")
+
+
+def phase_flash_timing(fa, torch, err: float, launches: int) -> dict:
+  """Phase 6: K3, its plain version and SDPA at the main path's shape."""
+  case = LM_FA_CASE
+  q, k, v = fa_inputs(torch, case, torch.bfloat16, 0)
+  ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+  plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                           causal=True), 3)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True), 20)
+  lib_err = max_abs_err(sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                        fa.flash_attention(q, k, v, causal=True))
+  b_ms, b_by = attention_bound_ms(case, "bfloat16")
+  row = {"case": "tinyllama prefill B4 H32/4 S2048 D64 causal bf16",
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": lib_ms, "library_max_abs_err": lib_err,
+         "max_abs_err": err, "launches": launches}
+  log(f"[time] K3 {json.dumps(row)}")
+  return row
+
 
 def main() -> int:
   import numpy as np
@@ -347,6 +609,7 @@ def main() -> int:
   from repro_torch.core import closure as cl
   from repro_torch import serve_mmo as api
   from repro_torch.kernels import closure_megakernel as mk
+  from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import nvcc
   from repro_torch.kernels import semiring_mmo as sm
   from repro_torch.serve_mmo import (MMOEngine, apsp_request, knn_request,
@@ -354,11 +617,13 @@ def main() -> int:
 
   # -- phase 2: build ---------------------------------------------------------
   t0 = time.perf_counter()
-  nvcc.build_all([sm.LIBRARY, mk.LIBRARY])
+  nvcc.build_all([sm.LIBRARY, mk.LIBRARY, fa.LIBRARY])
   sm.load()
   mk.load()
-  log(f"[build] {sm.library_path().name}, {mk.library_path().name} in "
-      f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel)")
+  fa.load()
+  log(f"[build] {sm.library_path().name}, {mk.library_path().name}, "
+      f"{fa.library_path().name} in {time.perf_counter() - t0:.1f}s (one "
+      f"nvcc each, in parallel)")
   regs = sorted({line.split("Used")[1].split(",")[0].strip()
                  for line in sm.build_log().splitlines() if "Used" in line})
   log(f"[build] ptxas: {regs}")
@@ -369,6 +634,17 @@ def main() -> int:
                    if "spill" in line and not line.strip().startswith(
                        "0 bytes")})
   log(f"[build] K2 ptxas: {k2_ptxas} spills: {spills}")
+  k3_log = fa.build_log().splitlines()
+  k3_ptxas = [f"{line.split('kernelI', 1)[1].split('EEEv')[0]}: "
+              f"{k3_log[i + 2].split('Used', 1)[1].strip()}"
+              for i, line in enumerate(k3_log)
+              if "Function properties" in line and "kernelI" in line]
+  k3_spills = sorted({line.strip() for line in k3_log if "spill" in line})
+  k3_smem = {hd: (2 * hd * (fa.TILE[0] + 4) + fa.TILE[1] * hd
+                  + fa.TILE[1] * (fa.TILE[0] + 4)) * 4 for hd in fa.HEAD_DIMS}
+  log(f"[build] K3 ptxas (dtype, head dim: registers): {k3_ptxas}; "
+      f"spills: {k3_spills}; dynamic shared memory per CTA by head dim: "
+      f"{k3_smem} bytes")
 
   # -- phase 3: kernel vs plain ---------------------------------------------
   gen = torch.Generator().manual_seed(0)
@@ -383,6 +659,7 @@ def main() -> int:
   del step_k, step_p
   k2_err = phase_fixpoint_vs_plain(mk, cl, torch, adj_big)
   phase_fused_vs_dispatch(cl, torch)
+  k3_err = phase_flash_vs_plain(fa, torch)
 
   # -- phase 4: the main path -----------------------------------------------
   rng = np.random.default_rng(7)
@@ -659,6 +936,10 @@ def main() -> int:
     log(f"[time] {label} fixpoint (iterations {it_f.tolist()}), host clock "
         f"ms: dispatch {walls['dispatch']} fused {walls['fused']}")
 
+  # -- phase 6: LM serving at full width, then K3 timing ----------------------
+  lm = phase_lm_serving(fa, torch, card)
+  k3 = phase_flash_timing(fa, torch, k3_err, lm["k3_launches"])
+
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
@@ -674,7 +955,14 @@ def main() -> int:
       "launches": k2_batch + k2_arena, "max_abs_err": k2_err,
       "ms": k2["ms"], "plain_ms": k2["plain_ms"],
       "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-      "library_ms": None}]}
+      "library_ms": None}, {
+      "name": "flash_attention", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+      "replaces": "src/repro/kernels/flash_attention.py:107",
+      "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+      "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+      "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+      "library_ms": k3["library_ms"]}]}
   log(json.dumps(record))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

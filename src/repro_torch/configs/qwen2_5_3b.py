@@ -1,0 +1,13 @@
+"""qwen2.5-3b [dense] — GQA kv=2, QKV bias.  [hf:Qwen/Qwen2.5; hf]"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b", family="dense",
+    n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2, d_ff=11008,
+    vocab=151936, head_dim=128, qkv_bias=True, rope_theta=1000000.0,
+)
+
+
+def smoke_config():
+  return CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                        d_ff=128, vocab=512, head_dim=16)

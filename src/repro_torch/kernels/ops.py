@@ -1,7 +1,8 @@
-"""Public batched entry point for the SIMD² unit kernel (K1).
+"""Public entry points for the port's kernels: the SIMD² unit (K1) and flash
+attention (K3).
 
-Counterpart of ``repro/kernels/ops.py::semiring_mmo``.  The reference vmaps
-its 2-D Pallas kernel over leading batch dims; here the leading dims are
+Counterparts of ``repro/kernels/ops.py``.  The reference vmaps its 2-D
+Pallas MMO kernel over leading batch dims; here the leading dims are
 flattened onto the kernel's request axis, which is a grid axis of one
 launch (``blockIdx.z``), not a loop.
 """
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import semiring as sr_mod
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import semiring_mmo as _sm
 
 Tensor = torch.Tensor
@@ -49,3 +51,15 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
           .broadcast_to(batch).reshape(r).contiguous())
   out = _sm.semiring_mmo(a3, b3, c3, op=sr.name, k_valid=kv)
   return out.reshape(batch + (m, n))
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> Tensor:
+  """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Skv, D), one K3 launch.
+
+  Query head h reads KV head h // (H / Hkv); q rows sit at the end of the
+  kv axis.  Operands are made contiguous for the kernel.
+  """
+  return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window, scale=scale)

@@ -1,0 +1,133 @@
+"""The port's LM serving engine against the reference's, on the CPU.
+
+Both engines get the same weights (``convert.from_reference``) and the same
+numpy prompts.  The reference ``Engine`` builds its prefill without
+``impl`` (its 'xla' arm); the port's takes ``impl``, so it is held against
+that engine on both arms, and its 'pallas' prefill against a reference
+prefill step built with ``impl="pallas"`` (the Pallas kernel in interpret
+mode).
+
+Greedy tokens are compared under the reference's near-tie rule
+(tests/test_serve.py): position by position, up to the first step at which
+the reference's own logits put the top two tokens within 2e-2 of each other
+in bf16 (1e-4 in f32, the f32 tolerance) — rounding in two frameworks may
+break such a tie either way, and the continuations differ from there.  For
+the token comparison the LM head is scaled up 8× in both packages, so that
+the smoke models' logits spread (std ≈ 1.3 instead of 0.16) and bf16
+near-ties are rare.  Prefill
+logits: f32 rtol/atol 1e-4; bf16 2e-2, the reference's own bf16 tolerance
+(tests/test_models.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch.serve import Engine as JEngine  # noqa: E402
+from repro.models import zoo as jzoo  # noqa: E402
+from repro.train import make_prefill_step as j_make_prefill_step  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.train.steps import make_prefill_step  # noqa: E402
+
+ARCHS = ["tinyllama-1.1b", "qwen2.5-3b", "granite-8b", "h2o-danube-1.8b"]
+B, S, N_NEW, MAX_LEN = 2, 12, 6, 48
+TIE_GAP = {"bf16": 2e-2, "f32": 1e-4}
+
+
+def _setup(arch, dtype, head_scale=1):
+  jd, td = {"f32": (jnp.float32, torch.float32),
+            "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+  jcfg = jconfigs.get_config(arch, smoke=True).replace(dtype=jd)
+  tcfg = tconfigs.get_config(arch, smoke=True).replace(dtype=td)
+  jparams = jzoo.init(jcfg, jax.random.PRNGKey(2))
+  jparams["lm_head"] = jparams["lm_head"] * head_scale
+  model = convert.from_reference(jax.tree.map(np.asarray, jparams), tcfg,
+                                 device="cpu")
+  prompts = np.random.default_rng(5).integers(0, jcfg.vocab, (B, S),
+                                              dtype=np.int32)
+  return jcfg, tcfg, jparams, model, prompts
+
+
+def _comparable_steps(jparams, jcfg, prompts, toks, gap):
+  """Per row: the steps before the first near-tie of the reference's own
+  logits along its own tokens."""
+  n = toks.shape[1]
+  ok = np.full(B, n)
+  ctx = jnp.asarray(prompts, jnp.int32)
+  for t in range(n):
+    logits, _, _ = jzoo.forward(jparams, jcfg, {"tokens": ctx}, mode="train")
+    lg = np.asarray(logits[:, -1], np.float32)
+    top2 = np.sort(lg, axis=-1)[:, -2:]
+    for b in range(B):
+      if ok[b] == n and top2[b, 1] - top2[b, 0] < gap:
+        ok[b] = t
+    ctx = jnp.concatenate([ctx, jnp.asarray(toks[:, t:t + 1], jnp.int32)],
+                          axis=1)
+  return ok
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_reference_engine(arch, dtype):
+  jcfg, tcfg, jparams, model, prompts = _setup(arch, dtype, head_scale=8)
+  want = JEngine(jcfg, jparams, max_len=MAX_LEN).generate(prompts, N_NEW)
+  ok = _comparable_steps(jparams, jcfg, prompts, want, TIE_GAP[dtype])
+  for impl in ("pallas", "xla"):
+    eng = tserve.Engine(tcfg, model, max_len=MAX_LEN, impl=impl,
+                        device="cpu")
+    got = eng.generate(prompts, N_NEW)
+    assert got.shape == (B, N_NEW) and got.dtype == np.int32
+    assert eng.max_len == (min(MAX_LEN, tcfg.window) if tcfg.window
+                           else MAX_LEN)
+    for b in range(B):
+      np.testing.assert_array_equal(got[b, :ok[b]], want[b, :ok[b]],
+                                    err_msg=f"{arch} {impl} row {b}")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pallas_prefill_matches_reference_pallas_prefill(arch, dtype):
+  jcfg, tcfg, jparams, model, prompts = _setup(arch, dtype)
+  wl, wc = j_make_prefill_step(jcfg, impl="pallas")(
+      jparams, {"tokens": jnp.asarray(prompts)})
+  with torch.inference_mode():
+    gl, gc = make_prefill_step(tcfg, impl="pallas")(
+        model, {"tokens": torch.from_numpy(prompts).long()})
+  tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "f32"
+         else dict(rtol=2e-2, atol=2e-2))
+  np.testing.assert_allclose(gl.float().numpy(),
+                             np.asarray(wl, np.float32), **tol)
+  for name in ("k", "v"):
+    np.testing.assert_allclose(gc[name].float().numpy(),
+                               np.asarray(wc[name], np.float32), **tol)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_main_runs_on_the_cpu(impl, capsys):
+  rc = tserve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--batch", "2",
+                    "--prompt-len", "8", "--gen", "10", "--device", "cpu",
+                    "--impl", impl])
+  assert rc == 0
+  out = capsys.readouterr().out
+  assert f"impl={impl}" in out and "generated (2, 10)" in out
+
+
+def test_main_refuses_a_family_not_ported_yet():
+  with pytest.raises(NotImplementedError, match="item 13"):
+    tserve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+
+
+def test_engine_refuses_a_prompt_longer_than_the_cache():
+  cfg = tconfigs.get_config("h2o-danube-1.8b", smoke=True)  # window 16
+  from repro_torch.models import zoo
+  model = zoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+  eng = tserve.Engine(cfg, model, max_len=64, device="cpu")
+  assert eng.max_len == 16
+  with pytest.raises(ValueError, match="exceeds"):
+    eng.generate(np.zeros((1, 17), np.int32), 2)

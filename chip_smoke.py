@@ -78,12 +78,14 @@ FA_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SFU_EXP_S = 132 * 16 * 1.98e9
 # LM main path: tinyllama-1.1b prefill of 4 × 2048 tokens, 32 new tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "tinyllama-1.1b", 4, 2048, 32
-# pallas vs xla prefill logits at full width: both arms compute in bf16 and
-# round attention outputs differently (K3 scales after q·k, the xla arm
-# before); a bf16 ulp of difference in a layer's attention output carries
-# through 22 residual layers.  Logits are ~N(0, 1), a bf16 ulp at 1-4 is
-# 0.008-0.03; the bound below is 4 ulps at 4.
-LM_LOGIT_ATOL = 0.125
+# pallas vs xla prefill logits at full width, a sanity check of the whole
+# prefill (K3's own gate is its comparison with its plain version).  Both
+# arms compute in bf16 and round attention outputs differently (K3 scales
+# after q·k, the xla arm before); a bf16 ulp of difference in a layer's
+# attention output carries through 22 residual layers.  Measured on an H100
+# with this seed: logits std 0.907, max |d| 0.03125 (one bf16 ulp at 4-8);
+# the limit is twice that.
+LM_LOGIT_ATOL = 0.0625
 TIE_GAP = 2e-2  # the reference's near-tie rule (tests/test_serve.py)
 
 

@@ -14,14 +14,15 @@
 // k > q - window if a window is given.  The running max, the denominator,
 // the accumulator and P are f32; the result is acc / l with l == 0 → 1.
 //
-// Tiles and the sentinel, as the TPU kernel has them.  Query tiles of
-// min(64, Sq) rows and kv tiles of min(64, Skv) keys; a kv tile runs for a
+// Tiles and the sentinel: the TPU kernel's semantics with bq = bkv = 64
+// (its default is 128 x 128).  Query tiles of min(64, Sq) rows and kv tiles
+// of min(64, Skv) keys; a kv tile runs for a
 // query tile unless the whole tile pair is unreachable (causal: the tile's
 // first key is past its last query; window: its last key is at or before
 // the first query minus the window).  Inside a tile that runs, a masked
 // score is the finite -1e30, never -inf, so a query row that sees no key in
 // any tile that ran ends as the mean of V over those tiles (zero rows of
-// the kv tail padding included), exactly as the TPU kernel ends; a row
+// the kv tail padding included), as the TPU kernel ends at 64 x 64; a row
 // whose every tile is skipped ends as zeros.  No caller of the system
 // reaches such a row (prefill has Sq == Skv).
 //
@@ -116,7 +117,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int rows = min(BQ, sq - qi * BQ);      // real rows of this tile
-  const int bkv = min(BKV, skv);               // the TPU kernel's kv block
+  const int bkv = min(BKV, skv);               // the kv block
   const int skv_p = (skv + bkv - 1) / bkv * bkv;  // its padded kv length
   const int q_start = qi * BQ + (skv - sq);    // position of the tile's row 0
   const int q_last = q_start + min(BQ, sq) - 1;

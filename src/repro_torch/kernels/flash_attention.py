@@ -28,7 +28,10 @@ from repro_torch.kernels import nvcc
 
 Tensor = torch.Tensor
 
-# Query and kv tile compiled into the kernel (the TPU kernel's bq and bkv).
+# Query and kv tile compiled into the kernel.  The TPU kernel's default is
+# 128 x 128; the tile matters only to rows that see no key in a block that is
+# not skipped (they get the mean of V over that block), which prefill, with
+# Sq == Skv, never has.
 TILE = (64, 64)
 HEAD_DIMS = (16, 32, 64, 80, 128)
 _NEG = -1e30
@@ -115,14 +118,13 @@ flash_attention.launches = 0
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          scale: Optional[float] = None, bq: int = TILE[0],
-                          bkv: int = TILE[1]) -> Tensor:
+                          scale: Optional[float] = None) -> Tensor:
   """The kernel's function in plain PyTorch, block by block.
 
-  Mirrors the TPU kernel step for step: query blocks of min(bq, Sq) rows
-  and kv blocks of min(bkv, Skv) keys over zero-padded k and v; a kv block
-  updates a query block's rows only if the pair is reachable; masked scores
-  are -1e30; q and k widen to f32, the scale multiplies the dot, P stays f32,
+  Mirrors the kernel step for step: query blocks of min(64, Sq) rows and
+  kv blocks of min(64, Skv) keys (``TILE``) over zero-padded k and v; a kv
+  block updates a query block's rows only if the pair is reachable; masked
+  scores are -1e30; q and k widen to f32, the scale multiplies the dot, P stays f32,
   and l == 0 divides as 1.  GQA groups query heads over their kv head
   instead of expanding k and v.
   """
@@ -131,7 +133,7 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
   hkv, skv = k.shape[1], k.shape[2]
   grp = h // hkv
   scale = d ** -0.5 if scale is None else float(scale)
-  bq_, bkv_ = min(bq, sq), min(bkv, skv)
+  bq_, bkv_ = min(TILE[0], sq), min(TILE[1], skv)
   if sq == 0:
     return torch.empty_like(q)
   sq_p = -(-sq // bq_) * bq_

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
@@ -27,31 +28,28 @@ IMPLS = ("pallas", "xla")
 FLASH_CHUNK = 2048
 
 
-def attn_params(generator: torch.Generator, cfg: cm.ModelConfig,
-                n_layers: Optional[int] = None) -> dict:
-  """Attention weights in the reference's layout; leading layer dim when
-  ``n_layers`` is given."""
+def attn_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
+  """One layer's attention weights in the reference's layout."""
   hd, h, kv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-  L = (n_layers,) if n_layers else ()
   dev = generator.device
   p = {
-      "wq": cm.dense_init(generator, (*L, d, h, hd), in_axis=-3,
+      "wq": cm.dense_init(generator, (d, h, hd), in_axis=-3,
                           dtype=cfg.param_dtype),
-      "wk": cm.dense_init(generator, (*L, d, kv, hd), in_axis=-3,
+      "wk": cm.dense_init(generator, (d, kv, hd), in_axis=-3,
                           dtype=cfg.param_dtype),
-      "wv": cm.dense_init(generator, (*L, d, kv, hd), in_axis=-3,
+      "wv": cm.dense_init(generator, (d, kv, hd), in_axis=-3,
                           dtype=cfg.param_dtype),
-      "wo": cm.dense_init(generator, (*L, h, hd, d), in_axis=-2,
+      "wo": cm.dense_init(generator, (h, hd, d), in_axis=-2,
                           dtype=cfg.param_dtype),
   }
   if cfg.qkv_bias:
-    p["bq"] = torch.zeros((*L, h, hd), dtype=cfg.param_dtype, device=dev)
-    p["bk"] = torch.zeros((*L, kv, hd), dtype=cfg.param_dtype, device=dev)
-    p["bv"] = torch.zeros((*L, kv, hd), dtype=cfg.param_dtype, device=dev)
+    p["bq"] = torch.zeros((h, hd), dtype=cfg.param_dtype, device=dev)
+    p["bk"] = torch.zeros((kv, hd), dtype=cfg.param_dtype, device=dev)
+    p["bv"] = torch.zeros((kv, hd), dtype=cfg.param_dtype, device=dev)
   if cfg.qk_norm:
-    p["q_norm_scale"] = torch.ones((*L, hd), dtype=cfg.param_dtype,
+    p["q_norm_scale"] = torch.ones((hd), dtype=cfg.param_dtype,
                                    device=dev)
-    p["k_norm_scale"] = torch.ones((*L, hd), dtype=cfg.param_dtype,
+    p["k_norm_scale"] = torch.ones((hd), dtype=cfg.param_dtype,
                                    device=dev)
   return p
 
@@ -62,8 +60,7 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
   return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor,
-                 use_rope: bool = True):
+def _project_qkv(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor):
   """x: (B, S, D) → q (B, S, H, hd), k and v (B, S, KV, hd), RoPE applied."""
   dt = cfg.dtype
   q = _proj(x, p["wq"].to(dt))
@@ -76,9 +73,8 @@ def _project_qkv(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor,
   if cfg.qk_norm:
     q = cm.rms_norm(q, p["q_norm_scale"], cfg.norm_eps)
     k = cm.rms_norm(k, p["k_norm_scale"], cfg.norm_eps)
-  if use_rope:
-    q = cm.rope(q, positions, cfg.rope_theta)
-    k = cm.rope(k, positions, cfg.rope_theta)
+  q = cm.rope(q, positions, cfg.rope_theta)
+  k = cm.rope(k, positions, cfg.rope_theta)
   return q, k, v
 
 
@@ -167,9 +163,11 @@ def _full_decode(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
 
 
 def init_cache(cfg: cm.ModelConfig, n_layers: int, batch: int, max_len: int,
-               dtype=None, device="cpu") -> dict:
-  """Zeroed layer-stacked cache: k, v (L, B, max_len, KV, hd), len 0."""
-  dtype = dtype or cfg.dtype
+               device=DEFAULT_DEVICE) -> dict:
+  """Zeroed layer-stacked cache in ``cfg.dtype``: k, v (L, B, max_len, KV,
+  hd), len 0."""
+  device = resolve_device(device)
+  dtype = cfg.dtype
   kv, hd = cfg.n_kv_heads, cfg.hd
   shape = (n_layers, batch, max_len, kv, hd)
   return {
@@ -181,9 +179,9 @@ def init_cache(cfg: cm.ModelConfig, n_layers: int, batch: int, max_len: int,
 
 def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
               mode: str = "train", layer_cache: Optional[dict] = None,
-              cache_len: Optional[Tensor] = None, impl: str = "xla",
-              causal: bool = True):
-  """One attention block; returns (out (B, S, D), cache entry or None).
+              cache_len: Optional[Tensor] = None, impl: str = "xla"):
+  """One causal attention block with RoPE; returns (out (B, S, D), cache
+  entry or None).
 
   mode:
     'train'   — full sequence, no cache; returns (out, None)
@@ -206,10 +204,10 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
     q, k, v = _project_qkv(p, cfg, x, positions)
     if impl == "pallas":
       out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
+                                v.transpose(1, 2), causal=True,
                                 window=window, scale=scale).transpose(1, 2)
     else:
-      out, _ = _flash_fwd_impl(q, k, v, causal, window, scale, 0,
+      out, _ = _flash_fwd_impl(q, k, v, True, window, scale, 0,
                                FLASH_CHUNK)
     y = torch.matmul(out.flatten(-2), wo.flatten(0, 1))
     return y, ({"k": k, "v": v} if mode == "prefill" else None)

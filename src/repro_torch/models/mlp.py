@@ -1,13 +1,12 @@
 """Feed-forward blocks: SwiGLU (llama family) and GELU.
 
 Counterpart of ``repro/models/mlp.py``.  ``mlp_params`` draws one layer's
-weights (or a stack of ``n_layers``) in the reference's layout; ``mlp`` is
-the block as a function of such a dict; ``MLP`` holds one layer's weights
+SwiGLU weights in the reference's layout; ``mlp`` is the block as a
+function of such a dict (GELU when the dict has no ``w3``, as the
+reference's ungated weights have none); ``MLP`` holds one layer's weights
 as a module.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 from torch import nn
@@ -17,18 +16,14 @@ from repro_torch.models import common as cm
 Tensor = torch.Tensor
 
 
-def mlp_params(generator: torch.Generator, cfg: cm.ModelConfig,
-               n_layers: Optional[int] = None, gated: bool = True,
-               d_ff: Optional[int] = None) -> dict:
-  d, f = cfg.d_model, d_ff or cfg.d_ff
-  L = (n_layers,) if n_layers else ()
-  p = {
-      "w1": cm.dense_init(generator, (*L, d, f), dtype=cfg.param_dtype),
-      "w2": cm.dense_init(generator, (*L, f, d), dtype=cfg.param_dtype),
+def mlp_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
+  """One layer's SwiGLU weights in the reference's layout."""
+  d, f = cfg.d_model, cfg.d_ff
+  return {
+      "w1": cm.dense_init(generator, (d, f), dtype=cfg.param_dtype),
+      "w2": cm.dense_init(generator, (f, d), dtype=cfg.param_dtype),
+      "w3": cm.dense_init(generator, (d, f), dtype=cfg.param_dtype),
   }
-  if gated:
-    p["w3"] = cm.dense_init(generator, (*L, d, f), dtype=cfg.param_dtype)
-  return p
 
 
 def mlp(p: dict, cfg: cm.ModelConfig, x: Tensor) -> Tensor:

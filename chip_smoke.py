@@ -7,8 +7,9 @@ Phases (any failure exits non-zero):
 
   1. device and card — needs CUDA; prints the nvidia-smi name/power line;
   2. build — compiles the SIMD² unit kernel (K1), the fused closure
-     fixpoint (K2) and flash attention (K3) from the checkout's sources, one
-     nvcc each, in parallel, and prints each one's ptxas summary;
+     fixpoint (K2), flash attention (K3) and the SSD intra-chunk kernel (K4)
+     from the checkout's sources, one nvcc each, in parallel, and prints
+     each one's ptxas summary;
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
      rings at three shapes, a batched ragged k_valid case, bf16, and one
      4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
@@ -18,7 +19,10 @@ Phases (any failure exits non-zero):
      bit-identical on every ring, mma included; K3 at the LM main path's
      shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
      FA_CASES in f32 (a window, head dim 80, Sq ≠ Skv), head dim 128 in
-     bf16, and rows that see no key;
+     bf16, and rows that see no key; K4 at the reference kernel test's
+     shapes in f32 and bf16, the mamba2-780m prefill's shape (f32, BZ 32,
+     H 48, G 1, Q 256, N 128, P 64), grouped cases with G < H, and a decay
+     whose exp overflows above the diagonal;
   4. main path, batch mode — ``MMOEngine(backend="pallas", max_batch=8)``
      serves a mixed stream sized from the paper's Table 4 "small" column
      (APSP 4096, reachability 1024, KNN 4096 queries × 16384×16 corpus, a
@@ -43,15 +47,26 @@ Phases (any failure exits non-zero):
      tokens, 32 new tokens each, through ``Engine(impl="pallas")``; K3 must
      launch 22 times for the prefill and never for the decode; the prefill
      logits are held against the 'xla' arm's and the greedy tokens against
-     the ``Engine(impl="xla")`` tokens under the near-tie rule; then K3, its
+     the ``Engine(impl="xla")`` tokens under the near-tie rule; one
+     generate and one prefill alone run under torch.profiler; then K3, its
      plain version and scaled_dot_product_attention (the library yardstick,
-     not used by the port) are timed at the main path's shape.
+     not used by the port) are timed at the main path's shape;
+  7. SSM serving — the tinyllama model is freed; mamba2-780m at full width
+     (48 layers, d 1536, 48 SSM heads of 64, state 128, chunk 256) with
+     random weights serves the same 4 × 2048 prompts, 32 new tokens each, on
+     both arms, with the same checks; K4 must launch 48 times for the
+     prefill and never for the decode; the same weights computing in f32
+     must give both arms the same prefill logits to 1e-4; then K4, its
+     plain version and the 'xla' arm's intra-chunk einsums (no single
+     library call computes the term) are timed at the prefill's shape, in
+     the model's layout.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -87,6 +102,31 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "tinyllama-1.1b", 4, 2048, 32
 # the limit is twice that.
 LM_LOGIT_ATOL = 0.0625
 TIE_GAP = 2e-2  # the reference's near-tie rule (tests/test_serve.py)
+# SSM main path: mamba2-780m prefill of the same prompts, 32 new tokens
+SSM_ARCH = "mamba2-780m"
+# pallas vs xla prefill logits at full width, a sanity check of the whole
+# prefill (K4's own gate is its comparison with its plain version).  The
+# arms differ only in the order of the f32 sums inside the intra-chunk term.
+# Computing in f32 they agree to 2.44e-5 (logits std 0.785); in bf16 a
+# flipped rounding of a block's output grows through the 48 residual layers
+# to a max |d| of 0.152 (both measured on an H100 with this seed).  The
+# limits are twice the measured maxima (f32: four times, as cuBLAS may pick
+# another f32 GEMM on another card).
+SSM_LOGIT_ATOL = 0.305
+SSM_F32_LOGIT_ATOL = 1e-4
+# K4 vs its plain version: the reference kernel test's own tolerances at
+# its shapes (tests/test_kernels_ssd.py; bf16 inputs widen to f32 exactly,
+# so both dtypes differ only in summation order); at the longer contractions
+# (N up to 128 products per score, Q up to 256 weighted rows per output)
+# rtol 1e-5 with atol 1e-4, K1's f32 tolerance for sums in another order
+SSD_REF_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+SSD_LONG_TOL = {"rtol": 1e-5, "atol": 1e-4}
+# (BZ, H, G, Q, N, P)
+SSD_REF_SHAPES = [(2, 4, 4, 32, 16, 8), (1, 2, 2, 64, 32, 16),
+                  (3, 1, 1, 16, 8, 8)]
+SSD_MAIN_SHAPE = (4 * 8, 48, 1, 256, 128, 64)
+SSD_GROUPED_SHAPES = [(2, 8, 2, 100, 32, 32), (2, 4, 1, 8, 16, 16),
+                      (1, 6, 3, 130, 64, 128)]
 
 
 def log(msg: str) -> None:
@@ -436,6 +476,90 @@ def attention_bound_ms(case, dtype: str) -> tuple:
           "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ssd_inputs(torch, shape, dtype, seed=0, decay=(0.001, 0.1)):
+  """K4's operands on the card: c, b (BZ, G, Q, N), x (BZ, H, Q, P), dt,
+  cum (BZ, H, Q); cum is a cumsum of negative decays drawn from ``decay``,
+  as ssd_chunked builds it."""
+  bz, h, g, q, n, p = shape
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  def rnd(*size):
+    return torch.randn(*size, generator=gen, device="cuda")
+  def uni(lo, hi, *size):
+    return torch.rand(*size, generator=gen, device="cuda") * (hi - lo) + lo
+  c, b, x = rnd(bz, g, q, n), rnd(bz, g, q, n), rnd(bz, h, q, p)
+  dt = uni(0.01, 0.2, bz, h, q)
+  cum = torch.cumsum(-uni(*decay, bz, h, q), dim=-1)
+  return [t.to(dtype) for t in (c, b, x, dt, cum)]
+
+
+def check_ssd(ssd, torch, shape, dtype, tol, seed=0, **kw) -> float:
+  """K4 against its plain version on one case: finite, within ``tol``."""
+  args = ssd_inputs(torch, shape, dtype, seed, **kw)
+  got = ssd.ssd_intra_chunk(*args)
+  want = ssd.ssd_intra_chunk_plain(*args)
+  torch.cuda.synchronize()
+  err = max_abs_err(got, want)
+  ok = (got.dtype == want.dtype and got.shape == want.shape
+        and bool(torch.isfinite(got).all())
+        and torch.allclose(got, want, **tol))
+  name = str(dtype).removeprefix("torch.")
+  log(f"[check] K4 {name} (BZ, H, G, Q, N, P)={shape}{' ' + str(kw) if kw else ''}: "
+      f"max_abs_err={err!r} {'ok' if ok else 'FAIL'}")
+  if not ok:
+    raise AssertionError(f"K4 disagrees with its plain version on {shape}")
+  return err
+
+
+def phase_ssd_vs_plain(ssd, torch) -> float:
+  """Phase 3, K4: the reference test's shapes in f32 and bf16, the main
+  path's shape, grouped cases, and exp overflow above the diagonal.
+  Returns the main shape's max |err|."""
+  for shape in SSD_REF_SHAPES:
+    for dtype in (torch.float32, torch.bfloat16):
+      t = SSD_REF_TOL[str(dtype).removeprefix("torch.")]
+      check_ssd(ssd, torch, shape, dtype, {"rtol": t, "atol": t})
+  main_err = check_ssd(ssd, torch, SSD_MAIN_SHAPE, torch.float32,
+                       SSD_LONG_TOL, seed=1)
+  for shape in SSD_GROUPED_SHAPES:
+    check_ssd(ssd, torch, shape, torch.float32, SSD_LONG_TOL, seed=1)
+  # decays of 0.5–1.5 per row: exp(cum_q − cum_k) is +inf far above the
+  # diagonal; the kernel's select must keep it out (no inf · 0 = NaN)
+  check_ssd(ssd, torch, (2, 4, 1, 256, 32, 64), torch.float32, SSD_LONG_TOL,
+            seed=2, decay=(0.5, 1.5))
+  return main_err
+
+
+def ssd_bound_ms(shape, isz: int) -> tuple:
+  """Least time for one K4 call: per causal (q, k ≤ q) pair, the score's
+  2·N flops once per group (the heads of a group share C Bᵀ) and 2·P flops
+  and one exp per head, at the f32 CUDA-core peak and the SFU rate; or C
+  and B read once per group, X, dt and cum once per head, and the f32 Y
+  written once, at HBM bandwidth — whichever is largest."""
+  bz, h, g, q, n, p = shape
+  tri = q * (q + 1) // 2
+  pairs = bz * h * tri
+  flops = 2.0 * n * bz * g * tri + 2.0 * p * pairs
+  t_ops = max(flops / PEAK_OPS["float32"], pairs / SFU_EXP_S)
+  nbytes = isz * (2 * bz * g * q * n + bz * h * q * p + 2 * bz * h * q) \
+      + 4 * bz * h * q * p
+  t_bytes = nbytes / PEAK_BYTES_S
+  return (max(t_ops, t_bytes) * 1e3,
+          "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_summary(build_log: str) -> tuple:
+  """Per kernel instantiation (template arguments): registers, shared
+  memory and barriers as ptxas reports them; and every non-zero spill."""
+  lines = build_log.splitlines()
+  regs = [f"{line.split('kernelI', 1)[1].split('EEEv')[0]}: "
+          f"{lines[i + 2].split('Used', 1)[1].strip()}"
+          for i, line in enumerate(lines)
+          if "Function properties" in line and "kernelI" in line]
+  spills = sorted({line.strip() for line in lines if "spill" in line
+                   and not line.strip().startswith("0 bytes")})
+  return regs, spills
+
+
 def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
   """The 'xla' engine's per-step logits along its own greedy tokens: the
   same prefill, cache seating and decode steps as ``Engine.generate``."""
@@ -453,44 +577,91 @@ def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
 
 def phase_lm_serving(fa, torch, card: str) -> dict:
   """Phase 6: tinyllama-1.1b at full width through ``Engine``."""
+  from repro_torch import configs
+  cfg = configs.get_config(LM_ARCH)
+  return serve_phase(torch, card, cfg, fa.flash_attention, "lm",
+                     LM_LOGIT_ATOL,
+                     f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, head "
+                     f"dim {cfg.hd}")
+
+
+def phase_ssm_serving(ssd, torch, card: str) -> dict:
+  """Phase 7: mamba2-780m at full width through ``Engine``; then the same
+  weights computing in f32, where the two arms' prefill logits must agree
+  to ``SSM_F32_LOGIT_ATOL``."""
   import numpy as np
   from repro_torch import configs
+  from repro_torch.models import zoo
+  from repro_torch.train.steps import make_prefill_step
+  cfg = configs.get_config(SSM_ARCH)
+  run = serve_phase(torch, card, cfg, ssd.ssd_intra_chunk, "ssm",
+                    SSM_LOGIT_ATOL,
+                    f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+                    f"{cfg.ssm_headdim}, state {cfg.ssm_state}, "
+                    f"{cfg.ssm_ngroups} group, chunk {cfg.ssm_chunk}")
+  gc.collect()
+  cfg32 = cfg.replace(dtype=torch.float32)
+  model = zoo.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  prompts = np.random.default_rng(0).integers(
+      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  with torch.inference_mode():
+    lp, _ = make_prefill_step(cfg32, impl="pallas")(model, {"tokens": tokens})
+    lx, _ = make_prefill_step(cfg32, impl="xla")(model, {"tokens": tokens})
+  d = float((lp - lx).abs().max())
+  log(f"[ssm] f32 compute, same weights: prefill logits pallas vs xla max "
+      f"|d|={d!r} (atol {SSM_F32_LOGIT_ATOL}), logits std "
+      f"{float(lx.std())!r}")
+  if not bool(torch.isfinite(lp).all()) or d > SSM_F32_LOGIT_ATOL:
+    raise AssertionError("pallas and xla f32 prefill logits disagree")
+  run["f32_logits_max_abs_diff"] = d
+  return run
+
+
+def serve_phase(torch, card: str, cfg, kernel, tag: str, logit_atol: float,
+                shape_note: str) -> dict:
+  """Serve ``cfg`` at full width through ``Engine`` on both arms: the
+  'pallas' prefill must launch ``kernel`` once per layer and the decode
+  never; prefill logits and greedy tokens are held against the 'xla'
+  arm's.  ``tag`` prefixes the log lines."""
+  import numpy as np
   from repro_torch.launch.serve import Engine
   from repro_torch.models import zoo
   from repro_torch.models.transformer import padded_vocab
   from repro_torch.train.steps import make_prefill_step
-  cfg = configs.get_config(LM_ARCH)
   t0 = time.perf_counter()
   model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
   torch.cuda.synchronize()
-  log(f"[lm] {cfg.name}: {zoo.param_count(model)} parameters "
-      f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
-      f"{cfg.n_kv_heads} kv heads, head dim {cfg.hd}) built in "
+  log(f"[{tag}] {cfg.name}: {zoo.param_count(model)} parameters "
+      f"({cfg.n_layers} layers, d {cfg.d_model}, {shape_note}) built in "
       f"{time.perf_counter() - t0:.1f}s")
   prompts = np.random.default_rng(0).integers(
       0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
   max_len = LM_PROMPT + LM_NEW
   eng = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
   xla = Engine(cfg, model, max_len=max_len, impl="xla", device="cuda")
-  eng.generate(prompts[:, :128], 2)  # warm-up: cuBLAS, the K3 library
-  xla.generate(prompts[:, :128], 2)
-  fa.flash_attention.launches = 0
+  # warm-up: cuBLAS, the kernel's library (a whole chunk for the SSM)
+  eng.generate(prompts[:, :256], 2)
+  xla.generate(prompts[:, :256], 2)
+  kernel.launches = 0
   eng.generate(prompts, 1)
-  prefill_launches = fa.flash_attention.launches
+  prefill_launches = kernel.launches
   # the main path: counts set to 0 just before, read just after
-  fa.flash_attention.launches = 0
+  kernel.launches = 0
   torch.cuda.reset_peak_memory_stats()
   toks = eng.generate(prompts, LM_NEW)
-  launches = fa.flash_attention.launches
+  launches = kernel.launches
   peak = torch.cuda.max_memory_allocated()
   tm = eng.last_timing
-  log(f"[lm] main path: prompts {prompts.shape}, {LM_NEW} new tokens; "
-      f"flash_attention launches: {prefill_launches} for a prefill alone, "
+  log(f"[{tag}] main path: prompts {prompts.shape}, {LM_NEW} new tokens; "
+      f"{kernel.__name__} launches: {prefill_launches} for a prefill alone, "
       f"{launches} for the whole generate")
   if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
-    raise AssertionError(f"K3 launches: prefill {prefill_launches}, "
-                         f"generate {launches}; want {cfg.n_layers} and "
-                         f"{cfg.n_layers} (none in the decode)")
+    raise AssertionError(f"{kernel.__name__} launches: prefill "
+                         f"{prefill_launches}, generate {launches}; want "
+                         f"{cfg.n_layers} and {cfg.n_layers} (none in the "
+                         f"decode)")
   if toks.shape != (LM_BATCH, LM_NEW) or not (
       (toks >= 0) & (toks < padded_vocab(cfg))).all():
     raise AssertionError(f"bad tokens {toks.shape}")
@@ -500,11 +671,13 @@ def phase_lm_serving(fa, torch, card: str) -> dict:
         "decode_tokens_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
         "generate_tokens_s": LM_BATCH * LM_NEW / (tm["prefill_s"]
                                                   + tm["decode_s"]),
-        "max_memory_allocated_gib": peak / 2 ** 30, "k3_launches": launches,
+        "max_memory_allocated_gib": peak / 2 ** 30, "launches": launches,
         "card": card}
-  log(f"[lm] {json.dumps(lm)}")
+  log(f"[{tag}] {json.dumps(lm)}")
+  torch.cuda.reset_peak_memory_stats()
   xla_toks = xla.generate(prompts, LM_NEW)
-  log(f"[lm] xla arm: prefill {xla.last_timing['prefill_s'] * 1e3:.1f}ms, "
+  lm["xla_max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+  log(f"[{tag}] xla arm: prefill {xla.last_timing['prefill_s'] * 1e3:.1f}ms, "
       f"decode {xla.last_timing['decode_s'] / (LM_NEW - 1) * 1e3:.2f}"
       f"ms/token")
   # prefill logits: pallas vs xla on the same model
@@ -513,11 +686,11 @@ def phase_lm_serving(fa, torch, card: str) -> dict:
     lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
     lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
     d = (lp.float() - lx.float()).abs()
-    log(f"[lm] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
-        f"mean |d|={float(d.mean())!r} (atol {LM_LOGIT_ATOL}), logits std "
+    log(f"[{tag}] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
+        f"mean |d|={float(d.mean())!r} (atol {logit_atol}), logits std "
         f"{float(lx.float().std())!r}")
     if not bool(torch.isfinite(lp.float()).all()) or float(
-        d.max()) > LM_LOGIT_ATOL:
+        d.max()) > logit_atol:
       raise AssertionError("pallas and xla prefill logits disagree")
     steps = xla_logits_along(cfg, model, zoo, torch, tokens,
                              torch.as_tensor(xla_toks, device="cuda"), max_len)
@@ -533,17 +706,20 @@ def phase_lm_serving(fa, torch, card: str) -> dict:
       raise AssertionError(f"row {b}: pallas tokens {toks[b, :upto]} vs "
                            f"xla {xla_toks[b, :upto]} before any near-tie")
     compared += upto
-  log(f"[lm] greedy tokens pallas == xla on {compared} of "
+  log(f"[{tag}] greedy tokens pallas == xla on {compared} of "
       f"{LM_BATCH * LM_NEW} positions (the rest follow a top-2 gap under "
       f"{TIE_GAP}); identical overall: {np.array_equal(toks, xla_toks)}")
-  profile_generate(torch, eng, prompts, LM_NEW)
+  profile_generate(torch, eng, prompts, LM_NEW, tag)
+  eng.generate(prompts, 1)  # the prefill alone, unprofiled, then profiled
+  profile_generate(torch, eng, prompts, 1, tag)
   return lm
 
 
-def profile_generate(torch, eng, prompts, n_new: int) -> None:
+def profile_generate(torch, eng, prompts, n_new: int, tag: str) -> None:
   """Where one generate() spends its time: torch.profiler's kernel time on
   the card, summed by kernel, against the host wall time of the same call
-  under the profiler and of the unprofiled main-path call before it."""
+  under the profiler and of the unprofiled call of the same shape before
+  it."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   unprofiled = eng.last_timing["prefill_s"] + eng.last_timing["decode_s"]
@@ -556,14 +732,14 @@ def profile_generate(torch, eng, prompts, n_new: int) -> None:
   kernels = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA]
   busy = sum(e.self_device_time_total for e in kernels) / 1e6
-  log(f"[lm] profile of generate({tuple(prompts.shape)}, {n_new}): "
+  log(f"[{tag}] profile of generate({tuple(prompts.shape)}, {n_new}): "
       f"{sum(e.count for e in kernels)} kernels, {busy * 1e3:.1f}ms on the "
       f"card; wall {wall * 1e3:.1f}ms under the profiler "
       f"({busy / wall:.1%} busy), {unprofiled * 1e3:.1f}ms without "
       f"({busy / unprofiled:.1%} busy)")
   for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                   reverse=True)[:8]:
-    log(f"[lm]   {e.self_device_time_total / 1e3:9.2f}ms x{e.count:<6} "
+    log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f}ms x{e.count:<6} "
         f"{e.key[:100]}")
 
 
@@ -585,6 +761,52 @@ def phase_flash_timing(fa, torch, err: float, launches: int) -> dict:
          "library_ms": lib_ms, "library_max_abs_err": lib_err,
          "max_abs_err": err, "launches": launches}
   log(f"[time] K3 {json.dumps(row)}")
+  return row
+
+
+def phase_ssd_timing(ssd, torch, err: float, launches: int) -> dict:
+  """Phase 7: K4 at the mamba2 prefill's shape, in the model's layout (the
+  (B, nc, Q, H, ·) buffers read and written through strided views, as
+  ``ssd_chunked`` launches it) and on contiguous (BZ, H, Q, ·) copies; its
+  plain version; and, for context, the 'xla' arm's intra-chunk einsums."""
+  from repro_torch.kernels import ops
+  from repro_torch.models import ssm
+  bz, h, g, q, n, p = SSD_MAIN_SHAPE
+  b_, nc = LM_BATCH, bz // LM_BATCH
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  xc = torch.randn(b_, nc, q, h, p, generator=gen, device="cuda")
+  bc = torch.randn(b_, nc, q, g, n, generator=gen, device="cuda")
+  cc = torch.randn(b_, nc, q, g, n, generator=gen, device="cuda")
+  # the model's dt ≈ softplus(−4.6 + x·W) ≈ 0.01 and A = −exp(0) = −1
+  dtc = torch.rand(b_, nc, q, h, generator=gen, device="cuda") * 0.015 + 0.005
+  dac = -dtc
+  cum = torch.cumsum(dac, dim=2)
+  views = (cc.reshape(bz, q, g, n).transpose(1, 2),
+           bc.reshape(bz, q, g, n).transpose(1, 2),
+           xc.reshape(bz, q, h, p).transpose(1, 2),
+           dtc.reshape(bz, q, h).transpose(1, 2),
+           cum.reshape(bz, q, h).transpose(1, 2))
+  buf = torch.empty(b_, nc, q, h, p, device="cuda")
+  out = buf.view(bz, q, h, p).transpose(1, 2)
+  contig = [v.contiguous() for v in views]
+  ms = cuda_time_ms(lambda: ops.ssd_intra_chunk(*views, out=out), 20)
+  contig_ms = cuda_time_ms(lambda: ssd.ssd_intra_chunk(*contig), 20)
+  plain_ms = cuda_time_ms(lambda: ssd.ssd_intra_chunk_plain(*views), 3)
+  xla_ms = cuda_time_ms(
+      lambda: ssm._y_diag(cc, bc, xc, dtc, dac, cum, "xla"), 3)
+  got = ops.ssd_intra_chunk(*views, out=out)
+  layout_err = max_abs_err(got, ssd.ssd_intra_chunk_plain(*views))
+  xla_err = max_abs_err(buf, ssm._y_diag(cc, bc, xc, dtc, dac, cum, "xla"))
+  b_ms, b_by = ssd_bound_ms(SSD_MAIN_SHAPE, 4)
+  row = {"case": f"mamba2-780m prefill (BZ, H, G, Q, N, P)="
+                 f"{SSD_MAIN_SHAPE} f32, model layout", "ms": ms, "contiguous_ms": contig_ms,
+         "plain_ms": plain_ms, "xla_arm_ms": xla_ms, "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+         "model_layout_max_abs_err": layout_err,
+         "xla_arm_max_abs_err": xla_err, "launches": launches}
+  log(f"[time] K4 {json.dumps(row)}")
+  if layout_err > SSD_LONG_TOL["atol"] or xla_err > 1e-3:
+    raise AssertionError("K4 in the model's layout disagrees")
   return row
 
 
@@ -614,18 +836,20 @@ def main() -> int:
   from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import nvcc
   from repro_torch.kernels import semiring_mmo as sm
+  from repro_torch.kernels import ssd
   from repro_torch.serve_mmo import (MMOEngine, apsp_request, knn_request,
                                      mmo_request, reachability_request)
 
   # -- phase 2: build ---------------------------------------------------------
   t0 = time.perf_counter()
-  nvcc.build_all([sm.LIBRARY, mk.LIBRARY, fa.LIBRARY])
+  nvcc.build_all([sm.LIBRARY, mk.LIBRARY, fa.LIBRARY, ssd.LIBRARY])
   sm.load()
   mk.load()
   fa.load()
+  ssd.load()
   log(f"[build] {sm.library_path().name}, {mk.library_path().name}, "
-      f"{fa.library_path().name} in {time.perf_counter() - t0:.1f}s (one "
-      f"nvcc each, in parallel)")
+      f"{fa.library_path().name}, {ssd.library_path().name} in "
+      f"{time.perf_counter() - t0:.1f}s (one nvcc each, in parallel)")
   regs = sorted({line.split("Used")[1].split(",")[0].strip()
                  for line in sm.build_log().splitlines() if "Used" in line})
   log(f"[build] ptxas: {regs}")
@@ -636,17 +860,19 @@ def main() -> int:
                    if "spill" in line and not line.strip().startswith(
                        "0 bytes")})
   log(f"[build] K2 ptxas: {k2_ptxas} spills: {spills}")
-  k3_log = fa.build_log().splitlines()
-  k3_ptxas = [f"{line.split('kernelI', 1)[1].split('EEEv')[0]}: "
-              f"{k3_log[i + 2].split('Used', 1)[1].strip()}"
-              for i, line in enumerate(k3_log)
-              if "Function properties" in line and "kernelI" in line]
-  k3_spills = sorted({line.strip() for line in k3_log if "spill" in line})
+  k3_ptxas, k3_spills = ptxas_summary(fa.build_log())
   k3_smem = {hd: (2 * hd * (fa.TILE[0] + 4) + fa.TILE[1] * hd
                   + fa.TILE[1] * (fa.TILE[0] + 4)) * 4 for hd in fa.HEAD_DIMS}
   log(f"[build] K3 ptxas (dtype, head dim: registers): {k3_ptxas}; "
       f"spills: {k3_spills}; dynamic shared memory per CTA by head dim: "
       f"{k3_smem} bytes")
+  k4_ptxas, k4_spills = ptxas_summary(ssd.build_log())
+  n4 = SSD_MAIN_SHAPE[4]  # C^T, B^T, X, W^T tiles and three 64-vectors
+  k4_smem = {pd: (2 * n4 * 68 + 64 * pd + 64 * 68 + 3 * 64) * 4
+             for pd in ssd.HEAD_DIMS}
+  log(f"[build] K4 ptxas (dtype, head dim: registers): {k4_ptxas}; spills: "
+      f"{k4_spills}; dynamic shared memory per CTA at N "
+      f"{SSD_MAIN_SHAPE[4]} by head dim: {k4_smem} bytes")
 
   # -- phase 3: kernel vs plain ---------------------------------------------
   gen = torch.Generator().manual_seed(0)
@@ -662,6 +888,7 @@ def main() -> int:
   k2_err = phase_fixpoint_vs_plain(mk, cl, torch, adj_big)
   phase_fused_vs_dispatch(cl, torch)
   k3_err = phase_flash_vs_plain(fa, torch)
+  k4_err = phase_ssd_vs_plain(ssd, torch)
 
   # -- phase 4: the main path -----------------------------------------------
   rng = np.random.default_rng(7)
@@ -940,7 +1167,17 @@ def main() -> int:
 
   # -- phase 6: LM serving at full width, then K3 timing ----------------------
   lm = phase_lm_serving(fa, torch, card)
-  k3 = phase_flash_timing(fa, torch, k3_err, lm["k3_launches"])
+  k3 = phase_flash_timing(fa, torch, k3_err, lm["launches"])
+
+  # -- phase 7: SSM serving at full width, then K4 timing ---------------------
+  gc.collect()  # the tinyllama engines and weights went out of scope
+  torch.cuda.empty_cache()
+  log(f"[ssm] device memory allocated before the SSM phase: "
+      f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+  ssm_run = phase_ssm_serving(ssd, torch, card)
+  gc.collect()
+  torch.cuda.empty_cache()
+  k4 = phase_ssd_timing(ssd, torch, k4_err, ssm_run["launches"])
 
   head = rows_out[0]
   k2 = k2_rows[0]
@@ -964,7 +1201,14 @@ def main() -> int:
       "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
       "ms": k3["ms"], "plain_ms": k3["plain_ms"],
       "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-      "library_ms": k3["library_ms"]}]}
+      "library_ms": k3["library_ms"]}, {
+      "name": "ssd_intra_chunk", "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/ssd.cu",
+      "replaces": "src/repro/kernels/ssd.py:54",
+      "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+      "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+      "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+      "library_ms": None}]}
   log(json.dumps(record))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Public entry points for the port's kernels: the SIMD² unit (K1) and flash
-attention (K3).
+"""Public entry points for the port's kernels: the SIMD² unit (K1), flash
+attention (K3) and the SSD intra-chunk term (K4).
 
 Counterparts of ``repro/kernels/ops.py``.  The reference vmaps its 2-D
 Pallas MMO kernel over leading batch dims; here the leading dims are
@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import semiring as sr_mod
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import semiring_mmo as _sm
+from repro_torch.kernels import ssd as _ssd
 
 Tensor = torch.Tensor
 
@@ -63,3 +64,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
   """
   return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window, scale=scale)
+
+
+def ssd_intra_chunk(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor,
+                    *, out: Optional[Tensor] = None) -> Tensor:
+  """Intra-chunk SSD output of c, b (BZ, G, Q, N), x (BZ, H, Q, P), dt, cum
+  (BZ, H, Q), one K4 launch; f32 (BZ, H, Q, P), written into ``out`` when
+  given.
+
+  Head h reads group h // (H / G).  Operands keep their strides: the
+  kernel reads strided (z, head, q) views as long as the last axis is
+  unit-stride, so they are made contiguous only where it is not.
+  """
+  def unit_last(t):
+    return t if t.stride(-1) == 1 or t.shape[-1] <= 1 else t.contiguous()
+  return _ssd.ssd_intra_chunk(unit_last(c), unit_last(b), unit_last(x), dt,
+                              cum, out=out)

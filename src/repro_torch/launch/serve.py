@@ -1,15 +1,19 @@
-"""LM serving driver: batched prefill, then greedy decode against a KV cache.
+"""LM serving driver: batched prefill, then greedy decode against a cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --smoke --device cpu
 
-Counterpart of ``repro/launch/serve.py`` for the dense LM family.  The
-prefill runs attention through ``impl``: 'pallas' (the default) launches the
-flash-attention kernel K3 once per layer, 'xla' runs the chunked plain
-PyTorch path.  (The reference's engine builds its prefill without ``impl``,
-so it takes 'xla'; its steps and attention take the argument.)  The cache is
-allocated once at ``max_len``; sliding-window configs get a window-sized
-ring buffer.  Decode keeps the tokens on the card and syncs once at the end.
+Counterpart of ``repro/launch/serve.py`` for the dense and SSM LM families.
+The prefill runs through ``impl``: 'pallas' (the default) launches the
+flash-attention kernel K3 once per attention layer, or the SSD intra-chunk
+kernel K4 once per SSM layer; 'xla' runs the plain PyTorch paths.  (The
+reference's engine builds its prefill without ``impl``, so it takes 'xla';
+its steps take the argument.)  A dense cache is allocated once at
+``max_len`` (sliding-window configs get a window-sized ring buffer); an
+SSM's cache is its recurrent state, which the prefill hands to the decode
+as it is.  Decode keeps the tokens on the card and syncs once at the end.
 Runs on the card (``--device cuda``, the default) unless told otherwise.
 """
 from __future__ import annotations
@@ -28,8 +32,15 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 
 def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
-  """The prefill's cache (L, B, S, ...) seated at the front of a zeroed
-  ``max_len`` cache, ``len`` carried over."""
+  """The prefill's cache as the decode's.
+
+  Dense: the KV rows (L, B, S, ...) seated at the front of a zeroed
+  ``max_len`` cache, ``len`` carried over.  SSM: the state after the prompt
+  is the decode's state, in ``init_cache``'s layout already, and is
+  returned as it is (the reference seats it unchanged).
+  """
+  if cfg.family == "ssm":
+    return cache
   b, s = cache["k"].shape[1:3]
   full = zoo.init_cache(cfg, b, max_len, device=device)
   full["k"][:, :, :s] = cache["k"]
@@ -60,7 +71,7 @@ class Engine:
     """prompts: (B, S) int (right-aligned, already padded).  Returns the
     (B, n_new) int32 greedy continuation."""
     s = prompts.shape[1]
-    if s > self.max_len:
+    if s > self.max_len and self.cfg.family != "ssm":
       raise ValueError(f"prompt length {s} exceeds the cache's {self.max_len}")
     t0 = time.perf_counter()
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,

@@ -3,8 +3,9 @@
 ``from_reference`` takes the reference's parameter tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``, so this module needs no JAX), splits
 the stacked layer axis of ``blocks`` into one dict per layer and builds a
-``TransformerLM`` on ``device``.  The tests use it so that both packages
-compute with the same weights.
+``TransformerLM`` (dense family) or a ``zoo.SSMLM`` (SSM family: blocks of
+``ln_norm_scale`` and the ``ssm`` subtree) on ``device``.  The tests use it
+so that both packages compute with the same weights.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models import zoo
 
 
 def _tensor(a, cfg: cm.ModelConfig, device) -> torch.Tensor:
@@ -27,15 +29,15 @@ def _layer(tree: dict, i: int, cfg: cm.ModelConfig, device) -> dict:
           for name, sub in tree.items()}
 
 
-def from_reference(tree: dict, cfg: cm.ModelConfig,
-                   device=DEFAULT_DEVICE) -> tf_mod.TransformerLM:
+def from_reference(tree: dict, cfg: cm.ModelConfig, device=DEFAULT_DEVICE):
   dev = resolve_device(device)
   blocks = tree["blocks"]
-  n = np.asarray(blocks["ln1_norm_scale"]).shape[0]
+  ssm = cfg.family == "ssm"
+  n = np.asarray(blocks["ln_norm_scale" if ssm else "ln1_norm_scale"]).shape[0]
   if n != cfg.n_layers:
     raise ValueError(f"the tree has {n} layers, the config {cfg.n_layers}")
   params = {name: _tensor(tree[name], cfg, dev)
             for name in ("embed", "final_norm_scale", "lm_head")
             if name in tree}
   params["blocks"] = [_layer(blocks, i, cfg, dev) for i in range(n)]
-  return tf_mod.TransformerLM(cfg, params)
+  return (zoo.SSMLM if ssm else tf_mod.TransformerLM)(cfg, params)

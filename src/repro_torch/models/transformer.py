@@ -27,7 +27,7 @@ def padded_vocab(cfg: cm.ModelConfig, mult: int = 256) -> int:
 def check_dense(cfg: cm.ModelConfig) -> None:
   if cfg.family != "dense" or cfg.n_experts:
     raise NotImplementedError(
-        f"{cfg.name}: the port runs the dense LM family only; "
+        f"{cfg.name}: the port's transformer runs the dense LM family only; "
         f"{cfg.family} (n_experts={cfg.n_experts}) is ROADMAP item 13")
 
 

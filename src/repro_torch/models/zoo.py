@@ -1,11 +1,13 @@
-"""Unified model API for the port's LM families (dense so far):
+"""Unified model API for the port's LM families (dense and SSM so far):
 
     model = zoo.init(cfg, generator, device)
     logits, cache, aux = zoo.forward(model, cfg, batch, mode=..., ...)
 
 Counterpart of ``repro/models/zoo.py``.  ``batch`` is a dict
-{'tokens': (B, S) int}.  The cache keeps the reference's layout:
-{'k', 'v': (L, B, max_len, KV, hd), 'len': int32 scalar}.  The SSM, MoE,
+{'tokens': (B, S) int}.  Caches keep the reference's layouts: dense
+{'k', 'v': (L, B, max_len, KV, hd), 'len'}; SSM {'ssm': {'ssm'
+(L, B, H, N, P) f32, 'conv' (L, B, K−1, d_inner), 'bc_conv'
+(L, B, K−1, 2GN)}, 'len'}, both with an int32 scalar 'len'.  The MoE,
 hybrid, enc-dec and VLM families are ROADMAP item 13's later slices and
 raise ``NotImplementedError``.
 """
@@ -14,35 +16,141 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
+
+Tensor = torch.Tensor
+
+
+def init_ssm_lm_params(generator: torch.Generator,
+                       cfg: cm.ModelConfig) -> dict:
+  """Random SSM-LM weights in the reference's layout, one dict per layer
+  under ``blocks``, drawn from ``generator`` on its device."""
+  vp, d, dev = tf_mod.padded_vocab(cfg), cfg.d_model, generator.device
+
+  def normal(shape, std):
+    return (torch.randn(shape, generator=generator, device=dev) * std).to(
+        cfg.param_dtype)
+
+  def ones(shape):
+    return torch.ones(shape, dtype=cfg.param_dtype, device=dev)
+
+  return {
+      "embed": normal((vp, d), 0.02),
+      "final_norm_scale": ones(d),
+      "blocks": [{"ln_norm_scale": ones(d),
+                  "ssm": ssm_mod.ssm_params(generator, cfg)}
+                 for _ in range(cfg.n_layers)],
+      "lm_head": normal((vp, d), 0.02),
+  }
+
+
+class SSMLayer(nn.Module):
+  """Pre-norm residual SSM layer: x + ssm_block(rms_norm(x))."""
+
+  def __init__(self, cfg: cm.ModelConfig, params: dict):
+    super().__init__()
+    self.cfg = cfg
+    self.ln_norm_scale = nn.Parameter(params["ln_norm_scale"],
+                                      requires_grad=False)
+    self.ssm = ssm_mod.SSMBlock(cfg, params["ssm"])
+
+  def forward(self, x: Tensor, **kw):
+    h = cm.rms_norm(x, self.ln_norm_scale, self.cfg.norm_eps)
+    y, state = self.ssm(h, **kw)
+    return x + y, state
+
+
+class SSMLM(nn.Module):
+  """Embedding, ``n_layers`` SSM layers, final norm and LM head (the
+  reference's ``_init_ssm_lm`` / ``_forward_ssm_lm``)."""
+
+  def __init__(self, cfg: cm.ModelConfig, params: dict):
+    super().__init__()
+    if cfg.family != "ssm":
+      raise ValueError(f"{cfg.name} is a {cfg.family} config, not ssm")
+    if len(params["blocks"]) != cfg.n_layers:
+      raise ValueError(f"{len(params['blocks'])} blocks for a "
+                       f"{cfg.n_layers}-layer config")
+    self.cfg = cfg
+    self.embed = nn.Parameter(params["embed"], requires_grad=False)
+    self.final_norm_scale = nn.Parameter(params["final_norm_scale"],
+                                         requires_grad=False)
+    if not cfg.tie_embeddings:
+      self.lm_head = nn.Parameter(params["lm_head"], requires_grad=False)
+    self.blocks = nn.ModuleList(SSMLayer(cfg, lp) for lp in params["blocks"])
+
+  def forward(self, tokens: Tensor, *, mode: str = "train",
+              cache: Optional[dict] = None, impl: str = "xla"):
+    """Returns (logits, new cache or None, aux loss).
+
+    'train' gives logits for every position; 'prefill' only for the last
+    one and the stacked state after the prompt as the cache; 'decode'
+    takes S == 1 and an ``init_cache``-layout cache, whose per-layer states
+    it updates in place and returns with ``len`` advanced.
+    """
+    cfg = self.cfg
+    x = self.embed[tokens].to(cfg.dtype)
+    stacked = cache["ssm"] if cache is not None else None
+    states = []
+    for i, layer in enumerate(self.blocks):
+      st = (None if stacked is None else
+            {name: t[i] for name, t in stacked.items()})
+      x, new_st = layer(x, mode=mode, state=st, impl=impl)
+      if mode == "decode":
+        for name, t in new_st.items():
+          st[name].copy_(t)
+      states.append(new_st)
+    if mode == "prefill":
+      x = x[:, -1:]
+    x = cm.rms_norm(x, self.final_norm_scale, cfg.norm_eps)
+    logits = tf_mod.logits_from(self, cfg, x)
+    new_cache = None
+    if mode == "prefill":
+      new_cache = {"ssm": {name: torch.stack([st[name] for st in states])
+                           for name in states[0]},
+                   "len": torch.full((), tokens.shape[1], dtype=torch.int32,
+                                     device=x.device)}
+    elif mode == "decode":
+      new_cache = {"ssm": stacked, "len": cache["len"] + 1}
+    return logits, new_cache, torch.zeros((), device=x.device)
 
 
 def init(cfg: cm.ModelConfig, generator: torch.Generator,
-         device=DEFAULT_DEVICE) -> tf_mod.TransformerLM:
+         device=DEFAULT_DEVICE) -> nn.Module:
   """Random weights from ``generator`` (drawn on its device), on ``device``."""
   dev = resolve_device(device)
+  if cfg.family == "ssm":
+    return SSMLM(cfg, init_ssm_lm_params(generator, cfg)).to(dev)
   params = tf_mod.init_lm_params(generator, cfg)
   return tf_mod.TransformerLM(cfg, params).to(dev)
 
 
-def forward(model: tf_mod.TransformerLM, cfg: cm.ModelConfig, batch: dict, *,
+def forward(model: nn.Module, cfg: cm.ModelConfig, batch: dict, *,
             mode: str = "train", cache: Optional[dict] = None,
             impl: str = "xla"):
-  """Returns (logits, new_cache_or_None, aux_loss)."""
-  return tf_mod.forward_lm(model, cfg, batch["tokens"], mode=mode,
-                           cache=cache, impl=impl)
+  """Returns (logits, new_cache_or_None, aux_loss); ``model`` is
+  ``init``'s module for ``cfg``'s family."""
+  return model(batch["tokens"], mode=mode, cache=cache, impl=impl)
 
 
 def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
                device=DEFAULT_DEVICE) -> dict:
+  """A zeroed cache; ``max_len`` sizes the dense KV cache and is not read by
+  the SSM state, which has no length."""
+  dev = resolve_device(device)
+  if cfg.family == "ssm":
+    return {"ssm": ssm_mod.init_ssm_state(cfg, cfg.n_layers, batch,
+                                          device=dev),
+            "len": torch.zeros((), dtype=torch.int32, device=dev)}
   tf_mod.check_dense(cfg)
-  return attn_mod.init_cache(cfg, cfg.n_layers, batch, max_len,
-                             device=resolve_device(device))
+  return attn_mod.init_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
 
 
-def param_count(model: torch.nn.Module) -> int:
+def param_count(model: nn.Module) -> int:
   return sum(p.numel() for p in model.parameters())

@@ -30,8 +30,8 @@ def _imported_modules(path: Path):
 def test_the_scan_covers_the_port():
   names = {p.name for p in FILES}
   assert {"semiring.py", "mmo.py", "closure.py", "engine.py",
-          "attention.py", "flash_attention.py", "serve.py",
-          "chip_smoke.py"} <= names
+          "attention.py", "flash_attention.py", "serve.py", "ssm.py",
+          "ssd.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -118,9 +118,18 @@ def test_main_runs_on_the_cpu(impl, capsys):
   assert f"impl={impl}" in out and "generated (2, 10)" in out
 
 
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_main_serves_mamba2_on_the_cpu(impl, capsys):
+  rc = tserve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                    "--impl", impl])
+  assert rc == 0
+  out = capsys.readouterr().out
+  assert "arch=mamba2-780m" in out and "generated (4, 16)" in out
+
+
 def test_main_refuses_a_family_not_ported_yet():
   with pytest.raises(NotImplementedError, match="item 13"):
-    tserve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+    tserve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
 
 
 def test_engine_refuses_a_prompt_longer_than_the_cache():

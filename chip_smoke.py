@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
   2. build — compiles the SIMD² unit kernel (K1), the fused closure
      fixpoint (K2), flash attention (K3) and the SSD intra-chunk kernel (K4)
      from the checkout's sources, one nvcc each, in parallel, and prints
-     each one's ptxas summary;
+     each one's ptxas summary; K3's bf16 instances must hold tensor-core
+     instructions (HGMMA or HMMA in ``cuobjdump -sass``);
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
      rings at three shapes, a batched ragged k_valid case, bf16, and one
      4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
@@ -18,8 +19,9 @@ Phases (any failure exits non-zero):
      4096; then K2's fused arm against the K1 dispatch arm, which must be
      bit-identical on every ring, mma included; K3 at the LM main path's
      shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
-     FA_CASES in f32 (a window, head dim 80, Sq ≠ Skv), head dim 128 in
-     bf16, and rows that see no key; K4 at the reference kernel test's
+     FA_CASES in f32 and bf16 (a window, head dims 32 to 128, Sq ≠ Skv,
+     non-causal), head dims 128 and 16 in bf16, rows that see no key in
+     both dtypes, a steep score (q × 20), and strided views with out=; K4 at the reference kernel test's
      shapes in f32 and bf16, the mamba2-780m prefill's shape (f32, BZ 32,
      H 48, G 1, Q 256, N 128, P 64), grouped cases with G < H, and a decay
      whose exp overflows above the diagonal;
@@ -50,7 +52,10 @@ Phases (any failure exits non-zero):
      the ``Engine(impl="xla")`` tokens under the near-tie rule; one
      generate and one prefill alone run under torch.profiler; then K3, its
      plain version and scaled_dot_product_attention (the library yardstick,
-     not used by the port) are timed at the main path's shape;
+     not used by the port) are timed at the main path's shape, with K3's
+     share of its bound, its registers and shared memory, the f32
+     instance's time on the same inputs, and K3 against SDPA at the other
+     head dims (16, 32, 80, 128) of the same shape;
   7. SSM serving — the tinyllama model is freed; mamba2-780m at full width
      (48 layers, d 1536, 48 SSM heads of 64, state 128, chunk 256) with
      random weights serves the same 4 × 2048 prompts, 32 new tokens each, on
@@ -87,6 +92,10 @@ BF16_TOL = {"rtol": 3e-2, "atol": 3e-2}  # the reference's own bf16 tolerance
 # (tests/test_kernels.py): f32 atol 2e-5 (the summation order differs),
 # bf16 atol 3e-2 (one bf16 rounding of the output on top of that)
 FA_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+K3_DESIGN = ("bf16: wgmma S = Q Kᵀ and O += P V (P from registers), two "
+             "consumer warpgroups of 64 query rows per CTA, K/V by TMA "
+             "through a four-stage mbarrier ring, S of tile u issued behind "
+             "P V of tile u - 1; f32: CUDA-core FMA")
 # H100 SXM special-function units: 16 exp2 results per clock per SM
 # (CUDA programming guide, compute capability 9.0) at the 1.98 GHz boost
 # clock on 132 SMs
@@ -433,22 +442,57 @@ def check_fa(fa, torch, case, dtype, seed=0) -> float:
 
 
 def phase_flash_vs_plain(fa, torch) -> float:
-  """Phase 3, K3: the LM main path's shape, FA_CASES in f32, head dim 128
-  in bf16, and rows that see no key.  Returns the main shape's max |err|."""
+  """Phase 3, K3: the LM main path's shape, FA_CASES in f32 and in bf16
+  (the tensor-core instance: all five head dims, Sq ≠ Skv, a window,
+  non-causal), head dim 128 at a longer sequence, rows that see no key in
+  both dtypes, a steep score (q × 20: the running max jumps between kv
+  tiles, so the rescale carries the result with bf16 P), and strided views
+  with ``out=`` as the model launches it.  Returns the main shape's max
+  |err|."""
+  from repro_torch.kernels import ops
   main_err = check_fa(fa, torch, LM_FA_CASE, torch.bfloat16)
   for case in FA_CASES:
     check_fa(fa, torch, case, torch.float32)
+    check_fa(fa, torch, case, torch.bfloat16)
   check_fa(fa, torch, (1, 16, 2, 300, 300, 128, True, None), torch.bfloat16)
+  check_fa(fa, torch, (2, 4, 2, 40, 40, 16, True, None), torch.bfloat16)
   # Sq > Skv, causal: rows 0..31 see no key and end as the mean of V (the
-  # TPU kernel's finite mask sentinel), not NaN
+  # TPU kernel's finite mask sentinel), not NaN; in bf16 every P there is
+  # exactly 1, so the mean holds to one ulp of the bf16 output
   case = (1, 2, 2, 96, 64, 32, True, None)
-  check_fa(fa, torch, case, torch.float32, seed=5)
-  q, k, v = fa_inputs(torch, case, torch.float32, 5)
-  got = fa.flash_attention(q, k, v, causal=True)[:, :, :32]
-  mean_v = v.mean(dim=2, keepdim=True).expand_as(got)
-  if not torch.allclose(got, mean_v, rtol=0, atol=1e-5):
-    raise AssertionError("K3: rows with no key are not the mean of V")
-  log("[check] K3 rows with no key: the mean of V, as the TPU kernel's")
+  for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -8)):
+    check_fa(fa, torch, case, dtype, seed=5)
+    q, k, v = fa_inputs(torch, case, dtype, 5)
+    got = fa.flash_attention(q, k, v, causal=True)[:, :, :32].float()
+    mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
+    if not torch.allclose(got, mean_v, rtol=0, atol=atol):
+      raise AssertionError(f"K3 {dtype}: rows with no key are not the mean "
+                           f"of V")
+  log("[check] K3 rows with no key (f32, bf16): the mean of V, as the TPU "
+      "kernel's")
+  gen = torch.Generator(device="cuda").manual_seed(9)
+  q = (torch.randn(2, 8, 512, 64, generator=gen, device="cuda") * 20).to(
+      torch.bfloat16)
+  k, v = (torch.randn(2, 2, 512, 64, generator=gen, device="cuda").to(
+      torch.bfloat16) for _ in range(2))
+  err = max_abs_err(fa.flash_attention(q, k, v),
+                    fa.flash_attention_plain(q, k, v))
+  log(f"[check] K3 bfloat16 steep scores (q × 20): max_abs_err={err!r}")
+  if err > FA_ATOL["bfloat16"]:
+    raise AssertionError("K3 disagrees with its plain version on steep "
+                         "scores")
+  for dtype in (torch.float32, torch.bfloat16):
+    qb, kb, vb = (torch.randn(2, 300, n, 64, generator=gen,
+                              device="cuda").to(dtype) for n in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (qb, kb, vb)]
+    want = fa.flash_attention(*[t.contiguous() for t in views], window=100)
+    buf = torch.full_like(qb, float("nan"))
+    ops.flash_attention(*views, window=100, out=buf.transpose(1, 2))
+    if not torch.equal(buf.transpose(1, 2), want):
+      raise AssertionError(f"K3 {dtype}: strided views with out= differ "
+                           f"from the contiguous call")
+  log("[check] K3 strided q, k, v views with out= (f32, bf16): the "
+      "contiguous call's bits")
   return main_err
 
 
@@ -548,16 +592,57 @@ def ssd_bound_ms(shape, isz: int) -> tuple:
 
 
 def ptxas_summary(build_log: str) -> tuple:
-  """Per kernel instantiation (template arguments): registers, shared
-  memory and barriers as ptxas reports them; and every non-zero spill."""
+  """Per kernel instantiation (name and mangled template arguments):
+  registers, shared memory and barriers as ptxas reports them; and every
+  non-zero spill."""
+  import re
   lines = build_log.splitlines()
-  regs = [f"{line.split('kernelI', 1)[1].split('EEEv')[0]}: "
-          f"{lines[i + 2].split('Used', 1)[1].strip()}"
-          for i, line in enumerate(lines)
-          if "Function properties" in line and "kernelI" in line]
+  regs = []
+  for i, line in enumerate(lines):
+    hit = re.search(r"_kernelI(\w*?)EEEv", line)
+    if "Function properties" not in line or not hit:
+      continue
+    # the mangled name is "<length><name>_kernel": find the length that fits
+    head = line[:hit.start()]
+    name = next((head[d.end():] for d in reversed(list(
+        re.finditer(r"\d+", head)))
+        if int(d.group()) == len(head) - d.end() + len("_kernel")), head)
+    regs.append(f"{name}<{hit.group(1)}>: "
+                f"{lines[i + 2].split('Used', 1)[1].strip()}")
   spills = sorted({line.strip() for line in lines if "spill" in line
                    and not line.strip().startswith("0 bytes")})
   return regs, spills
+
+
+def k3_tc_smem(hd: int) -> int:
+  """Dynamic shared memory of a CTA of K3's bf16 instance: 128 query rows
+  and four stages of a 64-key K and V tile in bf16, and 128 bytes for the
+  stages' mbarriers and counters (csrc/flash_attention.cu)."""
+  return (128 + 4 * 2 * 64) * hd * 2 + 128
+
+
+def tensor_core_sass(fa) -> dict:
+  """HGMMA/HMMA instructions per bf16 K3 instance in the built library's
+  SASS; fails unless every head dim's instance has some."""
+  import shutil
+  tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+  sass = subprocess.run([tool, "-sass", str(fa.library_path())],
+                        capture_output=True, text=True, check=True,
+                        timeout=300).stdout
+  counts, fn = {}, None
+  for line in sass.splitlines():
+    if "Function :" in line:
+      fn = line.split("Function :", 1)[1].strip()
+      counts[fn] = 0
+    elif fn is not None and ("HGMMA" in line or "HMMA" in line):
+      counts[fn] += 1
+  import re
+  tc = {int(re.search(r"kernelILi(\d+)E", fn).group(1)): n
+        for fn, n in counts.items() if "wgmma_kernel" in fn}
+  if sorted(tc) != sorted(fa.HEAD_DIMS) or not all(tc.values()):
+    raise AssertionError(f"K3's bf16 instances lack tensor-core "
+                         f"instructions: {tc}")
+  return tc
 
 
 def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
@@ -743,8 +828,11 @@ def profile_generate(torch, eng, prompts, n_new: int, tag: str) -> None:
         f"{e.key[:100]}")
 
 
-def phase_flash_timing(fa, torch, err: float, launches: int) -> dict:
-  """Phase 6: K3, its plain version and SDPA at the main path's shape."""
+def phase_flash_timing(fa, torch, err: float, launches: int,
+                       ptxas: list) -> dict:
+  """Phase 6: K3 (the bf16 tensor-core instance), its plain version and
+  SDPA at the main path's shape; the f32 CUDA-core instance on the same
+  inputs widened to f32."""
   case = LM_FA_CASE
   q, k, v = fa_inputs(torch, case, torch.bfloat16, 0)
   ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
@@ -755,11 +843,32 @@ def phase_flash_timing(fa, torch, err: float, launches: int) -> dict:
                                      enable_gqa=True), 20)
   lib_err = max_abs_err(sdpa(q, k, v, is_causal=True, enable_gqa=True),
                         fa.flash_attention(q, k, v, causal=True))
+  q32, k32, v32 = q.float(), k.float(), v.float()
+  f32_ms = cuda_time_ms(lambda: fa.flash_attention(q32, k32, v32,
+                                                   causal=True), 3)
+  del q32, k32, v32
+  # the other head dims the dense configs use, at the same shape otherwise
+  by_hd = {}
+  for hd in fa.HEAD_DIMS:
+    if hd == case[5]:
+      continue
+    qh, kh, vh = fa_inputs(torch, case[:5] + (hd,) + case[6:], torch.bfloat16,
+                           0)
+    by_hd[hd] = {
+        "ms": cuda_time_ms(lambda: fa.flash_attention(qh, kh, vh), 10),
+        "library_ms": cuda_time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                                enable_gqa=True), 10)}
   b_ms, b_by = attention_bound_ms(case, "bfloat16")
+  hd = case[5]
   row = {"case": "tinyllama prefill B4 H32/4 S2048 D64 causal bf16",
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "design": K3_DESIGN, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
          "library_ms": lib_ms, "library_max_abs_err": lib_err,
-         "max_abs_err": err, "launches": launches}
+         "max_abs_err": err, "launches": launches, "f32_instance_ms": f32_ms,
+         "ptxas": [p for p in ptxas if p.startswith(
+             f"flash_attention_wgmma<Li{hd}>")],
+         "dynamic_shared_memory_bytes": k3_tc_smem(hd),
+         "other_head_dims": by_hd}
   log(f"[time] K3 {json.dumps(row)}")
   return row
 
@@ -861,11 +970,16 @@ def main() -> int:
                        "0 bytes")})
   log(f"[build] K2 ptxas: {k2_ptxas} spills: {spills}")
   k3_ptxas, k3_spills = ptxas_summary(fa.build_log())
-  k3_smem = {hd: (2 * hd * (fa.TILE[0] + 4) + fa.TILE[1] * hd
-                  + fa.TILE[1] * (fa.TILE[0] + 4)) * 4 for hd in fa.HEAD_DIMS}
-  log(f"[build] K3 ptxas (dtype, head dim: registers): {k3_ptxas}; "
+  k3_smem = {"f32": {hd: (2 * hd * (fa.TILE[0] + 4) + fa.TILE[1] * hd
+                          + fa.TILE[1] * (fa.TILE[0] + 4)) * 4
+                     for hd in fa.HEAD_DIMS},
+             "bf16": {hd: k3_tc_smem(hd) for hd in fa.HEAD_DIMS}}
+  log(f"[build] K3 ptxas (instance<head dim>: registers): {k3_ptxas}; "
       f"spills: {k3_spills}; dynamic shared memory per CTA by head dim: "
       f"{k3_smem} bytes")
+  k3_tc = tensor_core_sass(fa)
+  log(f"[build] K3 bf16 instances, HGMMA/HMMA instructions in the SASS by "
+      f"head dim (cuobjdump -sass): {k3_tc}")
   k4_ptxas, k4_spills = ptxas_summary(ssd.build_log())
   n4 = SSD_MAIN_SHAPE[4]  # C^T, B^T, X, W^T tiles and three 64-vectors
   k4_smem = {pd: (2 * n4 * 68 + 64 * pd + 64 * 68 + 3 * 64) * 4
@@ -1167,7 +1281,7 @@ def main() -> int:
 
   # -- phase 6: LM serving at full width, then K3 timing ----------------------
   lm = phase_lm_serving(fa, torch, card)
-  k3 = phase_flash_timing(fa, torch, k3_err, lm["launches"])
+  k3 = phase_flash_timing(fa, torch, k3_err, lm["launches"], k3_ptxas)
 
   # -- phase 7: SSM serving at full width, then K4 timing ---------------------
   gc.collect()  # the tinyllama engines and weights went out of scope
@@ -1195,7 +1309,7 @@ def main() -> int:
       "ms": k2["ms"], "plain_ms": k2["plain_ms"],
       "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
       "library_ms": None}, {
-      "name": "flash_attention", "route": "cuda",
+      "name": "flash_attention_wgmma", "design": K3_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
       "replaces": "src/repro/kernels/flash_attention.py:107",
       "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],

@@ -8,10 +8,19 @@ k and v are (B, Hkv, Skv, D) with H a multiple of Hkv; query head h reads KV
 head h // (H / Hkv).  Query rows sit at the end of the kv axis; causal and
 sliding-window masks apply; masked scores take the finite sentinel -1e30.
 
+The kernel has two instances: bf16 runs both products on the tensor cores
+(wgmma, f32 accumulation, P rounded to bf16 for P V), f32 runs f32 FMA on
+the CUDA cores.
+
 Beside it, ``flash_attention_plain`` computes the same function in plain
 PyTorch, walking the kv blocks with the same block skip, the same sentinel
 and the same tile sizes as the kernel, so the two agree even on the rows
-that see no key (see the source note).
+that see no key (see the source note); P stays f32 there, so the bf16
+instance differs from it by P's rounding (within the bf16 tolerance).
+
+q, k and v may be any (B, H, S, D) views with a unit stride on D (the model
+passes transposed views of its (B, S, H, D) buffers), and ``out=`` takes
+such a view to write into.
 
 The wrapper takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  The library
@@ -41,7 +50,7 @@ _MAX_GRID = 2 ** 31 - 1
 LIBRARY = nvcc.KernelLibrary(
     "flash_attention", "simd2_flash_attention",
     [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_void_p])
+    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 library_path = LIBRARY.path
 build_log = LIBRARY.build_log
 load = LIBRARY.load
@@ -68,23 +77,43 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
     raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
+def kernel_takes(t: Tensor) -> bool:
+  """Whether the kernel reads (or writes) ``t`` as it is: a unit stride on
+  D, and for bf16 (whose tiles move by TMA) 16-byte aligned rows with
+  positive strides."""
+  if t.stride(-1) != 1 and t.shape[-1] > 1:
+    return False
+  if t.dtype != torch.bfloat16:
+    return True
+  return t.data_ptr() % 16 == 0 and all(
+      (s % 8 == 0 and s > 0) or n == 1
+      for s, n in zip(t.stride()[:3], t.shape[:3]))
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None,
-                    scale: Optional[float] = None) -> Tensor:
+                    scale: Optional[float] = None,
+                    out: Optional[Tensor] = None) -> Tensor:
   """K3: softmax(scale · q kᵀ, masked) v, per query head, out in q's dtype.
 
-  CPU tensors run ``flash_attention_plain``; CUDA tensors launch the kernel
-  once on the current stream and add one to ``flash_attention.launches``.
+  ``out``, when given, is a (B, H, Sq, D) tensor of q's dtype with a unit
+  stride on D (a transposed view of a (B, Sq, H, D) buffer, say) that
+  receives the result and is returned.  CPU tensors run
+  ``flash_attention_plain``; CUDA tensors launch the kernel once on the
+  current stream and add one to ``flash_attention.launches``.
   """
   _check(q, k, v)
+  if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                          or out.device != q.device):
+    raise ValueError(f"out must be {q.dtype} {tuple(q.shape)} on {q.device}, "
+                     f"got {out.dtype} {tuple(out.shape)} on {out.device}")
   scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
   if q.device.type == "cpu":
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 scale=scale)
+    y = flash_attention_plain(q, k, v, causal=causal, window=window,
+                              scale=scale)
+    return y if out is None else out.copy_(y)
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-  if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-    raise ValueError("flash_attention's kernel takes contiguous tensors")
   b, h, sq, d = q.shape
   hkv, skv = k.shape[1], k.shape[2]
   if d not in HEAD_DIMS:
@@ -94,17 +123,26 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
   if b * h * nq > _MAX_GRID or max(sq, skv) >= 2 ** 30:
     raise ValueError(f"too large for the kernel: B·H={b * h}, Sq={sq}, "
                      f"Skv={skv}")
-  out = torch.empty_like(q)
+  if out is None:
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+  for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    if not kernel_takes(t):
+      raise ValueError(f"flash_attention's kernel takes {name} with a unit "
+                       f"stride on its last axis (bf16: 16-byte aligned "
+                       f"rows), got strides {t.stride()}")
   if out.numel() == 0:
     return out
   # a window past every distance is no window; clamping keeps int32 exact
   win = 0 if window is None else min(int(window), sq + skv + 1)
+  strides = (ctypes.c_longlong * 12)(*[
+      s for t in (q, k, v, out) for s in t.stride()[:3]])
   launch = load()
   with torch.cuda.device(q.device):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = launch(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, int(causal),
-                int(window is not None), win, scale, stream)
+                int(window is not None), win, scale,
+                ctypes.addressof(strides), stream)
   if rc != 0:
     raise RuntimeError(f"flash_attention kernel launch failed for {q.dtype} "
                        f"B={b} H={h} Hkv={hkv} Sq={sq} Skv={skv} D={d}: error "

@@ -55,15 +55,21 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    scale: Optional[float] = None) -> Tensor:
-  """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Skv, D), one K3 launch.
+                    window: Optional[int] = None, scale: Optional[float] = None,
+                    out: Optional[Tensor] = None) -> Tensor:
+  """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Skv, D), one K3 launch;
+  written into ``out`` when given.
 
   Query head h reads KV head h // (H / Hkv); q rows sit at the end of the
-  kv axis.  Operands are made contiguous for the kernel.
+  kv axis.  Operands keep their strides: the kernel reads strided views as
+  long as D is unit-stride (and, in bf16, rows are 16-byte aligned), so
+  they are made contiguous only where they are not.
   """
-  return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal, window=window, scale=scale)
+  def fit(t):
+    return t if t.device.type == "cpu" or _fa.kernel_takes(t) else (
+        t.contiguous())
+  return _fa.flash_attention(fit(q), fit(k), fit(v), causal=causal,
+                             window=window, scale=scale, out=out)
 
 
 def ssd_intra_chunk(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor,

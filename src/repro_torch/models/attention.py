@@ -203,9 +203,12 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
       raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     q, k, v = _project_qkv(p, cfg, x, positions)
     if impl == "pallas":
-      out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
-                                window=window, scale=scale).transpose(1, 2)
+      # K3 reads the (B, S, H, hd) projections through transposed views and
+      # writes into a (B, S, H, hd) buffer: no copies on either side
+      out = torch.empty_like(q)
+      ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, window=window,
+                          scale=scale, out=out.transpose(1, 2))
     else:
       out, _ = _flash_fwd_impl(q, k, v, True, window, scale, 0,
                                FLASH_CHUNK)

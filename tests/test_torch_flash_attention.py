@@ -138,3 +138,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
   with pytest.raises(ValueError, match="at least one key"):
     fa.flash_attention(q, torch.zeros(1, 1, 0, 16), torch.zeros(1, 1, 0, 16))
   assert fa.flash_attention.launches == 0  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_strided_views_with_out_match_the_contiguous_call(dtype):
+  """q, k, v as transposed views of (B, S, H, D) buffers and ``out=`` a view
+  of one, as models/attention.py passes them: the same result as the
+  contiguous call, written into the caller's buffer and returned."""
+  b, h, hkv, s, d = 2, 4, 2, 96, 32
+  rng = np.random.default_rng(21)
+  qb, kb, vb = (torch.from_numpy(rng.standard_normal((b, s, n, d))
+                                 .astype(np.float32)).to(dtype)
+                for n in (h, hkv, hkv))
+  q, k, v = (t.transpose(1, 2) for t in (qb, kb, vb))
+  assert not q.is_contiguous()
+  want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, window=40)
+  buf = torch.full((b, s, h, d), float("nan"), dtype=dtype)
+  got = ops.flash_attention(q, k, v, causal=True, window=40,
+                            out=buf.transpose(1, 2))
+  assert got.data_ptr() == buf.data_ptr()
+  torch.testing.assert_close(buf.transpose(1, 2), want, rtol=0, atol=0)
+  with pytest.raises(ValueError, match="out must be"):
+    fa.flash_attention(q, k, v, out=torch.empty(b, h, s, d + 1, dtype=dtype))

@@ -8,9 +8,12 @@ JAX, so it runs on a machine that has only the port's dependencies:
 
 The shapes are ``chip_smoke.py``'s: the LM main path (tinyllama prefill,
 bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's FA_CASES in
-f32, head dim 128 in bf16, and the rows that see no key.  Tolerances: f32
-atol 2e-5 (the reference kernel test's own; the summation order differs),
-bf16 atol 3e-2 (the reference's own; one bf16 rounding of the output).
+f32 and in bf16 (all five head dims, Sq ≠ Skv, a window, non-causal), the
+rows that see no key in both dtypes, a steep score whose running max jumps
+between kv tiles, and strided views with ``out=``.  Tolerances: f32 atol
+2e-5 (the reference kernel test's own; the summation order differs), bf16
+atol 3e-2 (the reference's own; the bf16 instance also rounds P to bf16
+for the second product, as flash-attention kernels on this card do).
 """
 import pytest
 
@@ -90,10 +93,63 @@ def test_kernel_matches_plain_on_ragged_and_keyless_rows(cuda, case):
   torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_kernel_matches_plain_bf16_on_the_reference_cases(cuda, case):
+  got, want = _run(case, torch.bfloat16, cuda)
+  torch.testing.assert_close(got, want, rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rows_with_no_key_are_the_mean_of_v(cuda, dtype):
+  """Sq > Skv, causal: rows 0..31 sit before every key and end as the mean
+  of V (the TPU kernel's finite sentinel): every P there is exactly 1, in
+  bf16 too.  atol: f32 1e-5; bf16 one ulp of the output (2⁻⁸ below 1)."""
+  case = (1, 2, 2, 96, 64, 32, True, None)
+  q, k, v = _qkv(case, dtype, cuda, 5)
+  got = ops.flash_attention(q, k, v, causal=True)[:, :, :32].float()
+  mean_v = v.float().mean(dim=2, keepdim=True).expand_as(got)
+  atol = 1e-5 if dtype == torch.float32 else 2 ** -8
+  torch.testing.assert_close(got, mean_v, rtol=0, atol=atol)
+
+
+def test_steep_scores_rescale_with_bf16_p(cuda):
+  """q scaled by 20: the running max jumps between kv tiles by tens, so the
+  rescale of O and l carries the result, with P rounded to bf16."""
+  case = (2, 8, 2, 512, 512, 64, True, None)
+  q, k, v = _qkv(case, torch.float32, cuda, 9)
+  q, k, v = (q * 20).bfloat16(), k.bfloat16(), v.bfloat16()
+  got = ops.flash_attention(q, k, v, causal=True)
+  want = fa.flash_attention_plain(q, k, v, causal=True)
+  assert not torch.isnan(got).any()
+  torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_strided_views_with_out(cuda, dtype):
+  """q, k, v as transposed views of (B, S, H, D) buffers and ``out=`` a view
+  of one, as models/attention.py launches K3: one launch, the contiguous
+  call's bits, in the caller's buffer."""
+  b, h, hkv, s, d = 2, 8, 2, 300, 64
+  g = torch.Generator().manual_seed(4)
+  qb, kb, vb = (torch.randn(b, s, n, d, generator=g).to(cuda, dtype)
+                for n in (h, hkv, hkv))
+  q, k, v = (t.transpose(1, 2) for t in (qb, kb, vb))
+  want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, window=100)
+  buf = torch.full_like(qb, float("nan"))
+  before = fa.flash_attention.launches
+  got = ops.flash_attention(q, k, v, causal=True, window=100,
+                            out=buf.transpose(1, 2))
+  torch.cuda.synchronize()
+  assert fa.flash_attention.launches == before + 1
+  assert got.data_ptr() == buf.data_ptr()
+  assert torch.equal(buf.transpose(1, 2), want)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
   q = torch.zeros(1, 2, 8, 48, device=cuda)
   with pytest.raises(ValueError, match="head dims"):
     fa.flash_attention(q, q, q)
-  q = torch.zeros(1, 2, 8, 64, device=cuda)
-  with pytest.raises(ValueError, match="contiguous"):
-    fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+  q = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
+  with pytest.raises(ValueError, match="unit stride"):
+    fa.flash_attention(q, q, q)

@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
   2. build — compiles the SIMD² unit kernel (K1), the fused closure
      fixpoint (K2), flash attention (K3) and the SSD intra-chunk kernel (K4)
      from the checkout's sources, one nvcc each, in parallel, and prints
-     each one's ptxas summary; K3's bf16 instances must hold tensor-core
-     instructions (HGMMA or HMMA in ``cuobjdump -sass``);
+     each one's ptxas summary; K1's and K2's mma instances and K3's bf16
+     instances must hold tensor-core instructions (HGMMA in ``cuobjdump
+     -sass``), K1's and K2's other instances cp.async (LDGSTS);
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
      rings at three shapes, a batched ragged k_valid case, bf16, and one
      4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
@@ -41,9 +42,14 @@ Phases (any failure exits non-zero):
      the earlier waves are live; every result must equal batch mode on the
      'pallas' arm, with no executable built after prewarm;
   5. timing — K1, its plain version and (for mma) torch.matmul at the main
-     path's shapes; K2 per chunk at the main path's shapes and its plain
+     path's shapes, each result held against the plain version (for mma
+     also the split pass and the tensor-core tiles apart, by
+     torch.profiler); K2 per chunk at the main path's shapes and its plain
      version; the APSP-4096 fixpoint on the dispatch arm (one host sync per
-     iteration) against the fused arm; each with its bound on this card;
+     iteration) against the fused arm; each with the tile it takes and its
+     bound on this card
+     (``ops_seconds``: the tensor-core rate for mma, the CUDA-core issue
+     rate at the SM clock for the other rings, the int8 rate for orand);
   6. LM serving — tinyllama-1.1b at full width (22 layers, d 2048) with
      random weights from a seeded generator serves 4 prompts of 2048
      tokens, 32 new tokens each, through ``Engine(impl="pallas")``; K3 must
@@ -72,6 +78,7 @@ the per-kernel JSON record.  Imports nothing of JAX.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import subprocess
 import sys
@@ -81,10 +88,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): CUDA-core FP32, bf16
-# and int8 tensor rates, HBM3 bandwidth.  Rates assume a 700 W power limit.
+# H100 SXM published peaks (NVIDIA data sheet, dense): CUDA-core FP32 (the
+# FMA rate, 2 flops per lane per clock), bf16, TF32 and int8 tensor rates,
+# HBM3 bandwidth.  Rates assume a 700 W power limit.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "bool": 1979e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES_S = 3.35e12
+# CUDA-core instruction issue: 132 SMs × 128 lanes, one instruction per lane
+# per clock at the SM clock (read from nvidia-smi at start).  A min/max ring
+# term is two instructions (an FADD or FMUL and an FMNMX: no fused f32
+# add-min), and so is an addnorm term (FADD, FFMA) and an orand term.
+SMS, LANES = 132, 128
+SM_CLOCK_HZ = 1.98e9  # replaced by nvidia-smi's clocks.max.sm in main()
+K1_DESIGN = ("mma: a split pass writes A's and Bᵀ's big and small TF32 "
+             "parts, then wgmma.m64n128k8 TF32 on the tensor cores, 3×TF32 "
+             "(A_small·B_big, A_big·B_small, A_big·B_big per 8-deep k group; "
+             "bf16 inputs one product), two warpgroups per 128×128 tile, "
+             "32-deep slabs by TMA into the 128-byte swizzle, three stages "
+             "on mbarriers (the last warp done with a stage reloads it), "
+             "slab sums added with Kahan's compensation; other "
+             "rings: CUDA cores, 8×8 (128×128 tile) or 4×4 (64×64, where "
+             "128×128 covers < 2 waves) register tiles per thread, 16-deep "
+             "slabs double-buffered with cp.async")
+K2_DESIGN = ("cooperative persistent grid, two grid barriers per step "
+             "(three for mma: the split pass); tiles contracted by K1's "
+             "routines (mma 128×128 on the tensor cores, other rings "
+             "128×128 or 64×64 by K1's rule applied to the live tiles each "
+             "step)")
 MIN_MAX_RINGS = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin")
 TOL = {"rtol": 1e-5, "atol": 1e-4}   # mma / addnorm: summation order differs
 BF16_TOL = {"rtol": 3e-2, "atol": 3e-2}  # the reference's own bf16 tolerance
@@ -174,31 +204,70 @@ def check(name: str, got, want, op: str, bf16: bool = False) -> float:
   return err
 
 
+def ops_seconds(op: str, dtype: str, terms: float) -> float:
+  """Least time for ``terms`` (i, j, k) terms of ring ``op``: mma on the
+  tensor cores (f32 at the TF32 rate, three products per term for 3×TF32;
+  bf16 at the bf16 rate), orand at the int8 tensor-core rate (the least the
+  card could take; the kernel runs it on the CUDA cores), the other rings
+  two CUDA-core instructions per term at the issue rate."""
+  if op == "mma":
+    return (3 * 2.0 * terms / PEAK_TF32 if dtype == "float32"
+            else 2.0 * terms / PEAK_OPS["bfloat16"])
+  if op == "orand":
+    return 2.0 * terms / PEAK_OPS["bool"]
+  return cuda_core_seconds(terms)
+
+
+def cuda_core_seconds(terms: float) -> float:
+  """Two instructions per term at 132 SMs × 128 lanes × the SM clock."""
+  return 2.0 * terms / (SMS * LANES * SM_CLOCK_HZ)
+
+
 def bound_ms(op: str, dtype: str, r: int, m: int, k: int, n: int,
              k_live_total: int, has_c: bool) -> tuple:
-  """Least time for R requests of D = C ⊕ (A ⊗ B): 2·M·N·ΣK_live ring
-  operations at the card's peak for the input type, or each operand read
-  once and D written once at HBM bandwidth — whichever is larger."""
+  """Least time for R requests of D = C ⊕ (A ⊗ B): M·N·ΣK_live terms at the
+  ring's rate (``ops_seconds``), or each operand read once and D written
+  once at HBM bandwidth — whichever is larger."""
   isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
   osz = 1 if dtype == "bool" else (4 if op in ("mma", "addnorm") else isz)
   nbytes = r * (m * k + k * n) * isz + r * m * n * osz * (2 if has_c else 1)
-  t_ops = 2.0 * m * n * k_live_total / PEAK_OPS[dtype]
+  t_ops = ops_seconds(op, dtype, float(m) * n * k_live_total)
   t_bytes = nbytes / PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fixpoint_bound_ms(dtype: str, r: int, n: int, live_steps_kv: int,
-                      has_adj: bool) -> tuple:
+def fixpoint_bound_ms(op: str, dtype: str, r: int, n: int,
+                      live_steps_kv: int, has_adj: bool) -> tuple:
   """Least time for one K2 chunk: Σ over live (request, step) pairs of
-  2·n²·kv ring operations at the card's peak for the type, or the stack read
-  once and written once (plus the constant A for Bellman-Ford) at HBM
-  bandwidth — whichever is larger."""
+  n²·kv terms at the ring's rate (``ops_seconds``), or the stack read once
+  and written once (plus the constant A for Bellman-Ford) at HBM bandwidth
+  — whichever is larger."""
   isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
-  t_ops = 2.0 * n * n * live_steps_kv / PEAK_OPS[dtype]
+  t_ops = ops_seconds(op, dtype, float(n) * n * live_steps_kv)
   t_bytes = isz * r * n * n * (2 + int(has_adj)) / PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_ms(torch, fn, reps: int) -> dict:
+  """Device time per call of each kernel ``fn`` launches, by kernel name
+  (torch.profiler over ``reps`` calls after one warm-up)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  import re
+
+  def name(key: str) -> str:  # "void (anonymous namespace)::f<T>(...)" → f<T>
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", key.split("namespace)::", 1)[-1])
+    return m.group(1) if m else key[:80]
+  return {name(e.key): e.self_device_time_total / reps / 1e3
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -621,28 +690,66 @@ def k3_tc_smem(hd: int) -> int:
   return (128 + 4 * 2 * 64) * hd * 2 + 128
 
 
-def tensor_core_sass(fa) -> dict:
-  """HGMMA/HMMA instructions per bf16 K3 instance in the built library's
-  SASS; fails unless every head dim's instance has some."""
+def sass_counts(library: Path, opcodes: tuple) -> dict:
+  """Per kernel instantiation (mangled name) in a built library's SASS
+  (``cuobjdump -sass``): how many instructions start with each opcode."""
   import shutil
   tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-  sass = subprocess.run([tool, "-sass", str(fa.library_path())],
+  sass = subprocess.run([tool, "-sass", str(library)],
                         capture_output=True, text=True, check=True,
                         timeout=300).stdout
   counts, fn = {}, None
   for line in sass.splitlines():
     if "Function :" in line:
       fn = line.split("Function :", 1)[1].strip()
-      counts[fn] = 0
-    elif fn is not None and ("HGMMA" in line or "HMMA" in line):
-      counts[fn] += 1
+      counts[fn] = dict.fromkeys(opcodes, 0)
+    elif fn is not None:
+      for opcode in opcodes:
+        if opcode in line:
+          counts[fn][opcode] += 1
+  return counts
+
+
+def tensor_core_sass(fa) -> dict:
+  """HGMMA/HMMA instructions per bf16 K3 instance in the built library's
+  SASS; fails unless every head dim's instance has some."""
   import re
-  tc = {int(re.search(r"kernelILi(\d+)E", fn).group(1)): n
-        for fn, n in counts.items() if "wgmma_kernel" in fn}
+  counts = sass_counts(fa.library_path(), ("HGMMA", "HMMA"))
+  tc = {int(re.search(r"kernelILi(\d+)E", fn).group(1)): sum(c.values())
+        for fn, c in counts.items() if "wgmma_kernel" in fn}
   if sorted(tc) != sorted(fa.HEAD_DIMS) or not all(tc.values()):
     raise AssertionError(f"K3's bf16 instances lack tensor-core "
                          f"instructions: {tc}")
   return tc
+
+
+def semiring_sass(sm, mk) -> dict:
+  """K1's and K2's instances in their SASS: every mma instance must hold
+  HGMMA (wgmma) and every other ring's instance LDGSTS (cp.async).  Returns
+  the counts, keyed by kernel and instance kind."""
+  k1 = sass_counts(sm.library_path(), ("HGMMA", "LDGSTS"))
+  k2 = sass_counts(mk.library_path(), ("HGMMA", "LDGSTS"))
+  groups = {
+      "K1 mma (HGMMA)": [c["HGMMA"] for fn, c in k1.items()
+                         if "semiring_mma_tc_kernel" in fn],
+      "K1 other rings (LDGSTS)": [c["LDGSTS"] for fn, c in k1.items()
+                                  if "semiring_mmo_kernel" in fn],
+      # the ring code is the first template argument: mma is 0
+      "K2 mma (HGMMA)": [c["HGMMA"] for fn, c in k2.items()
+                         if "fixpoint_kernelILi0E" in fn],
+      "K2 other rings (LDGSTS)": [c["LDGSTS"] for fn, c in k2.items()
+                                  if "fixpoint_kernel" in fn
+                                  and "fixpoint_kernelILi0E" not in fn],
+  }
+  # instances: K1 mma f32 and bf16; 15 (ring, dtype) pairs × two register
+  # tiles; K2 mma f32; 13 (ring, dtype) pairs × two largest register tiles
+  want = {"K1 mma (HGMMA)": 2, "K1 other rings (LDGSTS)": 30,
+          "K2 mma (HGMMA)": 1, "K2 other rings (LDGSTS)": 26}
+  for name, found in groups.items():
+    if len(found) != want[name] or not all(found):
+      raise AssertionError(f"{name}: {len(found)} instances (want "
+                           f"{want[name]}), counts {found}")
+  return groups
 
 
 def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
@@ -930,7 +1037,15 @@ def main() -> int:
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   card = smi.splitlines()[0]
+  clock = subprocess.run(
+      ["nvidia-smi", "--query-gpu=clocks.max.sm",
+       "--format=csv,noheader,nounits"],
+      capture_output=True, text=True, check=True, timeout=60).stdout
+  global SM_CLOCK_HZ
+  SM_CLOCK_HZ = float(clock.splitlines()[0]) * 1e6
   log(card)
+  log(f"[env] clocks.max.sm {SM_CLOCK_HZ / 1e6:.0f} MHz: CUDA-core issue "
+      f"bound {SMS} SMs x {LANES} lanes x that clock")
   log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
       f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
   # full-precision f32 for every torch.matmul yardstick and rewrite
@@ -942,10 +1057,12 @@ def main() -> int:
   from repro_torch.core import closure as cl
   from repro_torch import serve_mmo as api
   from repro_torch.kernels import closure_megakernel as mk
-  from repro_torch.kernels import flash_attention as fa
   from repro_torch.kernels import nvcc
-  from repro_torch.kernels import semiring_mmo as sm
   from repro_torch.kernels import ssd
+  # the package's semiring_mmo and flash_attention are the batched entry
+  # points; the kernel modules of those names are reached by path
+  fa = importlib.import_module("repro_torch.kernels.flash_attention")
+  sm = importlib.import_module("repro_torch.kernels.semiring_mmo")
   from repro_torch.serve_mmo import (MMOEngine, apsp_request, knn_request,
                                      mmo_request, reachability_request)
 
@@ -977,6 +1094,9 @@ def main() -> int:
   log(f"[build] K3 ptxas (instance<head dim>: registers): {k3_ptxas}; "
       f"spills: {k3_spills}; dynamic shared memory per CTA by head dim: "
       f"{k3_smem} bytes")
+  sass = semiring_sass(sm, mk)
+  log(f"[build] K1/K2 instances, opcode counts in the SASS (cuobjdump "
+      f"-sass): {json.dumps(sass)}")
   k3_tc = tensor_core_sass(fa)
   log(f"[build] K3 bf16 instances, HGMMA/HMMA instructions in the SASS by "
       f"head dim (cuobjdump -sass): {k3_tc}")
@@ -1219,14 +1339,25 @@ def main() -> int:
     lib_ms = None
     if op == "mma":
       lib_ms = cuda_time_ms(lambda: torch.matmul(a, b), 3)
+      # the split pass and the tensor-core tiles, apart
+      parts = kernel_ms(torch, lambda: sm.semiring_mmo(a, b, c, op=op,
+                                                        k_valid=kv), 3)
     k_live = int(kv.clamp(0, k).sum()) if kv is not None else r * k
-    b_ms, b_by = bound_ms(op, str(a.dtype).removeprefix("torch."), r, m, k,
-                          n, k_live, c is not None)
-    err = max_abs_err(sm.semiring_mmo(a, b, c, op=op, k_valid=kv),
-                      sm.semiring_mmo_plain(a, b, c, op=op, k_valid=kv))
-    row = {"case": label, "op": op, "shape": [r, m, k, n], "ms": ms,
+    dtype = str(a.dtype).removeprefix("torch.")
+    b_ms, b_by = bound_ms(op, dtype, r, m, k, n, k_live, c is not None)
+    # the timed call's result against the plain version, at check()'s
+    # tolerance for the ring (bit-exact for min/max and orand)
+    err = check(f"{label} {op}", sm.semiring_mmo(a, b, c, op=op, k_valid=kv),
+                sm.semiring_mmo_plain(a, b, c, op=op, k_valid=kv), op)
+    row = {"case": label, "op": op, "shape": [r, m, k, n],
+           "tile": list(sm.tile_shape(op, a.dtype, r, m, n)), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": lib_ms, "max_abs_err": err}
+           "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+           "max_abs_err": err}
+    if op == "orand":  # the CUDA-core route's own issue bound, for context
+      row["cuda_core_bound_ms"] = cuda_core_seconds(float(m) * n * k_live) * 1e3
+    if op == "mma":
+      row["kernels_ms"] = parts
     rows_out.append(row)
     log(f"[time] {json.dumps(row)}")
   # K2 per chunk at the main path's shapes: the first chunk of each
@@ -1250,15 +1381,16 @@ def main() -> int:
     plain_ms = cuda_time_ms(
         lambda: mk.fixpoint_chunk_plain(*args, op=op, g_steps=8), 1)
     want = mk.fixpoint_chunk_plain(*args, op=op, g_steps=8)
-    err = max_abs_err(got[0], want[0])
+    err = check_chunk(f"K2 {label}", got, want, op)
     steps = got[1].to(torch.int64)
     live_kv = int((steps * kv.clamp(0, n)).sum())
-    b_ms, b_by = fixpoint_bound_ms(str(x.dtype).removeprefix("torch."), r, n,
-                                   live_kv, False)
+    b_ms, b_by = fixpoint_bound_ms(op, str(x.dtype).removeprefix("torch."),
+                                   r, n, live_kv, False)
     row = {"case": label, "op": op, "shape": [r, n], "g": 8,
+           "tile_all_live": list(mk.tile_shape(op, x.dtype, r, n)),
            "steps": got[1].tolist(), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "max_abs_err": err}
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "library_ms": None, "max_abs_err": err}
     k2_rows.append(row)
     log(f"[time] K2 {json.dumps(row)}")
   # the same fixpoints on both arms, host clock to the result: dispatch
@@ -1296,13 +1428,13 @@ def main() -> int:
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
-      "name": "semiring_mmo", "route": "cuda",
+      "name": "semiring_mmo", "design": K1_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
       "launches": launches, "max_abs_err": big_err, "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
       "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
-      "name": "closure_megakernel", "route": "cuda",
+      "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",
       "launches": k2_batch + k2_arena, "max_abs_err": k2_err,

@@ -32,7 +32,8 @@ import torch
 from repro_torch.core import closure as cl_mod
 from repro_torch.core import semiring as sr_mod
 from repro_torch.kernels import nvcc
-from repro_torch.kernels import semiring_mmo as _sm
+from repro_torch.kernels.semiring_mmo import (OP_CODES, TILE,
+                                              semiring_mmo_plain)
 
 Tensor = torch.Tensor
 
@@ -42,13 +43,29 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2}
 
 LIBRARY = nvcc.KernelLibrary(
     "closure_megakernel", "simd2_closure_fixpoint",
-    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
     + [ctypes.c_void_p])
 SOURCE = LIBRARY.source
 library_path = LIBRARY.path
 build_library = LIBRARY.build
 build_log = LIBRARY.build_log
 load = LIBRARY.load
+
+
+def tile_shape(op: str, dtype: torch.dtype, r: int, n: int) -> tuple:
+  """(rows, columns) of the output tile of a step of an (R, n, n) stack with
+  every request live, on the current card: 128×128 on the tensor cores for
+  mma; for the other rings K1's rule applied to the live tiles."""
+  sr = sr_mod.get(op)
+  tile = (ctypes.c_int * 2)()
+  fn = LIBRARY.function("simd2_closure_fixpoint_tile",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+  rc = fn(OP_CODES[sr.name], _DTYPE_CODES[dtype], r, n,
+          ctypes.addressof(tile))
+  if rc != 0:
+    raise RuntimeError(f"closure_megakernel tile query failed for {sr.name} "
+                       f"{dtype}: error code {rc}")
+  return tile[0], tile[1]
 
 
 class ChunkGeometry(NamedTuple):
@@ -140,23 +157,30 @@ def fixpoint_chunk(c: Tensor, adj: Optional[Tensor], kv: Tensor,
   if not all(t.is_contiguous() for t in operands):
     raise ValueError("fixpoint_chunk's kernel takes contiguous tensors")
   r, n = c.shape[0], c.shape[-1]
-  if r * math.ceil(n / _sm.TILE[0]) ** 2 >= 2 ** 62 or n >= 2 ** 31:
+  if r * math.ceil(n / TILE[0]) ** 2 >= 2 ** 62 or n >= 2 ** 31:
     raise ValueError(f"stack too large for the kernel: R={r} n={n}")
   out = torch.empty_like(c)
   it_out, act_out = it.clone(), act.clone()
   if c.numel() == 0:
     return out, it_out, act_out
   scratch = torch.empty_like(c)
-  work = torch.empty(2 * r + 1, dtype=torch.int32, device=c.device)
+  work = torch.empty(2 * r + 2, dtype=torch.int32, device=c.device)
+  tc_ws = None
+  if sr.name == "mma":  # the split TF32 operands of each step
+    nbytes = LIBRARY.function("simd2_closure_fixpoint_workspace",
+                              [ctypes.c_int] * 3, ctypes.c_longlong)(
+                                  OP_CODES[sr.name], r, n)
+    tc_ws = torch.empty(nbytes, dtype=torch.uint8, device=c.device)
 
   launch = load()
   with torch.cuda.device(c.device):
     stream = torch.cuda.current_stream(c.device).cuda_stream
-    rc = launch(_sm._OP_CODES[sr.name], _DTYPE_CODES[c.dtype], c.data_ptr(),
+    rc = launch(OP_CODES[sr.name], _DTYPE_CODES[c.dtype], c.data_ptr(),
                 None if adj is None else adj.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), kv.data_ptr(),
                 act_out.data_ptr(), it_out.data_ptr(), glim.data_ptr(),
-                work.data_ptr(), r, n, int(g_steps), stream)
+                work.data_ptr(), None if tc_ws is None else tc_ws.data_ptr(),
+                r, n, int(g_steps), stream)
   if rc != 0:
     raise RuntimeError(f"closure_megakernel launch failed for {sr.name} "
                        f"{c.dtype} R={r} n={n} g={g_steps}: error code {rc}")
@@ -184,8 +208,8 @@ def fixpoint_chunk_plain(c: Tensor, adj: Optional[Tensor], kv: Tensor,
     if not bool(live.any()):
       break
     k_valid = torch.where(live, kv, torch.zeros_like(kv))
-    new = _sm.semiring_mmo_plain(c, c if adj is None else adj, c, op=sr.name,
-                                 k_valid=k_valid)
+    new = semiring_mmo_plain(c, c if adj is None else adj, c, op=sr.name,
+                             k_valid=k_valid)
     new = torch.where(live[:, None, None], new, c)
     changed = cl_mod._batched_changed(new, c)
     it = it + live.to(torch.int32)

@@ -82,7 +82,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG = -1e30f;  // the TPU kernel's mask sentinel
 
@@ -299,9 +303,6 @@ struct TcArgs {
   Args a;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // 2^x on the SFU; results below 2^-126 flush to zero
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -309,35 +310,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-// one arrival that also announces `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of the given parity.  A
-// wait that never ends (a fault in the pipeline) traps instead of hanging
-// the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1ll << 28)) __trap();
-  }
-}
 // TMA: one box of a 4-d tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, const int (&c)[4]) {
@@ -348,39 +320,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c[3]), "r"(bar)
       : "memory");
 }
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N of this warpgroup's wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of an accumulator across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-// and an A fragment in flight from being overwritten before it
+// keeps an A fragment in flight from being overwritten before its wgmma
+// has read it
+using hopper::fence_regs;
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int k = 0; k < 4; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, lbo and sbo in bytes,
-// layout in bits 62-63 (0: unswizzled, 1: 128-byte swizzle).
-constexpr uint64_t SWIZZLE_128B = 1ull << 62;
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 // How a 64-row x HD bf16 tile (Q, K or V) lies in shared memory, as TMA
@@ -910,30 +857,6 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   const int nq = (a.sq + BQ - 1) / BQ;
   kernel<<<dim3((unsigned)(a.BH * nq)), dim3(THREADS), smem, stream>>>(a, nq);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that the
-// library links only against the CUDA runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-constexpr int NO_TENSOR_MAPS = 1999;  // cuTensorMapEncodeTiled unavailable
-constexpr int TENSOR_MAP_FAILED = 2000;  // + the CUresult
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
 }
 
 // The tensor map of one bf16 operand, a (batch, head, row, D) view with

@@ -82,13 +82,18 @@ class KernelLibrary:
   def load(self):
     """Build (if needed) and load the library; idempotent.  Returns the
     ctypes entry point."""
+    return self.function(self.symbol, self.argtypes)
+
+  def function(self, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """Another C function of the same library, loading the library first if
+    needed."""
     with self._lock:
       if self._lib is None:
-        fn = getattr(ctypes.CDLL(str(self.build())), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        self._lib = fn
-      return self._lib
+        self._lib = ctypes.CDLL(str(self.build()))
+      fn = getattr(self._lib, symbol)
+      fn.argtypes = argtypes
+      fn.restype = restype
+      return fn
 
 
 def build_all(libraries) -> None:

@@ -14,9 +14,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import semiring_mmo as _sm
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels.flash_attention import (flash_attention as
+                                                 _fa_kernel, kernel_takes)
+from repro_torch.kernels.semiring_mmo import semiring_mmo as _sm_kernel
 
 Tensor = torch.Tensor
 
@@ -50,7 +51,7 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
   if k_valid is not None:
     kv = (torch.as_tensor(k_valid, dtype=torch.int32, device=a.device)
           .broadcast_to(batch).reshape(r).contiguous())
-  out = _sm.semiring_mmo(a3, b3, c3, op=sr.name, k_valid=kv)
+  out = _sm_kernel(a3, b3, c3, op=sr.name, k_valid=kv)
   return out.reshape(batch + (m, n))
 
 
@@ -66,10 +67,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
   they are made contiguous only where they are not.
   """
   def fit(t):
-    return t if t.device.type == "cpu" or _fa.kernel_takes(t) else (
+    return t if t.device.type == "cpu" or kernel_takes(t) else (
         t.contiguous())
-  return _fa.flash_attention(fit(q), fit(k), fit(v), causal=causal,
-                             window=window, scale=scale, out=out)
+  return _fa_kernel(fit(q), fit(k), fit(v), causal=causal, window=window,
+                    scale=scale, out=out)
 
 
 def ssd_intra_chunk(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor,

@@ -26,24 +26,53 @@ from repro_torch.kernels import nvcc
 
 Tensor = torch.Tensor
 
-# Output tile (BM, BN) and K step (BK) compiled into the kernel.
+# The smallest output tile (BM, BN) and the K slab (BK) of the CUDA-core
+# instances; mma's tensor-core instance takes 128×128 tiles and 32-deep slabs.
+# tile_shape() says which tile a launch takes.
 TILE = (64, 64, 16)
 _MAX_GRID_YZ = 65535
 # Elements of the plain version's (R, M, bk, N) intermediate per K block.
 _PLAIN_BLOCK_ELEMS = 1 << 26
 
-_OP_CODES = {op: i for i, op in enumerate(sr_mod.ALL_OPS)}
+OP_CODES = {op: i for i, op in enumerate(sr_mod.ALL_OPS)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 LIBRARY = nvcc.KernelLibrary(
     "semiring_mmo", "simd2_semiring_mmo",
-    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p])
 SOURCE = LIBRARY.source
 library_path = LIBRARY.path
 build_library = LIBRARY.build
 build_log = LIBRARY.build_log
 load = LIBRARY.load
+
+
+def _workspace(r: int, m: int, k: int, n: int,
+               device: torch.device) -> Tensor:
+  """mma's workspace (A's and B's split TF32 parts, B transposed), sized by
+  the library."""
+  nbytes = LIBRARY.function("simd2_semiring_mmo_workspace",
+                            [ctypes.c_int] * 5, ctypes.c_longlong)(
+                                OP_CODES["mma"], r, m, k, n)
+  return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def tile_shape(op: str, dtype: torch.dtype, r: int, m: int, n: int) -> tuple:
+  """(rows, columns) of the output tile a launch at R × M × N takes on the
+  current card: 128×128 on the tensor cores for mma; 128×128 for the other
+  rings where those tiles cover at least two waves of the card's resident
+  CTAs, else 64×64."""
+  sr = sr_mod.get(op)
+  code = _DTYPE_CODES[torch.uint8 if dtype == torch.bool else dtype]
+  tile = (ctypes.c_int * 2)()
+  fn = LIBRARY.function("simd2_semiring_mmo_tile",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
+  rc = fn(OP_CODES[sr.name], code, r, m, n, ctypes.addressof(tile))
+  if rc != 0:
+    raise RuntimeError(f"semiring_mmo tile query failed for {sr.name} "
+                       f"{dtype}: error code {rc}")
+  return tile[0], tile[1]
 
 
 def _check(a: Tensor, b: Tensor, c: Optional[Tensor],
@@ -111,13 +140,16 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
   else:
     d = out
   launch = load()
+  workspace = (_workspace(r, m, k, n, a.device) if sr.name == "mma"
+               else None)
   with torch.cuda.device(a.device):
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = launch(
-        _OP_CODES[sr.name], _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+        OP_CODES[sr.name], _DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         None if c is None else c.data_ptr(),
         None if k_valid is None else k_valid.data_ptr(), d.data_ptr(),
-        r, m, k, n, stream)
+        None if workspace is None else workspace.data_ptr(), r, m, k, n,
+        stream)
   if rc != 0:
     raise RuntimeError(f"semiring_mmo kernel launch failed for {sr.name} "
                        f"{a.dtype} R={r} M={m} K={k} N={n}: error code {rc}")
@@ -133,15 +165,19 @@ def semiring_mmo_plain(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
                        k_valid: Optional[Tensor] = None) -> Tensor:
   """The kernel's function in plain PyTorch: blocked broadcast-⊗ + ⊕-reduce.
 
-  Same arithmetic as the kernel: operands widen to f32 (bool for orand),
-  lanes at or past ``k_valid`` take the contraction pads, the result rounds
-  once to the output dtype.  K blocks are sized so one block's
+  Operands widen to f32 (bool for orand), lanes at or past ``k_valid`` take
+  the contraction pads, the result rounds once to the output dtype.  mma
+  widens further, to float64, so its sum is the exact product rounded once
+  to f32: the reference the kernel's 3×TF32 tensor-core sum is held to
+  (a blocked f32 sum of 4096 terms is itself off by up to ~3e-4 from it,
+  three times the check's atol).  K blocks are sized so one block's
   (R, M, bk, N) intermediate stays near ``_PLAIN_BLOCK_ELEMS`` elements.
   """
   sr = sr_mod.get(op)
   r, m, k = a.shape
   n = b.shape[-1]
-  work = torch.bool if sr.boolean else torch.float32
+  work = (torch.bool if sr.boolean else
+          torch.float64 if sr.name == "mma" else torch.float32)
   af, bf = a.to(work), b.to(work)
   kmax = k
   if k_valid is not None:

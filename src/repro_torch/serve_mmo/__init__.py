@@ -35,19 +35,38 @@ from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
                                        reachability_request)
 from repro_torch.serve_mmo.arena import Eviction, RequestArena
 from repro_torch.serve_mmo.cache import ExecutableCache
-from repro_torch.serve_mmo.engine import EngineStats, MMOEngine
+from repro_torch.serve_mmo.engine import EngineStats, MMOEngine, bucket_label
 from repro_torch.serve_mmo.policy import (FifoPolicy, QueueEntry,
                                           SchedulingPolicy, make_policy)
 from repro_torch.serve_mmo.scheduler import (BucketKey, BucketScheduler,
-                                             bucket_dim, contract_shape,
-                                             request_bucket)
+                                             FifoBucketScheduler, bucket_dim,
+                                             contract_shape, request_bucket)
 
+# The reference's public names that are ported.  QueueEntry, bucket_dim,
+# contract_shape and request_bucket stay importable from here but are not
+# in the reference's __all__.
 __all__ = [
-    "BucketKey", "BucketScheduler", "DeadlineExceededError", "EngineStats",
-    "Eviction", "ExecutableCache", "FifoPolicy", "MMOEngine", "MMOFuture",
-    "MMOResult", "NonFiniteResultError", "ProblemRequest", "QueueEntry",
-    "RejectedError", "RequestArena",
-    "SchedulingPolicy", "apsp_request", "bucket_dim", "closure_request",
-    "contract_shape", "knn_request", "make_policy", "mmo_request",
-    "reachability_request", "request_bucket",
+    "ProblemRequest",
+    "MMOFuture",
+    "MMOResult",
+    "MMOEngine",
+    "EngineStats",
+    "RequestArena",
+    "Eviction",
+    "ExecutableCache",
+    "BucketKey",
+    "BucketScheduler",
+    "FifoBucketScheduler",
+    "SchedulingPolicy",
+    "FifoPolicy",
+    "make_policy",
+    "bucket_label",
+    "NonFiniteResultError",
+    "RejectedError",
+    "DeadlineExceededError",
+    "mmo_request",
+    "closure_request",
+    "apsp_request",
+    "reachability_request",
+    "knn_request",
 ]

@@ -154,8 +154,8 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
         "11, distributed schedules)")
   if torch.device(device).type == "cuda":
     if backend == "pallas":
-      from repro_torch.kernels import semiring_mmo as _sm
-      _sm.load()
+      from repro_torch.kernels.semiring_mmo import load
+      load()
     elif backend == "megakernel":
       from repro_torch.kernels import closure_megakernel as _mk
       _mk.load()

@@ -23,11 +23,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from repro_torch.serve_mmo.api import ProblemRequest
-from repro_torch.serve_mmo.policy import QueueEntry, make_policy
+from repro_torch.serve_mmo.policy import FifoPolicy, QueueEntry, make_policy
 from repro_torch.tuning.cost_table import MIN_BUCKET, bucket_dim, bucket_shape
 
 __all__ = ["MIN_BUCKET", "BucketKey", "bucket_dim", "bucket_shape",
-           "contract_shape", "request_bucket", "BucketScheduler"]
+           "contract_shape", "request_bucket", "BucketScheduler",
+           "FifoBucketScheduler"]
 
 
 class BucketKey(NamedTuple):
@@ -164,3 +165,13 @@ class BucketScheduler:
     """Requests diverted by deadline expiry since the last call."""
     expired, self._expired = self._expired, []
     return expired
+
+
+class FifoBucketScheduler(BucketScheduler):
+  """The scheduler pinned to the FIFO policy: strict FIFO within a bucket,
+  oldest head first across buckets."""
+
+  def __init__(self, *, min_bucket: int = MIN_BUCKET, max_batch: int = 8,
+               clock=None):
+    super().__init__(policy=FifoPolicy(), min_bucket=min_bucket,
+                     max_batch=max_batch, clock=clock)

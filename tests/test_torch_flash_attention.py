@@ -13,6 +13,7 @@ at 2e-5 too: both kernels return the mean of V there.
 The CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_flash_attention_cuda.py.
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -22,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as j_fa  # noqa: E402
 from repro.kernels.ref import attention_ref as j_attention_ref  # noqa: E402
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 

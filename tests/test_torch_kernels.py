@@ -11,6 +11,7 @@ min/max rings and orand in f32, rtol 1e-5 / atol 1e-4 for mma and addnorm
 The CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_kernels_cuda.py.
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -24,7 +25,7 @@ from repro.kernels.ref import semiring_mmo_ref as j_ref  # noqa: E402
 from repro_torch.core import semiring as tsr  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels import semiring_mmo as sm  # noqa: E402
+sm = importlib.import_module("repro_torch.kernels.semiring_mmo")
 
 # the reference kernel sweep's shapes (tests/test_kernels.py)
 MMO_SHAPES = [(128, 128, 128), (64, 200, 96), (13, 7, 5), (256, 384, 128),

@@ -9,10 +9,11 @@ JAX, so it runs on a machine that has only the port's dependencies:
 
 Tolerances: K2 vs its plain version is bit-exact on the min/max rings and
 orand, rtol 1e-5 / atol 1e-4 on mma (the plain version sums with torch's
-reduction, the kernel with one fmaf per term); K2 vs the K1 dispatch path is
-bit-identical on every ring, mma included, outputs and iteration counts
-(both kernels contract with semiring_ring.cuh).
+reduction, the kernel with 3×TF32 on the tensor cores); K2 vs the K1
+dispatch path is bit-identical on every ring, mma included, outputs and
+iteration counts (both kernels contract with semiring_ring.cuh).
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -20,7 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import closure as cl  # noqa: E402
 from repro_torch.kernels import closure_megakernel as mk  # noqa: E402
-from repro_torch.kernels import semiring_mmo as sm  # noqa: E402
+sm = importlib.import_module("repro_torch.kernels.semiring_mmo")
 
 RINGS = ("mma", "minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin",
          "orand")
@@ -161,3 +162,28 @@ def test_wrapper_refuses_non_contiguous_and_addnorm(cuda):
                       op="minplus", g_steps=1)
   with pytest.raises(ValueError, match="⊗-identity"):
     mk.fixpoint_chunk(c, None, kv, act, it, glim, op="addnorm", g_steps=1)
+
+
+@pytest.mark.parametrize("op", RINGS)
+def test_fused_arm_is_the_dispatch_path_on_both_tile_instances(cuda, op):
+  """Four requests of n = 1536: a step with all four live takes 128×128
+  tiles (two waves of the grid or more), with fewer live it may take 64×64;
+  both arms must still agree bit for bit.  mma's weights are scaled by 1/n
+  so that its closure converges in f32."""
+  r, n = 4, 1536
+  adj = rand_stack(op, n, r, seed=11)
+  if op == "mma":
+    adj = adj / n
+  adj = adj.to(cuda)
+  want_tile = (128, 128)
+  assert mk.tile_shape(op, adj.dtype, r, n) == want_tile
+  if op != "mma":
+    assert mk.tile_shape(op, adj.dtype, 1, 200) == (64, 64)
+  solve = SOLVERS["leyzorek"]
+  want, want_it = solve(adj, op=op, backend="pallas")
+  got, it = solve(adj, op=op, fixpoint_backend="megakernel", megakernel_g=3)
+  torch.cuda.synchronize()
+  assert torch.equal(it, want_it)
+  assert torch.equal(torch.isnan(got), torch.isnan(want))
+  assert torch.equal(torch.nan_to_num(got.float()),
+                     torch.nan_to_num(want.float()))

@@ -5,6 +5,7 @@ broadcast-reduce) and 'pallas' (the SIMD² unit kernel; its plain version on
 the CPU, the reference's Pallas kernel in interpret mode).  Bit-exact on the
 min/max rings and orand; rtol 1e-5 / atol 1e-4 on mma and addnorm.
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -16,7 +17,7 @@ from repro.core.mmo import mmo as j_mmo  # noqa: E402
 from repro.core.mmo import mmo_batched as j_mmo_batched  # noqa: E402
 from repro.core.mmo import mmo_reference as j_mmo_reference  # noqa: E402
 from repro.core.semiring import ALL_OPS  # noqa: E402
-from repro_torch.core import mmo as tmmo  # noqa: E402
+tmmo = importlib.import_module("repro_torch.core.mmo")
 from repro_torch.core import semiring as tsr  # noqa: E402
 
 EXACT = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin",

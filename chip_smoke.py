@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
      from the checkout's sources, one nvcc each, in parallel, and prints
      each one's ptxas summary; K1's and K2's mma instances and K3's bf16
      instances must hold tensor-core instructions (HGMMA in ``cuobjdump
-     -sass``), K1's and K2's other instances cp.async (LDGSTS);
+     -sass``), every K4 instance too (HMMA or HGMMA), K1's and K2's other
+     instances cp.async (LDGSTS);
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
      rings at three shapes, a batched ragged k_valid case, bf16, and one
      4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
@@ -22,10 +23,12 @@ Phases (any failure exits non-zero):
      shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
      FA_CASES in f32 and bf16 (a window, head dims 32 to 128, Sq ≠ Skv,
      non-causal), head dims 128 and 16 in bf16, rows that see no key in
-     both dtypes, a steep score (q × 20), and strided views with out=; K4 at the reference kernel test's
-     shapes in f32 and bf16, the mamba2-780m prefill's shape (f32, BZ 32,
-     H 48, G 1, Q 256, N 128, P 64), grouped cases with G < H, and a decay
-     whose exp overflows above the diagonal;
+     both dtypes, a steep score (q × 20), and strided views with out=; K4
+     at the reference kernel test's shapes in f32 and bf16, the
+     mamba2-780m prefill's shape (BZ 32, H 48, G 1, Q 256, N 128, P 64) in
+     f32 and bf16, grouped cases with G < H, the design's edges (N 20 and
+     256, P 8 and 128, Q 600, a ragged head block), and a decay whose exp
+     overflows above the diagonal;
   4. main path, batch mode — ``MMOEngine(backend="pallas", max_batch=8)``
      serves a mixed stream sized from the paper's Table 4 "small" column
      (APSP 4096, reachability 1024, KNN 4096 queries × 16384×16 corpus, a
@@ -70,7 +73,9 @@ Phases (any failure exits non-zero):
      must give both arms the same prefill logits to 1e-4; then K4, its
      plain version and the 'xla' arm's intra-chunk einsums (no single
      library call computes the term) are timed at the prefill's shape, in
-     the model's layout.
+     the model's layout, with K4's share of its bound (the products at the
+     3×TF32 tensor-core rate; the f32 CUDA-core figure beside it) and its
+     head block.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -126,6 +131,15 @@ K3_DESIGN = ("bf16: wgmma S = Q Kᵀ and O += P V (P from registers), two "
              "consumer warpgroups of 64 query rows per CTA, K/V by TMA "
              "through a four-stage mbarrier ring, S of tile u issued behind "
              "P V of tile u - 1; f32: CUDA-core FMA")
+K4_DESIGN = ("C Bᵀ once per (z, group, 64-row query tile), kept in shared "
+             "memory (≤ 256 keys per pass) and shared by a block of the "
+             "group's heads sized for ~2 waves; W = (S · decay) · dt formed "
+             "in registers; both products as mma.sync.m16n8k8 TF32 on the "
+             "tensor cores, 3×TF32 (big = x truncated, small = the rest "
+             "rounded), 16-deep N slices and 32-key stages summed apart and "
+             "added in f32; four compute warps of 16 rows and two copying "
+             "warps feeding a four-stage cp.async ring; non-finite results "
+             "recomputed as plain f32 sums")
 # H100 SXM special-function units: 16 exp2 results per clock per SM
 # (CUDA programming guide, compute capability 9.0) at the 1.98 GHz boost
 # clock on 132 SMs
@@ -166,6 +180,11 @@ SSD_REF_SHAPES = [(2, 4, 4, 32, 16, 8), (1, 2, 2, 64, 32, 16),
 SSD_MAIN_SHAPE = (4 * 8, 48, 1, 256, 128, 64)
 SSD_GROUPED_SHAPES = [(2, 8, 2, 100, 32, 32), (2, 4, 1, 8, 16, 16),
                       (1, 6, 3, 130, 64, 128)]
+# the design's edges (tests/test_torch_ssd_cuda.py): N 20 and 256, P 8 and
+# 128 with G < H, Q 600 (three passes of 256 keys)
+SSD_EDGE_SHAPES = [(2, 8, 2, 100, 20, 32), (2, 8, 1, 256, 256, 64),
+                   (2, 8, 2, 130, 64, 8), (2, 8, 1, 256, 128, 128),
+                   (1, 4, 2, 600, 32, 32)]
 
 
 def log(msg: str) -> None:
@@ -625,7 +644,9 @@ def check_ssd(ssd, torch, shape, dtype, tol, seed=0, **kw) -> float:
 
 def phase_ssd_vs_plain(ssd, torch) -> float:
   """Phase 3, K4: the reference test's shapes in f32 and bf16, the main
-  path's shape, grouped cases, and exp overflow above the diagonal.
+  path's shape in f32 and bf16, grouped cases, the design's edges (N, P,
+  Q past one pass, a ragged head block), and exp overflow above the
+  diagonal.
   Returns the main shape's max |err|."""
   for shape in SSD_REF_SHAPES:
     for dtype in (torch.float32, torch.bfloat16):
@@ -633,8 +654,15 @@ def phase_ssd_vs_plain(ssd, torch) -> float:
       check_ssd(ssd, torch, shape, dtype, {"rtol": t, "atol": t})
   main_err = check_ssd(ssd, torch, SSD_MAIN_SHAPE, torch.float32,
                        SSD_LONG_TOL, seed=1)
-  for shape in SSD_GROUPED_SHAPES:
+  check_ssd(ssd, torch, SSD_MAIN_SHAPE, torch.bfloat16, SSD_LONG_TOL, seed=1)
+  for shape in SSD_GROUPED_SHAPES + SSD_EDGE_SHAPES:
     check_ssd(ssd, torch, shape, torch.float32, SSD_LONG_TOL, seed=1)
+  # a group's 48 heads in CTA head blocks with a smaller last block
+  bz = next(bz for bz in range(1, 257)
+            if (hb := ssd.head_block(torch.float32, 64, bz, 48, 1, 100)) > 1
+            and 48 % hb)
+  check_ssd(ssd, torch, (bz, 48, 1, 100, 64, 64), torch.float32,
+            SSD_LONG_TOL, seed=1)
   # decays of 0.5–1.5 per row: exp(cum_q − cum_k) is +inf far above the
   # diagonal; the kernel's select must keep it out (no inf · 0 = NaN)
   check_ssd(ssd, torch, (2, 4, 1, 256, 32, 64), torch.float32, SSD_LONG_TOL,
@@ -643,21 +671,25 @@ def phase_ssd_vs_plain(ssd, torch) -> float:
 
 
 def ssd_bound_ms(shape, isz: int) -> tuple:
-  """Least time for one K4 call: per causal (q, k ≤ q) pair, the score's
-  2·N flops once per group (the heads of a group share C Bᵀ) and 2·P flops
-  and one exp per head, at the f32 CUDA-core peak and the SFU rate; or C
-  and B read once per group, X, dt and cum once per head, and the f32 Y
-  written once, at HBM bandwidth — whichever is largest."""
+  """Least time for one K4 call on f32 operands: per causal (q, k ≤ q)
+  pair, the score's 2·N flops once per group (the heads of a group share
+  C Bᵀ) and 2·P flops and one exp per head, the products at f32 accuracy
+  on the tensor cores (three TF32 products each, as K1's mma) and the exps
+  at the SFU rate; or C and B read once per group, X, dt and cum once per
+  head, and the f32 Y written once, at HBM bandwidth — whichever is
+  largest.  Also returns the products' time at the f32 CUDA-core rate, the
+  bound before the kernel ran on the tensor cores."""
   bz, h, g, q, n, p = shape
   tri = q * (q + 1) // 2
   pairs = bz * h * tri
   flops = 2.0 * n * bz * g * tri + 2.0 * p * pairs
-  t_ops = max(flops / PEAK_OPS["float32"], pairs / SFU_EXP_S)
+  t_ops = max(3 * flops / PEAK_TF32, pairs / SFU_EXP_S)
   nbytes = isz * (2 * bz * g * q * n + bz * h * q * p + 2 * bz * h * q) \
       + 4 * bz * h * q * p
   t_bytes = nbytes / PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
-          "operations" if t_ops >= t_bytes else "bytes")
+          "operations" if t_ops >= t_bytes else "bytes",
+          flops / PEAK_OPS["float32"] * 1e3)
 
 
 def ptxas_summary(build_log: str) -> tuple:
@@ -750,6 +782,28 @@ def semiring_sass(sm, mk) -> dict:
       raise AssertionError(f"{name}: {len(found)} instances (want "
                            f"{want[name]}), counts {found}")
   return groups
+
+
+def k4_smem_bytes(p: int) -> int:
+  """Dynamic shared memory of a K4 CTA (csrc/ssd.cu): the scores of one
+  pass (4 warps × 32 groups of 8 keys × 128 floats) and four ring stages,
+  each the larger of a score stage (C and B slices, 2 × 64 × 20 floats) and
+  an X stage (32 keys × (P + 4), their dt and cum, the 64 query rows'
+  cum)."""
+  stage = max(2 * 64 * 20, 32 * (p + 4) + 2 * 32 + 64)
+  return (4 * 32 * 128 + 4 * ((stage + 3) // 4 * 4)) * 4
+
+
+def ssd_sass(ssd) -> dict:
+  """Tensor-core instructions per K4 instance in the built library's SASS;
+  fails unless each of the ten (dtype, head dim) instances has some."""
+  counts = sass_counts(ssd.library_path(), ("HMMA", "HGMMA"))
+  tc = {fn: sum(c.values()) for fn, c in counts.items()
+        if "ssd_intra_chunk_kernel" in fn}
+  if len(tc) != 2 * len(ssd.HEAD_DIMS) or not all(tc.values()):
+    raise AssertionError(f"K4's instances lack tensor-core instructions: "
+                         f"{tc}")
+  return tc
 
 
 def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
@@ -1013,11 +1067,14 @@ def phase_ssd_timing(ssd, torch, err: float, launches: int) -> dict:
   got = ops.ssd_intra_chunk(*views, out=out)
   layout_err = max_abs_err(got, ssd.ssd_intra_chunk_plain(*views))
   xla_err = max_abs_err(buf, ssm._y_diag(cc, bc, xc, dtc, dac, cum, "xla"))
-  b_ms, b_by = ssd_bound_ms(SSD_MAIN_SHAPE, 4)
+  b_ms, b_by, cc_ms = ssd_bound_ms(SSD_MAIN_SHAPE, 4)
   row = {"case": f"mamba2-780m prefill (BZ, H, G, Q, N, P)="
-                 f"{SSD_MAIN_SHAPE} f32, model layout", "ms": ms, "contiguous_ms": contig_ms,
-         "plain_ms": plain_ms, "xla_arm_ms": xla_ms, "bound_ms": b_ms,
-         "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+                 f"{SSD_MAIN_SHAPE} f32, model layout", "ms": ms,
+         "contiguous_ms": contig_ms, "plain_ms": plain_ms,
+         "xla_arm_ms": xla_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "share_of_bound": b_ms / ms, "cuda_core_products_ms": cc_ms,
+         "head_block": ssd.head_block(torch.float32, p, bz, h, g, q),
+         "library_ms": None, "max_abs_err": err,
          "model_layout_max_abs_err": layout_err,
          "xla_arm_max_abs_err": xla_err, "launches": launches}
   log(f"[time] K4 {json.dumps(row)}")
@@ -1101,12 +1158,13 @@ def main() -> int:
   log(f"[build] K3 bf16 instances, HGMMA/HMMA instructions in the SASS by "
       f"head dim (cuobjdump -sass): {k3_tc}")
   k4_ptxas, k4_spills = ptxas_summary(ssd.build_log())
-  n4 = SSD_MAIN_SHAPE[4]  # C^T, B^T, X, W^T tiles and three 64-vectors
-  k4_smem = {pd: (2 * n4 * 68 + 64 * pd + 64 * 68 + 3 * 64) * 4
-             for pd in ssd.HEAD_DIMS}
+  k4_smem = {pd: k4_smem_bytes(pd) for pd in ssd.HEAD_DIMS}
   log(f"[build] K4 ptxas (dtype, head dim: registers): {k4_ptxas}; spills: "
-      f"{k4_spills}; dynamic shared memory per CTA at N "
-      f"{SSD_MAIN_SHAPE[4]} by head dim: {k4_smem} bytes")
+      f"{k4_spills}; dynamic shared memory per CTA by head dim: {k4_smem} "
+      f"bytes")
+  k4_tc = ssd_sass(ssd)
+  log(f"[build] K4 instances, HMMA/HGMMA instructions in the SASS "
+      f"(cuobjdump -sass): {json.dumps(k4_tc)}")
 
   # -- phase 3: kernel vs plain ---------------------------------------------
   gen = torch.Generator().manual_seed(0)
@@ -1448,7 +1506,7 @@ def main() -> int:
       "ms": k3["ms"], "plain_ms": k3["plain_ms"],
       "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
       "library_ms": k3["library_ms"]}, {
-      "name": "ssd_intra_chunk", "route": "cuda",
+      "name": "ssd_intra_chunk", "design": K4_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/ssd.cu",
       "replaces": "src/repro/kernels/ssd.py:54",
       "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],

@@ -3,8 +3,10 @@
 ``ssd_intra_chunk`` is the wrapper of the hand-written CUDA kernel in
 ``csrc/ssd.cu``, which replaces the Pallas TPU kernel
 ``repro/kernels/ssd.py::ssd_intra_chunk`` (the source note there says what
-bounds it and how its design answers that).  For every (batch·chunk z,
-head h) and row q of a chunk of Q rows:
+bounds it and how its design answers that: C Bᵀ formed once per (z,
+group, query tile) and shared by a block of the group's heads, both
+products on the tensor cores as 3×TF32).  For every (batch·chunk z, head
+h) and row q of a chunk of Q rows:
 
     Y[q] = Σ_{k ≤ q} (C_q · B_k) · exp(cum_q − cum_k) · dt_k · X[k]
 
@@ -46,6 +48,19 @@ LIBRARY = nvcc.KernelLibrary(
 library_path = LIBRARY.path
 build_log = LIBRARY.build_log
 load = LIBRARY.load
+
+
+def head_block(dtype: torch.dtype, p: int, bz: int, h: int, g: int,
+               q: int) -> int:
+  """How many heads of a group one CTA of the kernel takes for this call
+  shape on the current card (the kernel sizes its grid by the card's
+  resident CTAs)."""
+  fn = LIBRARY.function("simd2_ssd_head_block", [ctypes.c_int] * 6)
+  hb = fn(_DTYPE_CODES[dtype], p, bz, h, g, q)
+  if hb <= 0:
+    raise RuntimeError(f"no head block for {dtype} P={p} BZ={bz} H={h} G={g} "
+                       f"Q={q}")
+  return hb
 
 
 def _check(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor) -> None:

@@ -44,6 +44,20 @@ Phases (any failure exits non-zero):
      minplus, orand, maxmin) in three waves, each submitted while slots of
      the earlier waves are live; every result must equal batch mode on the
      'pallas' arm, with no executable built after prewarm;
+  4d. QoS serving on ``auto`` — the Table-4 stream's points autotuned with
+     CUDA events (``tune_for_requests``: measured against the prior, the
+     decision per bucket; every closure bucket must hold measured
+     ``pallas`` and ``megakernel`` rows), the stream served on
+     ``MMOEngine(backend="auto", adaptive=True)`` with every result equal
+     to the fixed arm's and K1 or K2 launched; then 8 APSP-4096 bulk
+     closures against 16 urgent ones (n 200–256, deadline 0.25 s, one
+     every 20 ms) on fifo and on deadline (``max_batch_seconds=0.05``),
+     with the urgent p50/p99, expired and failed-fast counts, the bulk
+     batch sizes and per bucket the static prediction, the EWMA and the
+     measured service per padded slot, the outcomes adding up and every
+     completed result equal to the fixed arm's; then one admission burst
+     (``max_queue=4``, ``max_backlog_s=0.1``) whose rejected futures raise
+     ``RejectedError``; and K1's time per back-to-back launch;
   5. timing — K1, its plain version and (for mma) torch.matmul at the main
      path's shapes, each result held against the plain version (for mma
      also the split pass and the tensor-core tiles apart, by
@@ -93,18 +107,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): CUDA-core FP32 (the
-# FMA rate, 2 flops per lane per clock), bf16, TF32 and int8 tensor rates,
-# HBM3 bandwidth.  Rates assume a 700 W power limit.
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "bool": 1979e12}
-PEAK_TF32 = 495e12
-PEAK_BYTES_S = 3.35e12
-# CUDA-core instruction issue: 132 SMs × 128 lanes, one instruction per lane
-# per clock at the SM clock (read from nvidia-smi at start).  A min/max ring
-# term is two instructions (an FADD or FMUL and an FMNMX: no fused f32
-# add-min), and so is an addnorm term (FADD, FFMA) and an orand term.
-SMS, LANES = 132, 128
-SM_CLOCK_HZ = 1.98e9  # replaced by nvidia-smi's clocks.max.sm in main()
+# The H100's published peaks and the CUDA-core issue rate live with the
+# dispatch cost prior, so the kernel bounds below and the prior are one
+# formula; main() sets the SM clock from nvidia-smi's clocks.max.sm.
+from repro_torch.roofline import hw  # noqa: E402  (imports no torch)
 K1_DESIGN = ("mma: a split pass writes A's and Bᵀ's big and small TF32 "
              "parts, then wgmma.m64n128k8 TF32 on the tensor cores, 3×TF32 "
              "(A_small·B_big, A_big·B_small, A_big·B_big per 8-deep k group; "
@@ -223,25 +229,6 @@ def check(name: str, got, want, op: str, bf16: bool = False) -> float:
   return err
 
 
-def ops_seconds(op: str, dtype: str, terms: float) -> float:
-  """Least time for ``terms`` (i, j, k) terms of ring ``op``: mma on the
-  tensor cores (f32 at the TF32 rate, three products per term for 3×TF32;
-  bf16 at the bf16 rate), orand at the int8 tensor-core rate (the least the
-  card could take; the kernel runs it on the CUDA cores), the other rings
-  two CUDA-core instructions per term at the issue rate."""
-  if op == "mma":
-    return (3 * 2.0 * terms / PEAK_TF32 if dtype == "float32"
-            else 2.0 * terms / PEAK_OPS["bfloat16"])
-  if op == "orand":
-    return 2.0 * terms / PEAK_OPS["bool"]
-  return cuda_core_seconds(terms)
-
-
-def cuda_core_seconds(terms: float) -> float:
-  """Two instructions per term at 132 SMs × 128 lanes × the SM clock."""
-  return 2.0 * terms / (SMS * LANES * SM_CLOCK_HZ)
-
-
 def bound_ms(op: str, dtype: str, r: int, m: int, k: int, n: int,
              k_live_total: int, has_c: bool) -> tuple:
   """Least time for R requests of D = C ⊕ (A ⊗ B): M·N·ΣK_live terms at the
@@ -250,8 +237,8 @@ def bound_ms(op: str, dtype: str, r: int, m: int, k: int, n: int,
   isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
   osz = 1 if dtype == "bool" else (4 if op in ("mma", "addnorm") else isz)
   nbytes = r * (m * k + k * n) * isz + r * m * n * osz * (2 if has_c else 1)
-  t_ops = ops_seconds(op, dtype, float(m) * n * k_live_total)
-  t_bytes = nbytes / PEAK_BYTES_S
+  t_ops = hw.ops_seconds(op, dtype, float(m) * n * k_live_total)
+  t_bytes = nbytes / hw.PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes")
 
@@ -263,8 +250,8 @@ def fixpoint_bound_ms(op: str, dtype: str, r: int, n: int,
   and written once (plus the constant A for Bellman-Ford) at HBM bandwidth
   — whichever is larger."""
   isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
-  t_ops = ops_seconds(op, dtype, float(n) * n * live_steps_kv)
-  t_bytes = isz * r * n * n * (2 + int(has_adj)) / PEAK_BYTES_S
+  t_ops = hw.ops_seconds(op, dtype, float(n) * n * live_steps_kv)
+  t_bytes = isz * r * n * n * (2 + int(has_adj)) / hw.PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes")
 
@@ -490,6 +477,263 @@ def same_result(got, want) -> bool:
                              equal_nan=got.value.dtype.kind == "f")
           and got.extras["iterations"] == want.extras["iterations"])
 
+def result_equal(kind: str, got, want) -> bool:
+  """A served result against the fixed arm's on the same request:
+  bit-identical values and iteration counts for closures and the min/max
+  mmo, identical indices and distances within TOL for KNN."""
+  import numpy as np
+  if got.value.shape != want.value.shape or got.value.dtype != want.value.dtype:
+    return False
+  if kind == "knn":
+    return (np.array_equal(got.extras["indices"], want.extras["indices"])
+            and np.allclose(got.value, want.value, **TOL))
+  return (np.array_equal(got.value, want.value,
+                         equal_nan=got.value.dtype.kind == "f")
+          and got.extras == want.extras)
+
+
+def serve_all(engine, reqs) -> list:
+  """Serve ``reqs`` on a synchronous engine; the results, in order."""
+  futs = [engine.submit(r) for r in reqs]
+  engine.run_until_idle()
+  return [f.result() for f in futs]
+
+
+def batch_table(engine, bucket_kind=None) -> dict:
+  """Per bucket label: (batch sizes, mean measured service per padded
+  slot) from the engine's request records (host clock)."""
+  from repro_torch.serve_mmo import bucket_label
+  from repro_torch.serve_mmo.scheduler import BucketKey
+  with engine._lock:
+    records = list(engine._records)
+  batches = {}
+  for rec in records:
+    batches.setdefault((rec.bucket, rec.scheduled_s), []).append(rec)
+  out = {}
+  for (bucket, _), recs in sorted(batches.items(), key=lambda kv: kv[0][1]):
+    label = bucket_label(BucketKey(*bucket))
+    sizes, per_slot = out.setdefault(label, ([], []))
+    rb = engine._batch_bucket(len(recs))
+    sizes.append(len(recs))
+    per_slot.append((recs[0].completed_s - recs[0].scheduled_s) / rb)
+  return {label: (sizes, sum(ps) / len(ps))
+          for label, (sizes, ps) in out.items()}
+
+
+def phase_qos(sm, mk, graphs, api, np, torch, reqs, results) -> dict:
+  """Phase 4d: the Table-4 stream autotuned and served on backend='auto',
+  then bulk against urgent closures on fifo and deadline, then an
+  admission burst."""
+  from repro_torch.serve_mmo import MMOEngine
+  from repro_torch.serve_mmo.scheduler import contract_shape, request_bucket
+  from repro_torch.tuning import (CLOSURE_BACKENDS, prior_seconds, resolve,
+                                  tune_for_requests)
+  t_phase = time.perf_counter()
+  # the host time per K1 launch, back to back (hw.LAUNCH_OVERHEAD_S)
+  x8 = torch.rand(1, 8, 8, device="cuda")
+  launch_ms = cuda_time_ms(lambda: sm.semiring_mmo(x8, x8, op="minplus"),
+                           500)
+  b8, _ = bound_ms("minplus", "float32", 1, 8, 8, 8, 8, False)
+  log(f"[qos] K1 launch, minplus 1x8x8x8 back to back: {launch_ms!r} ms per "
+      f"call (bound {b8:.3g} ms); the prior's hw.LAUNCH_OVERHEAD_S = "
+      f"{hw.LAUNCH_OVERHEAD_S * 1e3!r} ms")
+
+  # (a) autotune the stream's points: CUDA events, best of 3 after 1 warm-up
+  t0 = time.perf_counter()
+  table = tune_for_requests(reqs, device="cuda", warmup=1, iters=3)
+  tune_s = time.perf_counter() - t0
+  log(f"[qos] autotune: {len(table)} rows {table.counts()} in {tune_s:.1f}s "
+      f"on {table.device}")
+  for sig, entry in sorted(table.entries.items()):
+    op, shape, dtype, arm, cfg_s = sig.split("|")
+    cfg = () if cfg_s == "-" else tuple(int(c) for c in cfg_s.split("x"))
+    mkn = tuple(int(d) for d in shape.split("x"))
+    prior = prior_seconds(op, mkn, dtype, arm, cfg)
+    if not (entry.source == "measured" and np.isfinite(entry.seconds)):
+      raise AssertionError(f"autotune row {sig}: {entry}")
+    log(f"[qos] row {op}|{shape}|{dtype} arm={arm} cfg={cfg_s}: measured "
+        f"{entry.seconds * 1e3!r} ms, prior {prior * 1e3!r} ms, "
+        f"measured/prior {entry.seconds / prior!r}")
+  keys = []
+  for r in reqs:
+    key = request_bucket(r)
+    if key not in keys:
+      keys.append(key)
+  for key in keys:
+    m, k, n = contract_shape(key)
+    closure = key.kind == "closure"
+    d = resolve(key.op, m, k, n, key.dtypes[0], table=table,
+                backends=CLOSURE_BACKENDS if closure else None)
+    log(f"[qos] decision {key.kind}/{key.op}/{'x'.join(map(str, key.shape))}:"
+        f" {d.backend} {d.cfg} {d.seconds * 1e3!r} ms ({d.source})")
+    if closure:
+      pallas = table.lookup(key.op, (m, k, n), key.dtypes[0], "pallas", ())
+      fused = [table.lookup(key.op, (m, k, n), key.dtypes[0], "megakernel",
+                            (g,)) for g in (2, 4, 8)]
+      if pallas is None or any(e is None for e in fused):
+        raise AssertionError(f"closure bucket {key} lacks a measured "
+                             f"pallas or megakernel row")
+
+  # (b) the stream on 'auto', adaptive, against phase 4's fixed arm
+  auto = MMOEngine(backend="auto", cost_table=table, adaptive=True,
+                   max_batch=8, device="cuda")
+  built = auto.prewarm(reqs)
+  sm.semiring_mmo.launches = 0
+  mk.fixpoint_chunk.launches = 0
+  auto.start()
+  try:
+    t0 = time.perf_counter()
+    ares = [f.result(timeout=900) for f in [auto.submit(r) for r in reqs]]
+    awall = time.perf_counter() - t0
+  finally:
+    auto.stop()
+  k1, k2 = sm.semiring_mmo.launches, mk.fixpoint_chunk.launches
+  arms = {}
+  for key, dec in auto._decisions.items():
+    arms[f"{key.kind}/{key.op}/{'x'.join(map(str, key.shape))}"] = dec
+  log(f"[qos] auto stream: {len(reqs)} requests in {awall:.3f}s, "
+      f"{auto.stats().summary()}, arms {arms}, semiring_mmo launches={k1}, "
+      f"closure_megakernel launches={k2}, built {built}")
+  if k1 + k2 <= 0:
+    raise AssertionError("the auto stream launched neither K1 nor K2")
+  fixed = {}
+  for i, (r, got) in enumerate(zip(reqs, ares)):
+    arm = auto._decisions[request_bucket(r)][0]
+    if arm in ("pallas", "megakernel"):
+      want = results[i]  # the two arms are bit-identical on closures
+    else:
+      if arm not in fixed:
+        fixed[arm] = MMOEngine(backend=arm, device="cuda")
+      want = serve_all(fixed[arm], [r])[0]
+    if not result_equal(r.kind, got, want):
+      raise AssertionError(f"auto request {i} ({r.kind}/{r.op} on {arm}) "
+                           f"differs from the fixed arm")
+  log(f"[qos] auto stream: all {len(ares)} results equal the fixed arm's")
+  del fixed
+
+  # (c) bulk against urgent, fifo vs deadline on the tuned table
+  rng = np.random.default_rng(31)
+  bulk_w = [graphs.weighted_digraph(4096, 0.05, seed=300 + i)
+            for i in range(8)]
+  urgent_w = [graphs.weighted_digraph(int(n), float(d), seed=400 + i)
+              for i, (n, d) in enumerate(zip(rng.integers(200, 257, 16),
+                                             rng.uniform(0.01, 0.3, 16)))]
+  ref_eng = MMOEngine(backend="pallas", max_batch=8, device="cuda")
+  want_bulk = serve_all(ref_eng, [api.apsp_request(w) for w in bulk_w])
+  want_urgent = serve_all(ref_eng, [api.apsp_request(w) for w in urgent_w])
+  del ref_eng
+  runs = {}
+  for policy, kw in (("fifo", {}),
+                     ("deadline", dict(adaptive=True, max_batch_seconds=0.05,
+                                       deadline_lookback_s=5.0))):
+    eng = MMOEngine(backend="auto", cost_table=table, max_batch=8,
+                    policy=policy, device="cuda", **kw)
+    eng.prewarm([api.apsp_request(bulk_w[0]), api.apsp_request(urgent_w[0])])
+    failed_fast = [0]
+    check_ff = eng.scheduler.policy.fail_fast
+
+    def counting_fail_fast(entry, key, sched, now, check_ff=check_ff,
+                           failed_fast=failed_fast):
+      hit = check_ff(entry, key, sched, now)
+      failed_fast[0] += int(hit)
+      return hit
+
+    eng.scheduler.policy.fail_fast = counting_fail_fast
+    # serve each bucket once so no module load lands in the timed mix; the
+    # urgent ones carry a deadline, which arms the batch cap's lookback
+    warm = serve_all(eng, [api.apsp_request(bulk_w[0])]
+                     + [api.apsp_request(w, deadline_s=60.0, priority=1)
+                        for w in urgent_w[:8]])
+    del warm
+    eng.reset_stats()
+    bulk_f = [eng.submit(api.apsp_request(w, tenant="bulk")) for w in bulk_w]
+    eng.start()
+    try:
+      while True:  # the first bulk batch has started
+        with eng._lock:
+          if eng._inflight:
+            break
+        time.sleep(0.0005)
+      urgent_f = []
+      t0 = time.perf_counter()
+      for i, w in enumerate(urgent_w):
+        delay = t0 + 0.02 * i - time.perf_counter()
+        if delay > 0:
+          time.sleep(delay)
+        urgent_f.append(eng.submit(api.apsp_request(
+            w, deadline_s=0.25, priority=1, tenant="urgent")))
+      for f in bulk_f + urgent_f:
+        f._event.wait(timeout=900)
+    finally:
+      eng.stop()
+    states = [f.state for f in bulk_f + urgent_f]
+    counts = {s: states.count(s) for s in ("done", "expired", "failed",
+                                           "rejected")}
+    if sum(counts.values()) != len(states) or "pending" in states:
+      raise AssertionError(f"{policy}: outcomes do not add up: {states}")
+    for f, want in zip(bulk_f + urgent_f, want_bulk + want_urgent):
+      if f.state == "done" and not result_equal("apsp", f.result(), want):
+        raise AssertionError(f"{policy}: request {f.request.request_id} "
+                             f"differs from the fixed arm")
+    with eng._lock:
+      recs = {r.request_id: r for r in eng._records}
+    lat = [recs[f.request.request_id].latency_s * 1e3 for f in urgent_f
+           if f.state == "done"]
+    urgent_states = [f.state for f in urgent_f]
+    run = {"urgent_completed": urgent_states.count("done"),
+           "urgent_expired": urgent_states.count("expired"),
+           "failed_fast": failed_fast[0],
+           "urgent_p50_ms": float(np.percentile(lat, 50)) if lat else None,
+           "urgent_p99_ms": float(np.percentile(lat, 99)) if lat else None,
+           "submitted": len(states), **counts}
+    log(f"[qos] {policy}: {json.dumps(run)}")
+    cells = {(k, b): (s, c) for k, b, _, s, c in eng.estimator.cells_raw()}
+    for label, (sizes, per_slot) in batch_table(eng).items():
+      key = next(k for k in eng._decisions
+                 if label.startswith(f"{k.kind}/{k.op}/"
+                                     f"{'x'.join(map(str, k.shape))}/"))
+      contraction_s, trips = eng._static_point(key)
+      arm = eng._decisions[key][0]
+      ewma = cells.get((key, arm))
+      log(f"[qos] {policy} {label} on {arm}: batch sizes {sizes}; static "
+          f"prediction {contraction_s * trips * 1e3!r} ms/request "
+          f"({contraction_s * 1e3!r} ms x {trips:g} trips), EWMA "
+          f"{'none' if ewma is None else repr(ewma[0] * 1e3) + ' ms'} "
+          f"({0 if ewma is None else ewma[1]} obs), measured "
+          f"{per_slot * 1e3!r} ms per padded slot")
+    runs[policy] = run
+    del eng
+
+  # (d) admission: one burst against max_queue=4, max_backlog_s=0.1
+  adm = MMOEngine(backend="auto", cost_table=table, adaptive=True,
+                  max_queue=4, max_backlog_s=0.1, device="cuda")
+  burst = ([api.apsp_request(w) for w in bulk_w[:4]]
+           + [api.apsp_request(w) for w in urgent_w[:8]])
+  want_burst = want_bulk[:4] + want_urgent[:8]
+  futs = [adm.submit(r) for r in burst]
+  adm.run_until_idle()
+  admitted = sum(f.state != "rejected" for f in futs)
+  for f, want in zip(futs, want_burst):
+    if f.state == "rejected":
+      try:
+        f.result()
+      except api.RejectedError:
+        continue
+      raise AssertionError("a rejected future did not raise RejectedError")
+    if not result_equal("apsp", f.result(), want):
+      raise AssertionError("an admitted request differs from the fixed arm")
+  reasons = dict(adm.admission.rejections)
+  log(f"[qos] admission burst of {len(burst)}: admitted {admitted}, "
+      f"rejected {reasons}, snapshot {json.dumps(adm.admission.snapshot())}")
+  if admitted + sum(reasons.values()) != len(burst) or not reasons:
+    raise AssertionError(f"admission counts do not add up: {reasons}")
+  del adm
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f"[qos] phase 4d in {time.perf_counter() - t_phase:.1f}s")
+  return {"k1": k1, "k2": k2, "launch_ms": launch_ms, "runs": runs}
+
+
 FA_CASES = [
     # b, h, hkv, sq, skv, d, causal, window (tests/test_kernels.py)
     (2, 4, 2, 128, 128, 64, True, None),
@@ -602,8 +846,8 @@ def attention_bound_ms(case, dtype: str) -> tuple:
   pairs = b * h * visible_pairs(sq, skv, causal, window)
   isz = {"float32": 4, "bfloat16": 2}[dtype]
   nbytes = isz * d * (2 * b * h * sq + 2 * b * hkv * skv)
-  t_ops = max(4.0 * d * pairs / PEAK_OPS[dtype], pairs / SFU_EXP_S)
-  t_bytes = nbytes / PEAK_BYTES_S
+  t_ops = max(4.0 * d * pairs / hw.PEAK_OPS[dtype], pairs / SFU_EXP_S)
+  t_bytes = nbytes / hw.PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes")
 
@@ -683,13 +927,13 @@ def ssd_bound_ms(shape, isz: int) -> tuple:
   tri = q * (q + 1) // 2
   pairs = bz * h * tri
   flops = 2.0 * n * bz * g * tri + 2.0 * p * pairs
-  t_ops = max(3 * flops / PEAK_TF32, pairs / SFU_EXP_S)
+  t_ops = max(3 * flops / hw.PEAK_TF32, pairs / SFU_EXP_S)
   nbytes = isz * (2 * bz * g * q * n + bz * h * q * p + 2 * bz * h * q) \
       + 4 * bz * h * q * p
-  t_bytes = nbytes / PEAK_BYTES_S
+  t_bytes = nbytes / hw.PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
           "operations" if t_ops >= t_bytes else "bytes",
-          flops / PEAK_OPS["float32"] * 1e3)
+          flops / hw.PEAK_OPS["float32"] * 1e3)
 
 
 def ptxas_summary(build_log: str) -> tuple:
@@ -1098,11 +1342,10 @@ def main() -> int:
       ["nvidia-smi", "--query-gpu=clocks.max.sm",
        "--format=csv,noheader,nounits"],
       capture_output=True, text=True, check=True, timeout=60).stdout
-  global SM_CLOCK_HZ
-  SM_CLOCK_HZ = float(clock.splitlines()[0]) * 1e6
+  hw.set_sm_clock(float(clock.splitlines()[0]) * 1e6)
   log(card)
-  log(f"[env] clocks.max.sm {SM_CLOCK_HZ / 1e6:.0f} MHz: CUDA-core issue "
-      f"bound {SMS} SMs x {LANES} lanes x that clock")
+  log(f"[env] clocks.max.sm {hw.SM_CLOCK_HZ / 1e6:.0f} MHz: CUDA-core issue "
+      f"bound {hw.SMS} SMs x {hw.LANES} lanes x that clock")
   log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
       f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
   # full-precision f32 for every torch.matmul yardstick and rewrite
@@ -1365,6 +1608,9 @@ def main() -> int:
   log(f"[arena] all {len(ares)} results equal batch mode on 'pallas' "
       f"(values and iterations); cache misses after prewarm: 0")
 
+  # -- phase 4d: QoS serving on auto ------------------------------------------
+  qos = phase_qos(sm, mk, graphs, api, np, torch, reqs, results)
+
   # -- phase 5: timing at the main path's shapes ------------------------------
   cases = []
   x = adj_big
@@ -1413,7 +1659,8 @@ def main() -> int:
            "share_of_bound": b_ms / ms, "library_ms": lib_ms,
            "max_abs_err": err}
     if op == "orand":  # the CUDA-core route's own issue bound, for context
-      row["cuda_core_bound_ms"] = cuda_core_seconds(float(m) * n * k_live) * 1e3
+      row["cuda_core_bound_ms"] = hw.cuda_core_seconds(float(m) * n
+                                                       * k_live) * 1e3
     if op == "mma":
       row["kernels_ms"] = parts
     rows_out.append(row)
@@ -1489,13 +1736,14 @@ def main() -> int:
       "name": "semiring_mmo", "design": K1_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
-      "launches": launches, "max_abs_err": big_err, "ms": head["ms"],
+      "launches": launches + qos["k1"], "max_abs_err": big_err,
+      "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
       "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
       "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",
-      "launches": k2_batch + k2_arena, "max_abs_err": k2_err,
+      "launches": k2_batch + k2_arena + qos["k2"], "max_abs_err": k2_err,
       "ms": k2["ms"], "plain_ms": k2["plain_ms"],
       "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
       "library_ms": None}, {

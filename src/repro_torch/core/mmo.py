@@ -15,8 +15,9 @@ reference's so engine and executable-cache keys translate:
   'pallas'  — the hand-written SIMD² unit kernel (``kernels/ops.py`` →
               ``kernels/csrc/semiring_mmo.cu``), the reference's Pallas arm.
               On CPU tensors it runs the kernel's plain PyTorch version.
-  'auto'    — not ported yet: it needs the cost table and dispatcher
-              (ROADMAP Queue 1 item 7), so it raises.
+  'auto'    — consult the measured cost table (repro_torch.tuning) for
+              the cheapest (backend, block config) of the call's shape
+              bucket; without a table, 'xla'.
 
 'pallas' and 'vector' compute addnorm's Σ(a−b)² directly.  The reference's
 'xla' expansion cancels catastrophically when coordinates are large; the
@@ -174,6 +175,15 @@ _REWRITES = {
 # ---------------------------------------------------------------------------
 
 
+def _resolve_auto(op: str, a: Tensor, b: Tensor) -> tuple:
+  """backend='auto' → (backend, block cfg) from the active cost table.  A
+  'pallas' row's tile (a table the reference measured carries one) does
+  not apply: the kernel chooses its own."""
+  from repro_torch.tuning import dispatch as _dispatch
+  d = _dispatch.resolve(op, a.shape[-2], a.shape[-1], b.shape[-1], a.dtype)
+  return d.backend, (() if d.backend == "pallas" else d.cfg)
+
+
 def mmo(a: Tensor,
         b: Tensor,
         c: Optional[Tensor] = None,
@@ -186,8 +196,10 @@ def mmo(a: Tensor,
   """D = C ⊕ (A ⊗ B).  See the module docstring for backend semantics.
 
   ``block`` is a block config: ``(block_k,)`` for the vector path, ``()`` for
-  the defaults.  The kernel's tile is compiled in (``kernels.semiring_mmo.
-  TILE``), so the 'pallas' arm takes no block config until tuning is ported.
+  the defaults.  The kernel chooses its own tile by its shape rule
+  (``kernels.semiring_mmo.tile_shape``), so the 'pallas' arm takes no block
+  config.  ``backend='auto'`` fills the block from the cost table when the
+  caller leaves it unset.
   """
   if backend == "megakernel":
     raise ValueError(
@@ -195,10 +207,9 @@ def mmo(a: Tensor,
         "contractions — select it via batched_leyzorek_closure / "
         "batched_bellman_ford_closure(fixpoint_backend='megakernel')")
   if backend == "auto":
-    raise NotImplementedError(
-        "backend='auto' needs the cost table and dispatcher, which are not "
-        "ported yet (ROADMAP Queue 1 item 7, tuning); pick one of "
-        f"{BACKENDS}")
+    backend, cfg = _resolve_auto(op, a, b)
+    if block is None:
+      block = cfg
   if backend not in BACKENDS:
     raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
   sr = sr_mod.get(op)
@@ -209,8 +220,9 @@ def mmo(a: Tensor,
   if block:
     if backend == "pallas":
       raise NotImplementedError(
-          f"the kernel's tile is compiled in; block configs for the 'pallas' "
-          f"arm come with tuning (ROADMAP Queue 1 item 7), got {block!r}")
+          f"the 'pallas' arm takes no block config: the kernel chooses its "
+          f"tile by its shape rule (kernels.semiring_mmo.tile_shape), got "
+          f"{block!r}")
     if len(block) != 1:
       raise ValueError(f"block config must be (block_k,), got {block!r}")
     block_k = int(block[0])

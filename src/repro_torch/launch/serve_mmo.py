@@ -3,8 +3,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_mmo --rate 40 \
         --duration 3 --backend pallas --max-batch 8
 
-Counterpart of ``repro/launch/serve_mmo.py`` for the port's batch-mode
-engine.  Generates a Poisson arrival stream of mixed SIMD² problems (APSP,
+    # QoS serving: deadline policy + admission caps + live metrics every 1s
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo --policy deadline \
+        --deadline-s 0.25 --max-queue 256 --tenant-quota 64 \
+        --metrics-every 1 --rate 80 --duration 5
+
+    # auto dispatch tuned on the card, adaptive predictions, bulk batches
+    # capped to ~20 ms of predicted work while deadline traffic is active
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo --backend auto \
+        --autotune --policy deadline --deadline-s 0.25 --adaptive \
+        --max-batch-seconds 0.02 --rate 80
+
+Counterpart of ``repro/launch/serve_mmo.py`` (without the mesh, tracing,
+HTTP and fault-injection options, which come with ROADMAP Queue 1 items 9
+and 11).  Generates a Poisson arrival stream of mixed SIMD² problems (APSP,
 KNN, reachability, raw minplus mmo at several sizes), submits each request
 at its arrival time against the engine's background serving loop, and
 reports throughput (problems/s), latency percentiles and executable-cache
@@ -14,7 +26,9 @@ the card (``--device cuda``, the default) unless told otherwise.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import threading
 import time
 
 import numpy as np
@@ -28,14 +42,18 @@ from repro_torch.serve_mmo.engine import ENGINE_BACKENDS
 TENANTS = ("alpha", "beta", "gamma")
 
 
-def synthesize_request(rng: np.random.Generator, sizes):
+def synthesize_request(rng: np.random.Generator, sizes, *,
+                       deadline_s=None, deadline_frac: float = 0.0):
   """One random problem from the mixed APSP/KNN/reachability/mmo workload
   (the reference's draw order, so one seed gives both packages the same
-  stream)."""
+  stream).  With ``deadline_s``, a ``deadline_frac`` share of requests is
+  deadline-tagged at priority 1."""
   kind = rng.choice(("apsp", "knn", "reach", "mmo"))
   n = int(rng.choice(sizes))
   seed = int(rng.integers(0, 2 ** 31))
   qos = {"tenant": TENANTS[int(rng.integers(0, len(TENANTS)))]}
+  if deadline_s is not None and rng.random() < deadline_frac:
+    qos.update(deadline_s=float(deadline_s), priority=1)
   if kind == "apsp":
     return apsp_request(graphs.weighted_digraph(n, 0.3, seed=seed), **qos)
   if kind == "reach":
@@ -75,6 +93,47 @@ def main(argv=None):
   ap.add_argument("--device", default="cuda",
                   help="torch device to serve on (default cuda; fails "
                        "without a card)")
+  ap.add_argument("--cost-table", default=None, metavar="PATH",
+                  help="JSON cost table for --backend auto (see "
+                       "repro_torch.tuning.autotune); defaults to "
+                       "$REPRO_TORCH_COST_TABLE")
+  ap.add_argument("--autotune", action="store_true",
+                  help="with --backend auto: measure this workload's buckets "
+                       "on the device before serving (and persist to "
+                       "--cost-table if given)")
+  ap.add_argument("--policy", default="fifo",
+                  choices=("fifo", "deadline", "fair"),
+                  help="scheduling policy: fifo (oldest head first), "
+                       "deadline (earliest feasible deadline + priority "
+                       "tiers), fair (weighted round-robin across tenants)")
+  ap.add_argument("--max-queue", type=int, default=None,
+                  help="admission: reject once this many requests are queued")
+  ap.add_argument("--tenant-quota", type=int, default=None,
+                  help="admission: per-tenant in-flight request cap")
+  ap.add_argument("--max-backlog-s", type=float, default=None,
+                  help="admission: reject once the queue's predicted drain "
+                       "time (seconds) exceeds this")
+  ap.add_argument("--adaptive", action="store_true",
+                  help="deadline feasibility, backlog admission and the "
+                       "batch cap read live EWMA service latency and "
+                       "measured closure convergence counts instead of the "
+                       "static cost table alone")
+  ap.add_argument("--max-batch-seconds", type=float, default=None,
+                  metavar="SECS",
+                  help="service-time batch cap: while deadline traffic is "
+                       "active, bound each bulk batch to ~SECS of predicted "
+                       "work")
+  ap.add_argument("--deadline-s", type=float, default=None,
+                  help="tag a --deadline-frac share of traffic with this "
+                       "latency budget (priority 1); late requests expire")
+  ap.add_argument("--deadline-frac", type=float, default=0.25,
+                  help="share of traffic carrying --deadline-s (default .25)")
+  ap.add_argument("--metrics-every", type=float, default=None, metavar="SECS",
+                  help="emit a live metrics snapshot every SECS while "
+                       "serving, to stderr (or --metrics-file)")
+  ap.add_argument("--metrics-file", default=None, metavar="PATH",
+                  help="append --metrics-every snapshots to PATH as JSON "
+                       "lines instead of stderr")
   args = ap.parse_args(argv)
 
   try:
@@ -86,8 +145,18 @@ def main(argv=None):
              f"{args.sizes!r}")
   rng = np.random.default_rng(args.seed)
 
+  cost_table = None
+  if args.backend == "auto":
+    cost_table = _auto_table(ap, args, sizes)
+
   engine = MMOEngine(backend=args.backend, max_batch=args.max_batch,
-                     min_bucket=args.min_bucket, device=args.device)
+                     min_bucket=args.min_bucket, device=args.device,
+                     cost_table=cost_table, policy=args.policy,
+                     max_queue=args.max_queue,
+                     tenant_quota=args.tenant_quota,
+                     max_backlog_s=args.max_backlog_s,
+                     adaptive=args.adaptive,
+                     max_batch_seconds=args.max_batch_seconds)
 
   if not args.no_warmup:
     t0 = time.perf_counter()
@@ -99,8 +168,17 @@ def main(argv=None):
   # serving path.
   arrivals = np.cumsum(rng.exponential(1.0 / args.rate,
                                        int(args.rate * args.duration)))
-  reqs = [synthesize_request(rng, sizes) for _ in arrivals]
+  reqs = [synthesize_request(rng, sizes, deadline_s=args.deadline_s,
+                             deadline_frac=args.deadline_frac)
+          for _ in arrivals]
   misses_before = engine.cache.misses
+
+  ticker_stop = threading.Event()
+  ticker = None
+  if args.metrics_every:
+    ticker = threading.Thread(target=_metrics_ticker, name="mmo-metrics",
+                              args=(engine, args, ticker_stop), daemon=True)
+    ticker.start()
 
   engine.start()
   t0 = time.perf_counter()
@@ -125,12 +203,15 @@ def main(argv=None):
     wall = time.perf_counter() - t0
   finally:
     engine.stop()
+    ticker_stop.set()
+    if ticker is not None:
+      ticker.join(timeout=10)
 
   st = engine.stats()
   misses_during = engine.cache.misses - misses_before
-  print(f"[serve_mmo] backend={args.backend} device={engine.device} "
-        f"rate={args.rate}/s duration={args.duration}s "
-        f"offered={len(futures)}")
+  print(f"[serve_mmo] backend={args.backend} policy={args.policy} "
+        f"device={engine.device} rate={args.rate}/s "
+        f"duration={args.duration}s offered={len(futures)}")
   print(f"[serve_mmo] served {st.completed} problems in {wall:.2f}s "
         f"({st.completed / wall:.1f} problems/s) outcomes={outcomes}")
   if st.completed:
@@ -138,11 +219,69 @@ def main(argv=None):
           f"p90={st.percentile(90) * 1e3:.1f}ms "
           f"p99={st.percentile(99) * 1e3:.1f}ms")
   print(f"[serve_mmo] batches={st.batches} mean_batch={st.mean_batch:.2f} "
-        f"cache={st.cache}")
+        f"rejected={st.rejected} expired={st.expired} cache={st.cache}")
+  if st.rejected:
+    print(f"[serve_mmo] admission rejections: "
+          f"{dict(engine.admission.rejections)}")
+  if args.backend == "auto":
+    arms: dict = {}
+    for backend, _ in engine._decisions.values():
+      arms[backend] = arms.get(backend, 0) + 1
+    print(f"[serve_mmo] auto dispatch (buckets per arm): {arms}")
+  if args.adaptive:
+    est = engine.estimator.snapshot()
+    warm = {label: f"{c['seconds'] * 1e3:.2f}ms/{c['observations']}obs"
+            for label, c in est["cells"].items()}
+    print(f"[serve_mmo] adaptive estimator (per-request EWMA): {warm}")
+    if est["iterations"]:
+      print(f"[serve_mmo] measured closure iterations: {est['iterations']}")
   if not args.no_warmup and misses_during:
     print(f"[serve_mmo] WARNING: {misses_during} builds during the measured "
           f"window (cold buckets)")
   return 0 if outcomes["failed"] == 0 else 1
+
+
+def _auto_table(ap, args, sizes):
+  """The cost table for ``--backend auto``: loaded from ``--cost-table``,
+  measured on the device for this workload with ``--autotune`` (and then
+  saved to ``--cost-table``), or None for the process-global table."""
+  import os
+  from repro_torch.tuning import CostTable, tune_for_requests
+  table = None
+  if args.cost_table and os.path.exists(args.cost_table):
+    table = CostTable.load(args.cost_table)
+    print(f"[serve_mmo] loaded cost table {args.cost_table}: "
+          f"{len(table)} entries ({table.counts()})")
+  elif args.cost_table and not args.autotune:
+    # only --autotune may create the file; a missing table would mean
+    # serving silently untuned
+    ap.error(f"--cost-table {args.cost_table!r} does not exist "
+             f"(pass --autotune to create it)")
+  if args.autotune:
+    sample_rng = np.random.default_rng(args.seed)
+    sample = [synthesize_request(sample_rng, sizes) for _ in range(40)]
+    t0 = time.perf_counter()
+    table = tune_for_requests(sample, table=table, device=args.device)
+    print(f"[serve_mmo] autotune: {len(table)} entries in "
+          f"{time.perf_counter() - t0:.2f}s")
+    if args.cost_table:
+      table.save(args.cost_table)
+      print(f"[serve_mmo] persisted cost table to {args.cost_table}")
+  return table
+
+
+def _metrics_ticker(engine, args, stop: threading.Event) -> None:
+  """Write a metrics snapshot every ``--metrics-every`` seconds to stderr
+  or ``--metrics-file`` (never stdout, which carries the results)."""
+  sink = (open(args.metrics_file, "a", encoding="utf-8")
+          if args.metrics_file else sys.stderr)
+  try:
+    while not stop.wait(args.metrics_every):
+      line = json.dumps(engine.metrics_snapshot(), default=float)
+      print(f"[serve_mmo][metrics] {line}", file=sink, flush=True)
+  finally:
+    if args.metrics_file:
+      sink.close()
 
 
 if __name__ == "__main__":

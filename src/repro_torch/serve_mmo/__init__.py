@@ -1,13 +1,26 @@
 """MMO serving engine — shape-bucketed batching for semiring workloads.
 
-Counterpart of ``repro.serve_mmo`` with the FIFO policy, in batch and arena
-mode:
+Counterpart of ``repro.serve_mmo``, in batch and arena mode, with its QoS
+layer:
 
-  api.py        — problem requests (apsp / knn / reachability / raw mmo) and
-                  result futures,
+  api.py        — problem requests (apsp / knn / reachability / raw mmo)
+                  with QoS fields (tenant, priority, deadline_s) and result
+                  futures with rejected/expired terminal states,
   scheduler.py  — request queue bucketed by (kind, op, padded shape, dtype,
                   static params); bucket picking delegates to a policy,
-  policy.py     — scheduling policies (FIFO),
+  policy.py     — scheduling policies: FIFO (default), deadline-aware
+                  (earliest feasible deadline, priority tiers, fail-fast),
+                  fair share (weighted round-robin across tenants),
+  admission.py  — admission control: bounded queue depth, per-tenant
+                  in-flight quotas, predicted-backlog-seconds rejection,
+  metrics.py    — lock-cheap rolling-window metrics (per-bucket p50/p99
+                  queue and service latency), snapshotable mid-run,
+  exposition.py — the log-bucketed histograms beside the metric windows,
+  estimator.py  — per-(bucket, backend, schedule) EWMA over measured batch
+                  latencies and measured closure convergence counts; it
+                  corrects the cost-table predictions that drive deadline
+                  feasibility, backlog admission and the batch cap
+                  (``adaptive=True``),
   batching.py   — pad-and-stack micro-batcher: one batch function per bucket
                   executes a whole request batch on the device (per-request
                   convergence masks for closures),
@@ -16,17 +29,22 @@ mode:
   cache.py      — executable cache keyed by (bucket, batch, backend),
   engine.py     — submit()/futures, synchronous step() or a background
                   serving loop, per-request latency stats, NaN validation;
-                  ``mode="arena"`` serves closures from arenas.
+                  ``backend="auto"`` dispatches each bucket from the cost
+                  table; ``mode="arena"`` serves closures from arenas.
 
 Quickstart::
 
     from repro_torch.serve_mmo import MMOEngine, apsp_request
 
-    eng = MMOEngine(backend="pallas", max_batch=8)   # device="cuda"
-    futs = [eng.submit(apsp_request(w)) for w in weight_matrices]
+    eng = MMOEngine(backend="pallas", max_batch=8,     # device="cuda"
+                    policy="deadline", max_queue=256)
+    futs = [eng.submit(apsp_request(w, deadline_s=0.2))
+            for w in weight_matrices]
     eng.run_until_idle()
     dist = futs[0].result().value
+    print(eng.metrics_snapshot())
 """
+from repro_torch.serve_mmo.admission import AdmissionController
 from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
                                        MMOResult, NonFiniteResultError,
                                        ProblemRequest, RejectedError,
@@ -35,8 +53,13 @@ from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
                                        reachability_request)
 from repro_torch.serve_mmo.arena import Eviction, RequestArena
 from repro_torch.serve_mmo.cache import ExecutableCache
-from repro_torch.serve_mmo.engine import EngineStats, MMOEngine, bucket_label
-from repro_torch.serve_mmo.policy import (FifoPolicy, QueueEntry,
+from repro_torch.serve_mmo.engine import EngineStats, MMOEngine
+from repro_torch.serve_mmo.estimator import Estimate, ServiceEstimator
+from repro_torch.serve_mmo.metrics import (RollingWindow, ServeMetrics,
+                                           bucket_label)
+from repro_torch.serve_mmo.exposition import LogHistogram
+from repro_torch.serve_mmo.policy import (DeadlinePolicy, FairSharePolicy,
+                                          FifoPolicy, QueueEntry,
                                           SchedulingPolicy, make_policy)
 from repro_torch.serve_mmo.scheduler import (BucketKey, BucketScheduler,
                                              FifoBucketScheduler, bucket_dim,
@@ -59,8 +82,16 @@ __all__ = [
     "FifoBucketScheduler",
     "SchedulingPolicy",
     "FifoPolicy",
+    "DeadlinePolicy",
+    "FairSharePolicy",
     "make_policy",
+    "AdmissionController",
+    "ServiceEstimator",
+    "Estimate",
+    "ServeMetrics",
+    "RollingWindow",
     "bucket_label",
+    "LogHistogram",
     "NonFiniteResultError",
     "RejectedError",
     "DeadlineExceededError",

@@ -54,7 +54,7 @@ class ProblemRequest:
   logical problem shape the scheduler buckets on; ``params`` are static
   extras that must match within a bucket (algorithm, k, …).  ``deadline_s``
   is a latency budget in seconds from submit; ``tenant`` and ``priority``
-  are carried for the QoS policies of a later slice."""
+  are read by the QoS policies and admission."""
 
   kind: str
   op: str
@@ -68,6 +68,11 @@ class ProblemRequest:
   request_id: int = -1
   arrival_s: float = 0.0
   deadline_at: Optional[float] = None  # absolute engine-clock deadline
+  predicted_s: float = 0.0             # admission's per-request cost charge
+  # where predicted_s came from: 'static' (cost table / roofline × worst-case
+  # trips), 'iterations' (static × measured convergence counts), or 'ewma'
+  # (live measured service latency) — see serve_mmo/estimator.py
+  predicted_source: str = "static"
 
   def __post_init__(self):
     if self.kind not in KINDS:

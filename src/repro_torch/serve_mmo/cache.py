@@ -11,6 +11,13 @@ the batch function is later work.
 Keys are (BucketKey, batch size, backend, block, schedule, mesh) as in the
 reference; the hit/miss counters prove zero rebuilds in steady state.
 
+Each entry also remembers whether it has run yet (``first_run``).  On a
+card the first run of a batch function pays what building did not: CUDA
+loads each kernel's module lazily, at its first launch (0.47–1.06 s on an
+H100).  The engine keeps that first run out of its service-time estimator,
+as the reference keeps compile time out, without running anything at build
+time.
+
 Thread-safety: the cache is shared between the caller thread (``prewarm``)
 and the serving loop, so every ``_entries``/``_misses`` touch happens under
 ``_lock``.  Building runs outside the lock; two threads missing the same
@@ -55,6 +62,7 @@ class CacheEntry:
   compiled: Callable
   compile_s: float
   hits: int = 0
+  ran: bool = False  # executed at least once (see ``first_run``)
 
 
 class ExecutableCache:
@@ -110,6 +118,16 @@ class ExecutableCache:
       self._entries[exec_key] = CacheEntry(compiled=compiled,
                                            compile_s=elapsed)
     return compiled
+
+  def first_run(self, exec_key) -> bool:
+    """Mark ``exec_key``'s function as executed; True the first time only
+    (a cold run), False afterwards and for unknown keys."""
+    with self._lock:
+      entry = self._entries.get(exec_key)
+      if entry is None or entry.ran:
+        return False
+      entry.ran = True
+      return True
 
   def stats(self) -> dict:
     with self._lock:

@@ -18,13 +18,7 @@ UNPORTED = {
     "apps": {"baselines": 5},
     "kernels": {},
     "tuning": {
-        "CLOSURE_BACKENDS": 7, "CostEntry": 7, "CostTable": 7, "Decision": 7,
-        "DEFAULT_CONFIGS": 7, "SCHEDULE_ARMS": 7, "SCHEMA_VERSION": 7,
-        "prior_seconds": 7, "sharded_prior_seconds": 7, "signature": 7,
-        "tune": 7, "tune_for_requests": 7, "tune_mesh": 7,
-        "clear_cost_table": 7, "contraction_seconds": 7,
-        "get_cost_table": 7, "resolve": 7, "set_cost_table": 7,
-        "use_cost_table": 7,
+        "SCHEDULE_ARMS": 11, "sharded_prior_seconds": 11, "tune_mesh": 11,
     },
     "models": {"Parallelism": 11, "specs_like": 11},
     "train": {
@@ -32,15 +26,13 @@ UNPORTED = {
         "make_train_step": 13, "xent_loss": 13, "checkpoint": 13,
     },
     "serve_mmo": {
-        "DeadlinePolicy": 6, "FairSharePolicy": 6, "AdmissionController": 6,
-        "ServiceEstimator": 6, "Estimate": 6, "ServeMetrics": 6,
-        "RollingWindow": 6, "FlightRecorder": 9, "ObservabilityServer": 9,
-        "LogHistogram": 9, "render_prometheus": 9, "FaultInjector": 9,
+        "FlightRecorder": 9, "ObservabilityServer": 9,
+        "render_prometheus": 9, "FaultInjector": 9,
         "FaultRule": 9, "parse_fault_spec": 9, "InjectedFault": 9,
         "BatchTimeoutError": 9, "ResilienceManager": 9, "CircuitBreaker": 9,
     },
 }
-ROADMAP_ITEMS = {5, 6, 7, 9, 10, 11, 12, 13, 14}
+ROADMAP_ITEMS = {5, 7, 9, 10, 11, 12, 13, 14}
 
 
 def _reference_all(package: str) -> list:

@@ -106,14 +106,23 @@ def test_megakernel_refused_for_single_contractions():
 
 
 def test_auto_raises_until_tuning_is_ported():
-  x = torch.zeros(4, 4)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    tmmo.mmo(x, x, op="minplus", backend="auto")
+  """Tuning is ported: 'auto' resolves through the cost table ('xla' with
+  none) instead of raising."""
+  from repro_torch.tuning import CostTable, use_cost_table
+  x = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+  with use_cost_table(None):
+    got = tmmo.mmo(x, x, op="minplus", backend="auto")
+  assert torch.equal(got, tmmo.mmo(x, x, op="minplus", backend="xla"))
+  table = CostTable(device="test")
+  table.record("minplus", (4, 4, 4), "float32", "pallas", (), 1e-9)
+  with use_cost_table(table):
+    got = tmmo.mmo(x, x, op="minplus", backend="auto")
+  assert torch.equal(got, tmmo.mmo(x, x, op="minplus", backend="pallas"))
 
 
 def test_kernel_arm_takes_no_block_config():
   x = torch.zeros(4, 4)
-  with pytest.raises(NotImplementedError, match="tuning"):
+  with pytest.raises(NotImplementedError, match="shape rule"):
     tmmo.mmo(x, x, op="minplus", backend="pallas", block=(128, 128, 128))
 
 

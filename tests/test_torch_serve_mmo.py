@@ -117,11 +117,44 @@ def test_each_unported_knob_raises(knob):
   tserve.MMOEngine(device="cpu", **{knob: inert[0]})  # inert: accepted
 
 
-@pytest.mark.parametrize("kw", [dict(policy="deadline"), dict(policy="fair"),
-                                dict(backend="auto")])
+@pytest.mark.parametrize("kw", [dict(schedule="dp"), dict(trace=True),
+                                dict(watchdog_s=1.0)])
 def test_unported_modes_raise(kw):
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     tserve.MMOEngine(device="cpu", **kw)
+
+
+def _knob_values():
+  from repro_torch.tuning import CostTable
+  table = CostTable(device="test")
+  table.record("minplus", (16, 16, 16), "float32", "vector", (128,), 1e-3)
+  return {
+      "cost_table": dict(backend="auto", cost_table=table),
+      "max_queue": dict(max_queue=4),
+      "tenant_quota": dict(tenant_quota=2),
+      "max_backlog_s": dict(max_backlog_s=10.0),
+      "admission": dict(admission=tserve.AdmissionController(max_queue=4)),
+      "adaptive": dict(adaptive=True),
+      "estimator": dict(estimator=tserve.ServiceEstimator()),
+      "max_batch_seconds": dict(policy="deadline", max_batch_seconds=0.5),
+      "deadline_lookback_s": dict(deadline_lookback_s=2.0),
+      "metrics_window": dict(metrics_window=16),
+      "policy_deadline": dict(policy="deadline"),
+      "policy_fair": dict(policy=tserve.FairSharePolicy(weights={"a": 2})),
+      "backend_auto": dict(backend="auto"),
+  }
+
+
+@pytest.mark.parametrize("knob", sorted(_knob_values()))
+def test_each_ported_qos_knob_constructs_and_serves(knob):
+  """Each knob this slice ports (once an unported one) builds an engine that
+  serves: one APSP request, the same distances as the 'pallas' engine."""
+  w = graphs.weighted_digraph(12, 0.3, seed=4)
+  eng = tserve.MMOEngine(device="cpu", **_knob_values()[knob])
+  fut = eng.submit(tserve.apsp_request(w, tenant="a", deadline_s=600.0))
+  want = tserve.MMOEngine(device="cpu").submit(tserve.apsp_request(w))
+  np.testing.assert_array_equal(fut.result().value, want.result().value)
+  assert eng.metrics_snapshot()["counters"]["completed"] == 1
 
 
 @pytest.mark.parametrize("kw", [dict(mode="nope"), dict(backend="nope"),

@@ -14,9 +14,21 @@
         --autotune --policy deadline --deadline-s 0.25 --adaptive \
         --max-batch-seconds 0.02 --rate 80
 
-Counterpart of ``repro/launch/serve_mmo.py`` (without the mesh, tracing,
-HTTP and fault-injection options, which come with ROADMAP Queue 1 items 9
-and 11).  Generates a Poisson arrival stream of mixed SIMD² problems (APSP,
+    # live observability: Prometheus /metrics + /healthz + /snapshot +
+    # /trace on :9178 while serving; the Chrome trace written at the end
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo --http-port 9178 \
+        --rate 40 --duration 10 --trace-out serve_trace.json
+
+    # chaos: 5% of execute checks fail; retries and bisection keep every
+    # request completing (the resilience line reports the recovery)
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo --rate 40 \
+        --duration 3 --inject-faults "execute:rate:0.05" --transient-retries 2
+    # break K1 persistently: its breakers open and traffic moves to 'xla'
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo \
+        --inject-faults "execute:persistent:backend=pallas" --watchdog-s 5
+
+Counterpart of ``repro/launch/serve_mmo.py`` (without the mesh options,
+which come with ROADMAP Queue 1 item 11).  Generates a Poisson arrival stream of mixed SIMD² problems (APSP,
 KNN, reachability, raw minplus mmo at several sizes), submits each request
 at its arrival time against the engine's background serving loop, and
 reports throughput (problems/s), latency percentiles and executable-cache
@@ -35,8 +47,9 @@ import numpy as np
 
 from repro_torch.apps import graphs
 from repro_torch.serve_mmo import (DeadlineExceededError, MMOEngine,
-                                   RejectedError, apsp_request, knn_request,
-                                   mmo_request, reachability_request)
+                                   ObservabilityServer, RejectedError,
+                                   apsp_request, knn_request, mmo_request,
+                                   parse_fault_spec, reachability_request)
 from repro_torch.serve_mmo.engine import ENGINE_BACKENDS
 
 TENANTS = ("alpha", "beta", "gamma")
@@ -134,6 +147,47 @@ def main(argv=None):
   ap.add_argument("--metrics-file", default=None, metavar="PATH",
                   help="append --metrics-every snapshots to PATH as JSON "
                        "lines instead of stderr")
+  ap.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                  help="serve the live observability endpoint on PORT: "
+                       "/metrics (Prometheus text exposition), /healthz, "
+                       "/snapshot (metrics JSON), /trace (Chrome trace-event "
+                       "JSON).  0 picks an ephemeral port")
+  ap.add_argument("--http-host", default="127.0.0.1",
+                  help="bind address for --http-port (default loopback)")
+  ap.add_argument("--http-linger", type=float, default=0.0, metavar="SECS",
+                  help="keep the observability endpoint up SECS after the "
+                       "run drains (lets a scraper collect final state)")
+  ap.add_argument("--no-trace", action="store_true",
+                  help="disable the request-lifecycle flight recorder "
+                       "(tracing is on by default)")
+  ap.add_argument("--trace-out", default=None, metavar="PATH",
+                  help="write the flight recorder's Chrome trace JSON to "
+                       "PATH at the end of the run")
+  ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                  help="chaos harness: ';'-separated fault rules, each "
+                       "point:mode[:arg][:k=v...][@match] — e.g. "
+                       "'execute:rate:0.02' (2%% of execute checks fail), "
+                       "'execute:persistent:backend=pallas', "
+                       "'slow:transient:1:delay=0.2' (see serve_mmo/faults.py)")
+  ap.add_argument("--fault-seed", type=int, default=0,
+                  help="seed for rate-mode fault rules (replayable chaos)")
+  ap.add_argument("--transient-retries", type=int, default=1,
+                  help="whole-sub-batch retries before bisection (default 1)")
+  ap.add_argument("--retry-backoff-s", type=float, default=0.002,
+                  help="base backoff before a retry, doubled per attempt")
+  ap.add_argument("--no-bisect", action="store_true",
+                  help="fail a whole batch once retries are spent instead of "
+                       "bisecting to isolate the poisoned request")
+  ap.add_argument("--breaker-threshold", type=int, default=5, metavar="N",
+                  help="consecutive arm failures that open a circuit "
+                       "breaker; 0 disables breakers (fail in place)")
+  ap.add_argument("--breaker-probe-s", type=float, default=0.25,
+                  help="cooldown before an open breaker half-opens for a "
+                       "probe batch")
+  ap.add_argument("--watchdog-s", type=float, default=None, metavar="SECS",
+                  help="per-batch device watchdog: a batch whose device run "
+                       "does not end within SECS fails with a timeout "
+                       "instead of wedging the serving loop (default: off)")
   args = ap.parse_args(argv)
 
   try:
@@ -149,6 +203,15 @@ def main(argv=None):
   if args.backend == "auto":
     cost_table = _auto_table(ap, args, sizes)
 
+  injector = None
+  if args.inject_faults:
+    try:
+      injector = parse_fault_spec(args.inject_faults, seed=args.fault_seed)
+    except ValueError as e:
+      ap.error(f"--inject-faults: {e}")
+    print(f"[serve_mmo] fault injection armed: {args.inject_faults!r} "
+          f"(seed={args.fault_seed})")
+
   engine = MMOEngine(backend=args.backend, max_batch=args.max_batch,
                      min_bucket=args.min_bucket, device=args.device,
                      cost_table=cost_table, policy=args.policy,
@@ -156,7 +219,23 @@ def main(argv=None):
                      tenant_quota=args.tenant_quota,
                      max_backlog_s=args.max_backlog_s,
                      adaptive=args.adaptive,
-                     max_batch_seconds=args.max_batch_seconds)
+                     max_batch_seconds=args.max_batch_seconds,
+                     trace=not args.no_trace, faults=injector,
+                     transient_retries=args.transient_retries,
+                     retry_backoff_s=args.retry_backoff_s,
+                     bisect=not args.no_bisect,
+                     breaker_threshold=(args.breaker_threshold
+                                        if args.breaker_threshold > 0
+                                        else None),
+                     breaker_probe_s=args.breaker_probe_s,
+                     watchdog_s=args.watchdog_s)
+
+  http_server = None
+  if args.http_port is not None:
+    http_server = ObservabilityServer(engine, host=args.http_host,
+                                      port=args.http_port).start()
+    print(f"[serve_mmo] observability endpoint at {http_server.url} "
+          f"(/metrics /healthz /snapshot /trace)")
 
   if not args.no_warmup:
     t0 = time.perf_counter()
@@ -206,6 +285,18 @@ def main(argv=None):
     ticker_stop.set()
     if ticker is not None:
       ticker.join(timeout=10)
+    if http_server is not None and args.http_linger <= 0:
+      http_server.stop()
+  if args.trace_out:
+    with open(args.trace_out, "w", encoding="utf-8") as f:
+      json.dump(engine.export_trace(), f)
+    print(f"[serve_mmo] wrote Chrome trace ({engine.tracer.stats()}) to "
+          f"{args.trace_out}")
+  if http_server is not None and args.http_linger > 0:
+    print(f"[serve_mmo] endpoint lingering {args.http_linger:g}s at "
+          f"{http_server.url}")
+    time.sleep(args.http_linger)
+    http_server.stop()
 
   st = engine.stats()
   misses_during = engine.cache.misses - misses_before
@@ -223,6 +314,19 @@ def main(argv=None):
   if st.rejected:
     print(f"[serve_mmo] admission rejections: "
           f"{dict(engine.admission.rejections)}")
+  msnap = engine.metrics_snapshot()
+  retries = msnap["counters"]["retries"]
+  failures_by_kind = msnap["batch_failures_by_kind"]
+  breakers = engine.resilience.snapshot()
+  if injector is not None or retries or failures_by_kind or breakers:
+    opens = sum(c["opens"] for c in breakers)
+    open_now = [f"{c['bucket']}/{c['backend']}/{c['schedule']}"
+                for c in breakers if c["state"] != "closed"]
+    print(f"[serve_mmo] resilience: retries={retries} "
+          f"batch_failures={failures_by_kind} breaker_opens={opens} "
+          f"open_now={open_now}")
+    if injector is not None:
+      print(f"[serve_mmo] injector: {injector.stats()}")
   if args.backend == "auto":
     arms: dict = {}
     for backend, _ in engine._decisions.values():

@@ -1,7 +1,7 @@
 """MMO serving engine — shape-bucketed batching for semiring workloads.
 
-Counterpart of ``repro.serve_mmo``, in batch and arena mode, with its QoS
-layer:
+Counterpart of ``repro.serve_mmo``, in batch and arena mode, with its QoS,
+recovery and telemetry layers:
 
   api.py        — problem requests (apsp / knn / reachability / raw mmo)
                   with QoS fields (tenant, priority, deadline_s) and result
@@ -15,7 +15,6 @@ layer:
                   in-flight quotas, predicted-backlog-seconds rejection,
   metrics.py    — lock-cheap rolling-window metrics (per-bucket p50/p99
                   queue and service latency), snapshotable mid-run,
-  exposition.py — the log-bucketed histograms beside the metric windows,
   estimator.py  — per-(bucket, backend, schedule) EWMA over measured batch
                   latencies and measured closure convergence counts; it
                   corrects the cost-table predictions that drive deadline
@@ -28,9 +27,24 @@ layer:
                   between fused K2 ticks, evict on convergence,
   cache.py      — executable cache keyed by (bucket, batch, backend),
   engine.py     — submit()/futures, synchronous step() or a background
-                  serving loop, per-request latency stats, NaN validation;
-                  ``backend="auto"`` dispatches each bucket from the cost
-                  table; ``mode="arena"`` serves closures from arenas.
+                  serving loop, per-request latency stats, and the recovery
+                  driver (bounded retries, bisection, watchdog, NaN
+                  validation); ``backend="auto"`` dispatches each bucket
+                  from the cost table; ``mode="arena"`` serves closures
+                  from arenas,
+  faults.py     — deterministic, seedable fault injection (compile /
+                  execute / nonfinite / slow points; persistent, transient
+                  and seeded-rate schedules) threaded through engine hooks,
+  resilience.py — per-(bucket, backend, schedule) circuit breakers with
+                  cost-ranked fallback arms and half-open probes,
+  observability.py — a bounded ring-buffer flight recorder of per-request
+                  and per-batch spans, exported as Chrome trace-event JSON,
+  exposition.py — Prometheus text exposition of the engine's counters,
+                  log-bucketed latency histograms, gauges, estimator drift
+                  and breakers,
+  httpd.py      — stdlib HTTP endpoint serving /metrics /healthz /snapshot
+                  /trace beside a live engine (``--http-port`` in
+                  launch/serve_mmo.py).
 
 Quickstart::
 
@@ -55,12 +69,19 @@ from repro_torch.serve_mmo.arena import Eviction, RequestArena
 from repro_torch.serve_mmo.cache import ExecutableCache
 from repro_torch.serve_mmo.engine import EngineStats, MMOEngine
 from repro_torch.serve_mmo.estimator import Estimate, ServiceEstimator
+from repro_torch.serve_mmo.exposition import LogHistogram, render_prometheus
+from repro_torch.serve_mmo.faults import (BatchTimeoutError, FaultInjector,
+                                          FaultRule, InjectedFault,
+                                          parse_fault_spec)
+from repro_torch.serve_mmo.httpd import ObservabilityServer
 from repro_torch.serve_mmo.metrics import (RollingWindow, ServeMetrics,
                                            bucket_label)
-from repro_torch.serve_mmo.exposition import LogHistogram
+from repro_torch.serve_mmo.observability import FlightRecorder
 from repro_torch.serve_mmo.policy import (DeadlinePolicy, FairSharePolicy,
                                           FifoPolicy, QueueEntry,
                                           SchedulingPolicy, make_policy)
+from repro_torch.serve_mmo.resilience import (CircuitBreaker,
+                                              ResilienceManager)
 from repro_torch.serve_mmo.scheduler import (BucketKey, BucketScheduler,
                                              FifoBucketScheduler, bucket_dim,
                                              contract_shape, request_bucket)
@@ -91,8 +112,18 @@ __all__ = [
     "ServeMetrics",
     "RollingWindow",
     "bucket_label",
+    "FlightRecorder",
+    "ObservabilityServer",
     "LogHistogram",
+    "render_prometheus",
+    "FaultInjector",
+    "FaultRule",
+    "parse_fault_spec",
+    "InjectedFault",
     "NonFiniteResultError",
+    "BatchTimeoutError",
+    "ResilienceManager",
+    "CircuitBreaker",
     "RejectedError",
     "DeadlineExceededError",
     "mmo_request",

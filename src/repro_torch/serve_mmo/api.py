@@ -28,10 +28,8 @@ DEFAULT_TENANT = "default"
 
 
 class RejectedError(RuntimeError):
-  """The engine refused the request at submit time; nothing was queued.
-  Admission control is not ported yet (ROADMAP Queue 1 item 6), so the
-  port's engine never raises it; callers written against the reference's
-  error set keep working."""
+  """The engine refused the request at submit time (admission control:
+  serve_mmo/admission.py); nothing was queued."""
 
 
 class DeadlineExceededError(TimeoutError):

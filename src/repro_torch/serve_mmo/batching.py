@@ -237,6 +237,21 @@ def validate_finite(key: BucketKey, out, live: int):
   return [int(i) for i in np.nonzero(bad)[0]]
 
 
+def poison_output(key: BucketKey, out, slots: Sequence[int]):
+  """Overwrite the primary output's ``slots`` with NaN — the fault
+  injector's ``nonfinite`` point (faults.py), which the engine's result
+  validation must catch.  Returns a rebuilt output structure; non-float
+  primaries (boolean rings) pass through unpoisoned."""
+  primary = np.asarray(_primary_output(key, out))
+  if not np.issubdtype(primary.dtype, np.floating) or not len(slots):
+    return out
+  primary = primary.copy()
+  primary[list(slots)] = np.nan
+  if isinstance(out, (tuple, list)):
+    return (primary,) + tuple(out[1:])
+  return primary
+
+
 def split_results(key: BucketKey, reqs: Sequence[ProblemRequest], out):
   """Batch output (numpy) → per-request MMOResults at true shapes."""
   results = []

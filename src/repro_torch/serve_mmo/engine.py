@@ -1,4 +1,5 @@
-"""The MMO serving engine: micro-batching over shape buckets, with QoS.
+"""The MMO serving engine: micro-batching over shape buckets, with QoS,
+recovery and telemetry.
 
 Counterpart of ``repro/serve_mmo/engine.py``, in both modes:
 ``mode="batch"`` serves each bucket batch to completion, and
@@ -9,7 +10,9 @@ scheduler (FIFO, deadline or fair share: serve_mmo/policy.py), an
 admission controller (``max_queue`` / ``tenant_quota`` / ``max_backlog_s``:
 serve_mmo/admission.py), a live metrics registry (``metrics_snapshot()``
 works mid-run from any thread: serve_mmo/metrics.py), the service-time
-estimator (serve_mmo/estimator.py), an executable cache and the request
+estimator (serve_mmo/estimator.py), a flight recorder
+(serve_mmo/observability.py), per-arm circuit breakers
+(serve_mmo/resilience.py), an executable cache and the request
 bookkeeping; it runs on one device (``device="cuda"`` by default, which
 raises without a card).  Two ways to run it:
 
@@ -20,10 +23,17 @@ raises without a card).  Two ways to run it:
     async and ``future.result()`` blocks on the completion event.
 
 Batches execute outside the queue lock, so a long closure batch never
-blocks concurrent ``submit`` calls.  A batch's results are NaN-validated
-before any future is fulfilled; a failed batch fails all of its requests,
-and a failed arena tick fails every resident of that arena (retry and
-bisection come with the resilience layer).
+blocks concurrent ``submit`` calls.  A failed batch does not fail every
+co-batched request: the recovery driver retries it (``transient_retries``,
+exponential backoff from ``retry_backoff_s``), then bisects it
+(``bisect=True``), so one poisoned request fails alone while its siblings
+complete.  Breakers re-dispatch a persistently failing arm's traffic to
+its siblings, and ``watchdog_s`` bounds a batch's device run.  A failed
+arena tick keeps its slots resident under the same retry budget; once the
+budget is spent, every resident fails and the arena resets.  Results are
+NaN-validated before any future is fulfilled (±inf is legitimate tropical
+output).  ``faults`` takes a ``FaultInjector`` (serve_mmo/faults.py) that
+drives each of these paths on the real code.
 
 ``backend="auto"`` resolves each bucket's arm and block config from the
 cost table (``cost_table=``, else the process-global table: see
@@ -35,10 +45,9 @@ bucket's trip count, or with ``adaptive=True`` the estimator's live EWMA
 of measured service.  The first run of each batch function is kept out of
 that EWMA (on a card it pays CUDA's lazy module load).
 
-The reference engine's other knobs belong to modules not ported yet.  Each
-is accepted by name and raises ``NotImplementedError`` naming its
-ROADMAP.md item when set to anything but its inert value; none is silently
-ignored.
+The reference engine's mesh knobs belong to ROADMAP Queue 1 item 11.  Each
+is accepted by name and raises ``NotImplementedError`` naming that item
+when set to anything but its inert value; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -56,19 +65,24 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.serve_mmo import batching
 from repro_torch.serve_mmo.admission import AdmissionController
 from repro_torch.serve_mmo.api import (DeadlineExceededError, MMOFuture,
-                                       MMOResult, NonFiniteResultError,
-                                       ProblemRequest, RejectedError)
+                                       MMOResult, ProblemRequest,
+                                       RejectedError)
 from repro_torch.serve_mmo.arena import (DEFAULT_ARENA_G, DEFAULT_CAPACITY,
                                          RequestArena)
 from repro_torch.serve_mmo.cache import ExecutableCache
 from repro_torch.serve_mmo.estimator import Estimate, ServiceEstimator
+from repro_torch.serve_mmo.faults import (ARM_FAILURE_KINDS,
+                                          BatchTimeoutError, InjectedFault,
+                                          NonFiniteResultError,
+                                          classify_failure)
 from repro_torch.serve_mmo.metrics import ServeMetrics, bucket_label
+from repro_torch.serve_mmo.observability import (DEFAULT_TRACE_CAPACITY,
+                                                 FlightRecorder)
+from repro_torch.serve_mmo.resilience import ResilienceManager
 from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
                                              bucket_dim, contract_shape,
                                              request_bucket)
 
-_ITEM9_OBS = "Queue 1 item 9 (tracing and HTTP observability)"
-_ITEM9_RES = "Queue 1 item 9 (resilience: faults, retries, breakers)"
 _ITEM11 = "Queue 1 item 11 (distributed schedules)"
 
 # reference knob → (values that ask for nothing, ROADMAP.md item porting it)
@@ -76,27 +90,17 @@ _UNPORTED_KNOBS = {
     "mesh": ((None,), _ITEM11),
     "schedule": (("auto", "local"), _ITEM11),
     "shard_flops": ((None,), _ITEM11),
-    "trace": ((False,), _ITEM9_OBS),
-    "trace_capacity": ((None,), _ITEM9_OBS),
-    "tracer": ((None,), _ITEM9_OBS),
-    "faults": ((None,), _ITEM9_RES),
-    "transient_retries": ((0,), _ITEM9_RES),
-    "retry_backoff_s": ((None,), _ITEM9_RES),
-    "bisect": ((False,), _ITEM9_RES),
-    "breaker_threshold": ((None,), _ITEM9_RES),
-    "breaker_probe_s": ((None,), _ITEM9_RES),
-    "watchdog_s": ((None,), _ITEM9_RES),
-    "fallback_backends": ((None,), _ITEM9_RES),
-    "resilience": ((None,), _ITEM9_RES),
 }
 # the engine-wide backends: the per-contraction arms, the fused fixpoint
 # arm, which serves closure buckets (others take 'pallas'), and 'auto'
 ENGINE_BACKENDS = BACKENDS + ("megakernel", "auto")
 MODES = ("batch", "arena")
-# every bucket runs on the one device: the estimator's schedule key
+# every bucket runs on the one device: the arms' schedule
 _LOCAL = "local"
-# the arena's arm for estimator accounting: one per closure bucket
+# the arena's arm for breaker and estimator accounting: one per closure
+# bucket, never re-dispatched (per-slot state isolates a poisoned request)
 _ARENA = "arena"
+_ARENA_ARM = (_ARENA, (), _LOCAL)
 
 
 def _check_knobs(knobs: dict) -> None:
@@ -187,6 +191,23 @@ class MMOEngine:
   closure requests enter free slots the moment they reach the queue head,
   every live slot advances one K2 launch per step, and each request
   completes when its slot converges — whatever the arm ``backend`` names.
+
+  Telemetry: ``trace`` (on by default) stamps request-lifecycle spans into
+  a ``FlightRecorder`` of ``trace_capacity`` events (or ``tracer=``);
+  ``export_trace()`` returns Chrome trace-event JSON and
+  ``observability_state()`` the document ``render_prometheus`` and the
+  HTTP endpoint serve.
+
+  Recovery: ``transient_retries`` whole-batch retries (``retry_backoff_s``
+  doubling per attempt), then bisection (``bisect``); per-(bucket, arm)
+  breakers open after ``breaker_threshold`` consecutive failures (None
+  disables them) and probe after ``breaker_probe_s`` on the engine clock;
+  traffic of an open arm moves to ``fallback_backends`` (default: 'xla' and
+  'pallas' ranked by the cost table, then 'vector'); ``resilience`` passes
+  a manager.  ``watchdog_s`` fails a batch whose device run (launches and
+  the device-to-host copy that waits for them) outlasts it; the abandoned
+  work still runs on the stream (``join_abandoned``).  ``faults`` takes a
+  ``FaultInjector``.
   """
 
   def __init__(self, *, backend: str = "pallas", max_batch: int = 8,
@@ -200,7 +221,17 @@ class MMOEngine:
                estimator: Optional[ServiceEstimator] = None,
                max_batch_seconds: Optional[float] = None,
                deadline_lookback_s: Optional[float] = None,
+               trace: bool = True,
+               trace_capacity: int = DEFAULT_TRACE_CAPACITY,
+               tracer: Optional[FlightRecorder] = None,
+               faults=None, transient_retries: int = 1,
+               retry_backoff_s: float = 0.002, bisect: bool = True,
+               breaker_threshold: Optional[int] = 5,
+               breaker_probe_s: float = 0.25,
+               watchdog_s: Optional[float] = None,
                validate_results: bool = True,
+               fallback_backends=None,
+               resilience: Optional[ResilienceManager] = None,
                mode: str = "batch", arena_capacity: int = DEFAULT_CAPACITY,
                arena_g: int = DEFAULT_ARENA_G, **knobs):
     _check_knobs(knobs)
@@ -235,7 +266,26 @@ class MMOEngine:
                                       max_backlog_s=max_backlog_s)
     self.admission = admission
     self.metrics = ServeMetrics(clock=self._clock, window=metrics_window)
+    self.tracer = tracer if tracer is not None else FlightRecorder(
+        capacity=trace_capacity, clock=self._clock, enabled=trace)
     self.cache = ExecutableCache()
+    if transient_retries < 0:
+      raise ValueError(f"transient_retries must be >= 0, "
+                       f"got {transient_retries}")
+    self.faults = faults
+    self.transient_retries = int(transient_retries)
+    self.retry_backoff_s = float(retry_backoff_s)
+    self.bisect = bool(bisect)
+    self.watchdog_s = None if watchdog_s is None else float(watchdog_s)
+    self.fallback_backends = (None if fallback_backends is None
+                              else tuple(fallback_backends))
+    if resilience is None:
+      resilience = ResilienceManager(threshold=breaker_threshold,
+                                     probe_after_s=breaker_probe_s,
+                                     clock=self._clock)
+    self.resilience = resilience
+    self._fallback_arms_memo: dict = {}  # BucketKey → tuple of arms
+    self._abandoned: list = []  # watchdog workers of timed-out batches
     self._lock = threading.RLock()
     self._work = threading.Condition(self._lock)
     self._idle = threading.Condition(self._lock)  # signaled: _pending empty
@@ -249,6 +299,7 @@ class MMOEngine:
     self._arenas: dict = {}  # closure BucketKey → RequestArena
     self._arenas_ticked: set = set()  # arenas past their first (cold) tick
     self._arena_cold: set = set()  # request ids resident in a cold tick
+    self._arena_failures: dict = {}  # closure BucketKey → failed ticks in a row
     self._thread: Optional[threading.Thread] = None
     self._running = False
     self._stopped = False  # stop() was called; submit refuses until start()
@@ -345,11 +396,16 @@ class MMOEngine:
         kind, reason = verdict
         self._rejected += 1
         self.metrics.on_reject(kind)
+        self.tracer.request_rejected(req.request_id, kind, kind=req.kind,
+                                     op=req.op, tenant=req.tenant,
+                                     t_s=req.arrival_s)
         fut._fail(RejectedError(
             f"request {req.request_id} ({req.kind}/{req.op}) rejected: "
             f"{reason}"))
         return fut
       self.metrics.on_submit()
+      self.tracer.request_begin(req.request_id, kind=req.kind, op=req.op,
+                                tenant=req.tenant, t_s=req.arrival_s)
       self.scheduler.add(req)
       self._pending[req.request_id] = fut
       self._work.notify()
@@ -405,16 +461,11 @@ class MMOEngine:
     included; the mesh slot stays None until sharding is ported)."""
     return (key, rb, backend, block, schedule, None)
 
-  def _build(self, key, rb: int, args) -> tuple:
-    """(executable-cache key, batch function) for one (bucket, batch)."""
+  def resolve_placement(self, key) -> tuple:
+    """(backend, block cfg, schedule): the bucket's primary arm.  Every
+    bucket runs on the one device, so the schedule is 'local'."""
     backend, block = self.resolve_backend(key)
-    exec_key = self._exec_key(key, rb, backend, block, _LOCAL)
-    fn = self.cache.get_or_compile(
-        exec_key,
-        lambda: batching.make_batch_fn(key, backend=backend, block=block,
-                                       device=self.device),
-        args)
-    return exec_key, fn
+    return backend, block, _LOCAL
 
   def _expire_locked(self, reqs) -> None:
     """Fail requests whose deadline passed while queued, or that the policy
@@ -424,6 +475,7 @@ class MMOEngine:
       self.admission.on_dequeue(r)
       self.admission.on_done(r)
       self.metrics.on_expire(request_bucket(r, self.scheduler.min_bucket))
+      self.tracer.request_end(r.request_id, "expired", executing=False)
       fut = self._pending.pop(r.request_id, None)
       if fut is not None:
         fut._fail(DeadlineExceededError(
@@ -443,7 +495,9 @@ class MMOEngine:
     return self._step_batch()
 
   def _step_batch(self) -> int:
-    """Schedule + execute one bucket batch; returns #requests completed."""
+    """Schedule + execute one bucket batch; returns #requests completed.
+    Requests whose deadline lapsed in the queue are failed here without
+    costing a batch slot."""
     with self._lock:
       picked = self.scheduler.next_batch(now=self._clock())
       expired = self.scheduler.take_expired()
@@ -457,58 +511,250 @@ class MMOEngine:
       self._inflight.update(r.request_id for r in reqs)
     scheduled_s = self._clock()
     try:
-      results, info = self._execute(key, reqs, scheduled_s)
-    except Exception as e:  # noqa: BLE001 — the batch fails, serving goes on
-      self._fail_requests(key, reqs, e)
+      return self._serve_batch(key, reqs, scheduled_s)
+    except Exception as e:  # noqa: BLE001 — a fault in the recovery loop itself
+      # must not leak in-flight requests (their futures would never end)
+      with self._lock:
+        leaked = [r for r in reqs if r.request_id in self._inflight]
+      self._fail_requests(key, leaked, e)
+      self.tracer.instant("batch_fail", cat="batch",
+                          args={"bucket": bucket_label(key),
+                                "error": type(e).__name__})
       return 0
-    return self._complete(key, reqs, results, info, scheduled_s)
 
-  def _execute(self, key, reqs, start_s: float) -> tuple:
-    """Stack, build (cache), run on the device, validate and split.
-    Returns (results, timing info) and feeds the estimator."""
+  def _fail_requests(self, key, reqs, exc) -> None:
+    """Terminally fail ``reqs`` with ``exc``: the once-per-request final
+    accounting (inflight, admission, metrics, future).  The caller emits
+    the trace events."""
+    with self._lock:
+      for r in reqs:
+        self._inflight.discard(r.request_id)
+        self._arena_cold.discard(r.request_id)
+        self.admission.on_done(r)
+        self.metrics.on_fail(key)
+        fut = self._pending.pop(r.request_id, None)
+        if fut is not None:
+          fut._fail(exc)
+      if not self._pending:
+        self._idle.notify_all()
+
+  def _serve_batch(self, key, reqs, scheduled_s: float) -> int:
+    """The recovery driver: execute the picked batch, isolating failures by
+    bounded retry + bisection so innocent co-batched requests complete.
+
+    A LIFO stack of (sub-batch, retries left, attempt index) starts with
+    the whole batch.  A failed sub-batch is retried whole under its
+    ``transient_retries`` budget (exponential backoff); once the budget is
+    spent it is bisected and each half re-enters the stack with a fresh
+    budget.  A single poisoned request in a batch of B costs O(log B)
+    extra launches, and attempts are bounded by (retries+1)·(2B−1).  Each
+    sub-batch is re-bucketed to its own power of two, so bisection hits
+    functions ``prewarm`` built.
+
+    Final outcomes are accounted once per request, failure kinds, breaker
+    transitions and phase spans once per attempt, and measured iterations
+    from the first fixpoint that ran each request only (``observed``).
+    Returns #requests completed."""
+    label = bucket_label(key)
+    observed: set = set()   # rids whose measured iterations were recorded
+    stack = [(list(reqs), self.transient_retries, 0)]
+    completed = 0
+    while stack:
+      sub, retries_left, attempt = stack.pop()
+      if attempt > 0 and self.tracer.enabled:
+        # a fresh execute slice per retried/bisected attempt — the failed
+        # attempt closed the previous one with outcome 'retried'
+        self.tracer.batch_attempt_begin([r.request_id for r in sub])
+      try:
+        results, info = self._attempt(
+            key, sub, observed, scheduled_s if attempt == 0 else None)
+      except Exception as e:  # noqa: BLE001 — classified + counted in _attempt
+        will_retry = retries_left > 0
+        will_bisect = not will_retry and self.bisect and len(sub) > 1
+        if self.tracer.enabled:
+          self.tracer.batch_attempt_fail(
+              [r.request_id for r in sub],
+              outcome="retried" if (will_retry or will_bisect) else "failed",
+              picked_t_s=scheduled_s if attempt == 0 else None,
+              args={"error": type(e).__name__})
+        if will_retry:
+          self.metrics.on_retry()
+          backoff = self.retry_backoff_s * (2.0 ** min(attempt, 3))
+          if backoff > 0.0:
+            time.sleep(backoff)
+          stack.append((sub, retries_left - 1, attempt + 1))
+        elif will_bisect:
+          mid = len(sub) // 2
+          self.metrics.on_retry(2)
+          if self.tracer.enabled:
+            self.tracer.instant(
+                "batch_bisect", cat="resilience",
+                args={"bucket": label, "batch": len(sub),
+                      "halves": [mid, len(sub) - mid],
+                      "error": type(e).__name__})
+          # each half gets the full transient budget, and the left half
+          # runs first (LIFO)
+          stack.append((sub[mid:], self.transient_retries, attempt + 1))
+          stack.append((sub[:mid], self.transient_retries, attempt + 1))
+        else:
+          self._fail_requests(key, sub, e)
+          self.tracer.instant("batch_fail", cat="batch",
+                              args={"bucket": label, "batch": len(sub),
+                                    "error": type(e).__name__})
+        continue
+      completed += self._complete_sub(key, sub, results, info, scheduled_s,
+                                      emit_pick=attempt == 0)
+    return completed
+
+  def _trace_transition(self, transition, label: str, arm,
+                        kind: Optional[str] = None) -> None:
+    """A breaker opened or closed: one instant in the flight recorder."""
+    if not self.tracer.enabled or transition not in ("open", "close"):
+      return
+    args = {"bucket": label, "backend": arm[0], "schedule": arm[2]}
+    if transition == "open":
+      args["kind"] = kind
+    self.tracer.instant(f"breaker_{transition}", cat="resilience", args=args)
+
+  def _attempt(self, key, reqs, observed: set, start_s: Optional[float]):
+    """Execute one sub-batch once on the best arm available now.  Returns
+    (results, info dict); raises the failure otherwise, classified, counted
+    and fed to the arm's breaker.  ``start_s`` is the batch's pick time for
+    the first attempt; retries stamp their own start.
+
+    The watched device run holds the host-to-device copy, the launches and
+    the device-to-host copy that waits for them: launches return before
+    the kernels end, so a watchdog around the launches alone would never
+    see a slow kernel."""
+    label = bucket_label(key)
+    rids = [r.request_id for r in reqs]
     rb = self._batch_bucket(len(reqs))
-    backend, _ = self.resolve_backend(key)
-    # fill the padded batch slots with copies of the last request — wasted
-    # compute bounded at 2×, in exchange for a bounded executable set
-    stacked = batching.stack_batch(key, reqs + [reqs[-1]] * (rb - len(reqs)))
-    h2d_bytes = sum(int(x.nbytes) for x in stacked)
-    stacked_s = self._clock()
-    exec_key, compiled = self._build(key, rb, stacked)
-    # service observations start after the build, as the reference's start
-    # after compiling
-    executed_s = self._clock()
-    out = compiled(*batching.to_device(stacked, self.device))
-    # the device-to-host copy is the batch's synchronisation point
-    out = (tuple(_to_numpy(x) for x in out)
-           if isinstance(out, (tuple, list)) else _to_numpy(out))
-    device_s = self._clock()
-    cold = self.cache.first_run(exec_key)
-    if key.kind == "closure":
-      # measured convergence counts of the live slots (padded slots copy
-      # the last request), recorded before validation can fail the batch
-      self.estimator.observe_iterations(key, np.asarray(out[1])[:len(reqs)])
-    if self.validate_results:
-      bad = batching.validate_finite(key, out, len(reqs))
-      if bad:
-        # NaN means the arm misbehaved (±inf is legitimate tropical output)
-        raise NonFiniteResultError(bucket_label(key), bad)
-    results = batching.split_results(key, reqs, out)
-    if len(results) != len(reqs):
-      raise RuntimeError(f"split_results returned {len(results)} results "
-                         f"for {len(reqs)} requests in {bucket_label(key)}")
+    arm, probe = self.resilience.pick(key, self.resolve_placement(key),
+                                      lambda: self._fallback_arms(key))
+    backend, block, schedule = arm
+    if self.tracer.enabled and probe:
+      self.tracer.instant("breaker_probe", cat="resilience",
+                          args={"bucket": label, "backend": backend,
+                                "schedule": schedule})
+    faults = self.faults
+    attempt_s = self._clock() if start_s is None else start_s
+    phase = "stack"
+    try:
+      # fill the padded batch slots with copies of the last request — wasted
+      # compute bounded at 2×, in exchange for a bounded executable set
+      stacked = batching.stack_batch(key, reqs + [reqs[-1]] * (rb - len(reqs)))
+      h2d_bytes = sum(int(x.nbytes) for x in stacked)
+      stacked_s = self._clock()
+      phase = "compile"
+      if faults is not None and faults.check("compile", label=label,
+                                             backend=backend,
+                                             request_ids=rids):
+        # raised before the cache is consulted: an injected build failure
+        # never leaves a broken entry behind
+        raise InjectedFault("compile", label)
+      misses_before = self.cache.misses
+      exec_key = self._exec_key(key, rb, backend, block, schedule)
+      compiled = self.cache.get_or_compile(
+          exec_key,
+          lambda: batching.make_batch_fn(key, backend=backend, block=block,
+                                         device=self.device),
+          stacked)
+      cache_hit = self.cache.misses == misses_before
+      # service observations start after the build, as the reference's
+      # start after compiling
+      executed_s = self._clock()
+      phase = "execute"
+      exec_fault = slow_rule = None
+      if faults is not None:
+        exec_fault = faults.check("execute", label=label, backend=backend,
+                                  request_ids=rids)
+        slow_rule = faults.check("slow", label=label, backend=backend,
+                                 request_ids=rids)
+
+      def run():
+        if exec_fault is not None:
+          raise InjectedFault("execute", label)
+        if slow_rule is not None:
+          time.sleep(slow_rule.delay_s)
+        out = compiled(*batching.to_device(stacked, self.device))
+        # the device-to-host copy is the batch's synchronisation point
+        return (tuple(_to_numpy(x) for x in out)
+                if isinstance(out, (tuple, list)) else _to_numpy(out))
+
+      out = self._call_with_watchdog(run, label)
+      device_s = self._clock()
+      cold = self.cache.first_run(exec_key)
+      if faults is not None:
+        nf = faults.check("nonfinite", label=label, backend=backend,
+                          request_ids=rids)
+        if nf is not None:
+          out = batching.poison_output(
+              key, out,
+              [i for i, r in enumerate(reqs)
+               if not nf.request_ids or r.request_id in nf.request_ids])
+      iters_live = None
+      if key.kind == "closure":
+        # measured convergence counts of the live slots (padded slots copy
+        # the last request), recorded before validation can fail the batch,
+        # and once per request across attempts
+        iters_live = np.asarray(out[1])[:len(reqs)]
+        fresh = [i for i, r in enumerate(reqs)
+                 if r.request_id not in observed]
+        if fresh:
+          self.estimator.observe_iterations(key, iters_live[fresh])
+          observed.update(reqs[i].request_id for i in fresh)
+      if self.validate_results:
+        bad = batching.validate_finite(key, out, len(reqs))
+        if bad:
+          # NaN means the arm misbehaved (±inf is legitimate tropical output)
+          raise NonFiniteResultError(label, bad)
+      phase = "split"
+      results = batching.split_results(key, reqs, out)
+      if len(results) != len(reqs):
+        raise RuntimeError(f"split_results returned {len(results)} results "
+                           f"for {len(reqs)} requests in {label}")
+    except Exception as e:  # noqa: BLE001 — classify, count, feed the breaker
+      kind = classify_failure(e, phase)
+      self.metrics.on_batch_failure(kind)
+      # only arm-implicating kinds feed the breaker: a host-side stack/split
+      # failure would fail identically on every arm
+      if kind in ARM_FAILURE_KINDS:
+        self._trace_transition(self.resilience.on_failure(key, arm), label,
+                               arm, kind)
+      raise
     completed_s = self._clock()
+    self._trace_transition(self.resilience.on_success(key, arm), label, arm)
     if not cold:
-      # per padded slot; a function's first run (lazy module loads on a
-      # card) would inflate the EWMA by orders of magnitude
-      self.estimator.observe_batch(key, backend, _LOCAL, rb,
+      # per padded slot, keyed by the arm that ran; a function's first run
+      # (lazy module loads on a card) would inflate the EWMA
+      self.estimator.observe_batch(key, backend, schedule, rb,
                                    completed_s - executed_s)
-    info = {"start_s": start_s, "stacked_s": stacked_s,
+    info = {"start_s": attempt_s, "stacked_s": stacked_s,
             "executed_s": executed_s, "device_s": device_s,
-            "completed_s": completed_s, "h2d_bytes": h2d_bytes}
+            "completed_s": completed_s, "rb": rb, "h2d_bytes": h2d_bytes,
+            "cache_hit": cache_hit, "backend": backend,
+            "schedule": schedule, "iters_live": iters_live}
     return results, info
 
-  def _complete(self, key, reqs, results, info, scheduled_s: float) -> int:
+  def _complete_sub(self, key, reqs, results, info, scheduled_s: float,
+                    *, emit_pick: bool) -> int:
+    """Complete one successful sub-batch attempt: trace emission, batch
+    metrics and the once-per-request final accounting.  ``scheduled_s``
+    stays the original pick time — queue and service windows measure what
+    the caller experienced, retries included — while the phase spans use
+    the attempt's own timestamps."""
     completed_s = info["completed_s"]
+    if self.tracer.enabled:
+      self.tracer.batch_complete(
+          label=bucket_label(key), scheduled_s=info["start_s"],
+          stacked_s=info["stacked_s"], executed_s=info["executed_s"],
+          device_s=info["device_s"], completed_s=completed_s,
+          backend=info["backend"], schedule=info["schedule"],
+          batch=len(reqs), padded=info["rb"],
+          h2d_bytes=info["h2d_bytes"], cache_hit=info["cache_hit"],
+          request_ids=[r.request_id for r in reqs],
+          arrivals_s=[r.arrival_s for r in reqs],
+          iterations=info["iters_live"], emit_pick=emit_pick)
     with self._lock:
       self._batches += 1
       self.metrics.on_batch(
@@ -533,18 +779,90 @@ class MMOEngine:
         self._idle.notify_all()
     return len(reqs)
 
-  def _fail_requests(self, key, reqs, exc) -> None:
+  def _call_with_watchdog(self, fn, label: str):
+    """Run ``fn`` under the engine watchdog (``watchdog_s``; None runs it
+    inline).  On timeout the batch fails with ``BatchTimeoutError`` instead
+    of wedging the serving loop.  The worker thread is abandoned: CUDA work
+    already queued cannot be cancelled, so it still runs, the next batch on
+    the stream waits behind it, and its result is discarded.  The worker
+    launches on the engine's device (the current device is per thread)."""
+    if self.watchdog_s is None:
+      return fn()
+    box: dict = {}
+    done = threading.Event()
+
+    def worker():
+      try:
+        if self.device.type == "cuda":
+          with torch.cuda.device(self.device):
+            box["out"] = fn()
+        else:
+          box["out"] = fn()
+      except BaseException as e:  # noqa: BLE001 — marshalled to the caller
+        box["exc"] = e
+      finally:
+        done.set()
+
+    t = threading.Thread(target=worker, name="mmo-batch-watchdog",
+                         daemon=True)
+    t.start()
+    if not done.wait(self.watchdog_s):
+      with self._lock:
+        self._abandoned = [w for w in self._abandoned if w.is_alive()] + [t]
+      raise BatchTimeoutError(label, self.watchdog_s)
+    if "exc" in box:
+      raise box["exc"]
+    return box["out"]
+
+  def join_abandoned(self, timeout: Optional[float] = None) -> int:
+    """Wait for the watchdog workers of timed-out batches to end (each at
+    most ``timeout`` seconds); returns how many still run."""
     with self._lock:
-      for r in reqs:
-        self._inflight.discard(r.request_id)
-        self._arena_cold.discard(r.request_id)
-        self.admission.on_done(r)
-        self.metrics.on_fail(key)
-        fut = self._pending.pop(r.request_id, None)
-        if fut is not None:
-          fut._fail(exc)
-      if not self._pending:
-        self._idle.notify_all()
+      workers = list(self._abandoned)
+    for t in workers:
+      t.join(timeout)
+    with self._lock:
+      self._abandoned = [w for w in self._abandoned if w.is_alive()]
+      return len(self._abandoned)
+
+  def _fallback_arms(self, key) -> tuple:
+    """Sibling arms for breaker re-dispatch, best first: every arm computes
+    the same result for this bucket (the SIMD² property), so traffic can
+    move between them.  'xla' and 'pallas' (minus the primary) are ranked
+    by the cost table's seconds, then 'vector' — the blocked plain arm —
+    comes last.  ``fallback_backends`` overrides the order outright
+    ('megakernel' only for closure buckets, which alone can run it).
+    Memoized per bucket: stable executable-cache keys."""
+    with self._lock:
+      memo = self._fallback_arms_memo.get(key)
+      if memo is not None:
+        return memo
+      primary, _ = self.resolve_backend(key)
+      if self.fallback_backends is not None:
+        order = [b for b in self.fallback_backends
+                 if b != primary and (b != "megakernel"
+                                      or key.kind == "closure")]
+      else:
+        from repro_torch.tuning import dispatch as _dispatch
+        m, k, n = contract_shape(key)
+        ranked = []
+        for b in ("xla", "pallas"):
+          if b == primary:
+            continue
+          try:
+            _, _, s = _dispatch.contraction_seconds(
+                key.op, m, k, n, key.dtypes[0], backend=b,
+                table=self.cost_table)
+          except Exception:  # noqa: BLE001 — an unpriceable arm is skipped
+            continue
+          ranked.append((s, b))
+        ranked.sort()
+        order = [b for _, b in ranked]
+        if primary != "vector":
+          order.append("vector")
+      memo = tuple((b, (), _LOCAL) for b in order)
+      self._fallback_arms_memo[key] = memo
+      return memo
 
   # -- arena mode ------------------------------------------------------------
 
@@ -557,6 +875,7 @@ class MMOEngine:
                            cache=self.cache, device=self.device,
                            clock=self._clock)
       self._arenas[key] = arena
+      self._arena_failures[key] = 0
     return arena
 
   def _arena_live_locked(self) -> bool:
@@ -595,44 +914,114 @@ class MMOEngine:
         expired = self.scheduler.take_expired()
         if expired:
           self._expire_locked(expired)
+        label = bucket_label(key)
         for r in taken:
           self.admission.on_dequeue(r)
           self._inflight.add(r.request_id)
           if key not in self._arenas_ticked:
             self._arena_cold.add(r.request_id)
-          arena.admit(r, now=self._clock())
+          slot = arena.admit(r, now=self._clock())
+          self.tracer.arena_admit(r.request_id, slot=slot, bucket=label)
 
   def _tick_arena(self, key, arena) -> int:
-    """One tick of one arena — the fused chunk launch and the eviction
-    sweep.  A tick that raises fails every resident request and resets the
-    arena (the reference's behaviour once its retry budget is spent)."""
+    """One tick of one arena: the fault hooks, the fused chunk launch and
+    the eviction sweep (its device-to-host copy waits for the tick) under
+    the watchdog, then the tick's accounting — metrics, breaker, tracer —
+    as the batch path's ``_attempt`` does per attempt."""
+    label = bucket_label(key)
+    rids = [r.request_id for r in arena.live_requests()]
+    if not rids:
+      return 0
     t0 = self._clock()
     try:
-      arena.tick()
-      evictions = arena.sweep()  # waits for the tick's device flags
-    except Exception as e:  # noqa: BLE001 — the residents fail, serving goes on
-      self._fail_requests(key, arena.reset(), e)
+      slow_rule = None
+      if self.faults is not None:
+        if self.faults.check("execute", label=label, backend=_ARENA,
+                             request_ids=rids):
+          raise InjectedFault("execute", label)
+        slow_rule = self.faults.check("slow", label=label, backend=_ARENA,
+                                      request_ids=rids)
+
+      def run():
+        if slow_rule is not None:
+          time.sleep(slow_rule.delay_s)
+        arena.tick()
+        return arena.sweep()
+
+      evictions = self._call_with_watchdog(run, label)
+    except Exception as e:  # noqa: BLE001 — classified + retried below
+      self._arena_tick_failed(key, arena, e)
       return 0
     t1 = self._clock()
+    self._trace_transition(self.resilience.on_success(key, _ARENA_ARM),
+                           label, _ARENA_ARM)
     with self._lock:
+      self._arena_failures[key] = 0
       self._batches += 1
       self._arenas_ticked.add(key)
       self.metrics.on_batch(key, host_s=0.0, device_s=t1 - t0, h2d_bytes=0)
-    return self._finish_evictions(key, evictions)
+    self.tracer.arena_tick(label, live=len(rids), evicted=len(evictions),
+                           g=arena.g, t0_s=t0, t1_s=t1)
+    return self._finish_evictions(key, evictions, label)
 
-  def _finish_evictions(self, key, evictions) -> int:
-    """Turn evictions into results.  A NaN slot fails alone; its
-    neighbours complete.  The estimator observes each request's measured
-    iterations and its slot-seconds (admit → evict), the residency QoS
-    predictions price, unless the slot lived through the arena's first
-    (cold) tick."""
+  def _arena_tick_failed(self, key, arena, exc) -> None:
+    """Tick failure recovery: the slots stay resident under the transient
+    retry budget (the next step retries the whole tick); once the budget is
+    spent every resident fails together and the arena resets.  There is no
+    bisection: per-slot state already isolates a poisoned request (a NaN
+    slot fails alone at eviction), so a tick-level failure is arm-wide."""
+    label = bucket_label(key)
+    kind = classify_failure(exc, "execute")
+    self.metrics.on_batch_failure(kind)
+    if kind in ARM_FAILURE_KINDS:
+      self._trace_transition(self.resilience.on_failure(key, _ARENA_ARM),
+                             label, _ARENA_ARM, kind)
+    with self._lock:
+      self._arena_failures[key] = self._arena_failures.get(key, 0) + 1
+      failures = self._arena_failures[key]
+    if failures <= self.transient_retries:
+      self.metrics.on_retry()
+      backoff = self.retry_backoff_s * (2.0 ** min(failures - 1, 3))
+      if backoff > 0.0:
+        time.sleep(backoff)
+      return
+    with self._lock:
+      self._arena_failures[key] = 0
+    victims = arena.reset()
+    if self.tracer.enabled:
+      for r in victims:
+        self.tracer.request_end(r.request_id, "failed", executing=True)
+      self.tracer.instant("batch_fail", cat="batch",
+                          args={"bucket": label, "batch": len(victims),
+                                "error": type(exc).__name__})
+    self._fail_requests(key, victims, exc)
+
+  def _finish_evictions(self, key, evictions, label: str) -> int:
+    """Turn evictions into results.  A NaN slot (or one the ``nonfinite``
+    fault poisons) fails alone; its neighbours complete.  The estimator
+    observes each request's measured iterations and its slot-seconds
+    (admit → evict), the residency QoS predictions price, unless the slot
+    lived through the arena's first (cold) tick."""
     completed = 0
     for ev in evictions:
       r, value = ev.request, ev.value
-      if (self.validate_results and np.issubdtype(value.dtype, np.floating)
-          and bool(np.isnan(value).any())):
-        self._fail_requests(key, [r], NonFiniteResultError(
-            bucket_label(key), [ev.slot]))
+      poisoned = False
+      if self.faults is not None:
+        if self.faults.check("nonfinite", label=label, backend=_ARENA,
+                             request_ids=[r.request_id]) is not None:
+          poisoned = True
+          if np.issubdtype(value.dtype, np.floating):
+            value = np.full_like(value, np.nan)
+      bad = (self.validate_results
+             and np.issubdtype(value.dtype, np.floating)
+             and bool(np.isnan(value).any()))
+      if poisoned or bad:
+        self.metrics.on_batch_failure("nonfinite")
+        self._trace_transition(self.resilience.on_failure(key, _ARENA_ARM),
+                               label, _ARENA_ARM, "nonfinite")
+        self.tracer.request_end(r.request_id, "failed", executing=True,
+                                args={"slot": ev.slot})
+        self._fail_requests(key, [r], NonFiniteResultError(label, [ev.slot]))
         continue
       res = MMOResult(value=value, extras={"iterations": int(ev.iterations)})
       now = self._clock()
@@ -642,6 +1031,9 @@ class MMOEngine:
         self._arena_cold.discard(r.request_id)
       if not cold:
         self.estimator.observe_batch(key, _ARENA, _LOCAL, 1, now - ev.admit_s)
+      self.tracer.request_end(r.request_id, "done", executing=True,
+                              args={"slot": ev.slot,
+                                    "iterations": int(ev.iterations)})
       with self._lock:
         self._inflight.discard(r.request_id)
         self._records.append(RequestRecord(
@@ -731,7 +1123,12 @@ class MMOEngine:
         continue
       rb = 1
       while True:
-        self._build(key, rb, batching.abstract_batch(key, rb))
+        backend, block, schedule = self.resolve_placement(key)
+        self.cache.get_or_compile(
+            self._exec_key(key, rb, backend, block, schedule),
+            lambda: batching.make_batch_fn(key, backend=backend, block=block,
+                                           device=self.device),
+            batching.abstract_batch(key, rb))
         if rb >= max_batch:
           break
         rb = self._batch_bucket(min(2 * rb, max_batch))
@@ -752,6 +1149,47 @@ class MMOEngine:
     return self.metrics.snapshot(queue_depth=depth, executing=executing,
                                  admission=adm,
                                  estimator=self.estimator.snapshot())
+
+  def observability_state(self) -> dict:
+    """Everything the Prometheus renderer (serve_mmo/exposition.py) emits,
+    in one point-in-time document: metrics counters + histogram state,
+    queue/executing gauges, admission, cache and scheduler counters, the
+    estimator's cells with their drift against the static cost model
+    (measured EWMA / static prediction), the breaker cells and the flight
+    recorder's stats.  Gauges are read under the engine lock; the drift
+    math runs outside it."""
+    with self._lock:
+      depth = len(self.scheduler)
+      executing = len(self._inflight)
+      adm = self.admission.snapshot()
+      sched = {"picks": self.scheduler.picks,
+               "pick_seconds": self.scheduler.pick_seconds}
+    cells = []
+    for key, backend, schedule, seconds, count in self.estimator.cells_raw():
+      contraction_s, trips = self._static_point(key)
+      static_s = contraction_s * trips
+      cells.append({
+          "bucket": bucket_label(key), "backend": backend,
+          "schedule": schedule, "seconds": seconds, "observations": count,
+          "drift": (seconds / static_s) if static_s > 0.0 else None,
+      })
+    return {
+        "metrics": self.metrics.exposition_state(),
+        "queue_depth": depth,
+        "executing": executing,
+        "admission": adm,
+        "cache": self.cache.stats(),
+        "scheduler": sched,
+        "estimator_cells": cells,
+        "breakers": self.resilience.snapshot(),
+        "trace": self.tracer.stats(),
+    }
+
+  def export_trace(self) -> dict:
+    """The flight recorder's Chrome trace-event JSON (load in Perfetto or
+    about://tracing): per-request lifecycle spans plus per-batch host and
+    device phases.  See serve_mmo/observability.py."""
+    return self.tracer.export()
 
   # -- background serving loop -----------------------------------------------
 

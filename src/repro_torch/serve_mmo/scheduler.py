@@ -104,6 +104,11 @@ class BucketScheduler:
     self._clock = clock if clock is not None else time.perf_counter
     self._buckets: dict[BucketKey, list[QueueEntry]] = {}  # heaps
     self._seq = 0
+    # read by MMOEngine.observability_state: batches the policy picked and
+    # the host seconds spent picking (perf_counter, never the injected
+    # clock, so the exposed cost is the real scheduling overhead)
+    self.picks = 0
+    self.pick_seconds = 0.0
     self._expired: list[ProblemRequest] = []
     self._deadline_queued = 0          # deadline-tagged entries not yet popped
     self._last_deadline_s: Optional[float] = None  # last deadline-tagged add
@@ -149,6 +154,13 @@ class BucketScheduler:
     """
     if now is None:
       now = self._clock()
+    t0 = time.perf_counter()
+    try:
+      return self._next_batch(now)
+    finally:
+      self.pick_seconds += time.perf_counter() - t0
+
+  def _next_batch(self, now: float) -> Optional[tuple]:
     while True:
       key = self.policy.pick(self, now)
       if key is None:
@@ -185,6 +197,7 @@ class BucketScheduler:
       del self._buckets[key]
     if batch:
       self.policy.on_batch(key, batch, self)
+      self.picks += 1
     return batch
 
   def peek_bucket(self, now: Optional[float] = None):
@@ -209,7 +222,11 @@ class BucketScheduler:
     entries are diverted and the policy's bookkeeping runs."""
     if now is None:
       now = self._clock()
-    return self._take_locked(key, limit, now)
+    t0 = time.perf_counter()
+    try:
+      return self._take_locked(key, limit, now)
+    finally:
+      self.pick_seconds += time.perf_counter() - t0
 
   def take_expired(self) -> list:
     """Requests diverted by deadline expiry / fail-fast since the last

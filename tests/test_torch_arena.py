@@ -6,7 +6,9 @@ equal the reference's batched fixpoint under the parity policy (bit-exact
 on the min/max rings and orand; mma within rtol 1e-5 / atol 1e-4, its
 iteration counts exact) and the port's own batch path bit for bit on every
 ring.  The lifecycle pins (mid-flight admission with zero cache misses,
-full/backfill, reset, bad parameters) and the hypothesis model test follow
+the slot's trace span, full/backfill, reset, bad parameters), the chaos
+pins (a NaN slot fails alone, a transient tick fault is retried, a spent
+budget fails the residents) and the hypothesis model test follow
 tests/test_arena.py and tests/test_property_arena.py.
 """
 import numpy as np
@@ -19,9 +21,10 @@ from repro.serve_mmo import RequestArena as JArena  # noqa: E402
 from repro.serve_mmo import closure_request as j_closure_request  # noqa: E402
 from repro.serve_mmo.scheduler import request_bucket as j_bucket  # noqa: E402
 from repro_torch.core import closure as tcl  # noqa: E402
-from repro_torch.serve_mmo import (MMOEngine, NonFiniteResultError,  # noqa: E402
-                                   RequestArena, apsp_request,
-                                   closure_request)
+from repro_torch.serve_mmo import (FaultInjector, FaultRule,  # noqa: E402
+                                   InjectedFault, MMOEngine,
+                                   NonFiniteResultError, RequestArena,
+                                   apsp_request, closure_request)
 from repro_torch.serve_mmo.cache import ExecutableCache  # noqa: E402
 from repro_torch.serve_mmo.scheduler import (BucketKey,  # noqa: E402
                                              request_bucket)
@@ -195,6 +198,98 @@ def test_failed_tick_fails_residents_and_the_arena_recovers(monkeypatch):
   (arena,) = eng._arenas.values()
   assert arena.live_slots() == 0 and not eng._inflight
   monkeypatch.undo()
+  ok = eng.submit(apsp_request(_line(10, 8), algorithm="bellman_ford"))
+  eng.run_until_idle()
+  assert ok.result().extras["iterations"] == 9
+
+
+def test_arena_trace_slot_lifecycle():
+  """The flight recorder carries the admit → tick×k → evict span: an
+  execute slice opening with the slot index, arena_tick X-events, and the
+  eviction closing the slice with the measured iteration count."""
+  eng = MMOEngine(mode="arena", arena_capacity=2, arena_g=2, device="cpu")
+  fut = eng.submit(apsp_request(_line(10, 3), algorithm="bellman_ford"))
+  eng.run_until_idle()
+  ev = eng.export_trace()["traceEvents"]
+  begins = [e for e in ev if e.get("ph") == "b" and e["name"] == "execute"]
+  assert begins and "slot" in begins[0]["args"]
+  ticks = [e for e in ev if e.get("name") == "arena_tick"]
+  assert len(ticks) >= 2  # bellman_ford on a 10-line at g=2 needs several
+  ends = [e for e in ev if e.get("ph") == "e" and e["name"] == "execute"]
+  assert ends and ends[-1]["args"]["outcome"] == "done"
+  assert ends[-1]["args"]["iterations"] == fut.result().extras["iterations"]
+
+
+# ---------------------------------------------------------------------------
+# chaos pins — fault injection through the arena path (tests/test_arena.py)
+# ---------------------------------------------------------------------------
+
+
+def _batch_want(w):
+  """The port's batch path, fault-free, for one Bellman-Ford request."""
+  fut = MMOEngine(backend="pallas", device="cpu").submit(
+      apsp_request(w, algorithm="bellman_ford"))
+  return fut.result()
+
+
+def test_nan_poisoned_slot_fails_alone():
+  """A slot the ``nonfinite`` fault poisons is evicted as failed without
+  freezing or corrupting its live neighbour, which equals batch mode."""
+  faults = FaultInjector([FaultRule(point="nonfinite", backend="arena",
+                                    request_ids={0})])
+  eng = MMOEngine(mode="arena", arena_capacity=4, arena_g=3, faults=faults,
+                  device="cpu")
+  poisoned = eng.submit(apsp_request(_line(12, 4), algorithm="bellman_ford"))
+  neighbor = eng.submit(apsp_request(_line(12, 5), algorithm="bellman_ford"))
+  eng.run_until_idle()
+  with pytest.raises(NonFiniteResultError):
+    poisoned.result()
+  want = _batch_want(_line(12, 5))
+  np.testing.assert_array_equal(neighbor.result().value, want.value)
+  assert neighbor.result().extras == want.extras
+  snap = eng.metrics_snapshot()
+  assert snap["counters"]["failed"] == 1
+  assert snap["counters"]["completed"] == 1
+  assert snap["batch_failures_by_kind"] == {"nonfinite": 1}
+
+
+def test_arena_tick_retry_accounting():
+  """A transient execute fault on one tick: the slots stay resident, the
+  next step retries the tick whole, everything completes, with a counted
+  retry and the breaker's failure cleared by the success."""
+  faults = FaultInjector([FaultRule(point="execute", backend="arena",
+                                    mode="transient", count=1)])
+  eng = MMOEngine(mode="arena", arena_capacity=2, arena_g=4, faults=faults,
+                  transient_retries=1, retry_backoff_s=0.0, device="cpu")
+  fut = eng.submit(apsp_request(_line(10, 6), algorithm="bellman_ford"))
+  eng.run_until_idle()
+  want = _batch_want(_line(10, 6))
+  np.testing.assert_array_equal(fut.result().value, want.value)
+  assert fut.result().extras == want.extras
+  snap = eng.metrics_snapshot()
+  assert snap["counters"]["retries"] >= 1
+  assert snap["counters"]["completed"] == 1
+  assert snap["counters"]["failed"] == 0
+  (cell,) = eng.resilience.snapshot()
+  assert (cell["backend"], cell["consecutive_failures"]) == ("arena", 0)
+
+
+def test_arena_tick_failure_budget_fails_residents():
+  """A persistent execute fault spends the transient budget: every resident
+  fails together, the arena resets, and traffic after the fault clears
+  completes."""
+  faults = FaultInjector([FaultRule(point="execute", backend="arena")])
+  eng = MMOEngine(mode="arena", arena_capacity=2, arena_g=4, faults=faults,
+                  transient_retries=1, retry_backoff_s=0.0, device="cpu")
+  futs = [eng.submit(apsp_request(_line(10, s), algorithm="bellman_ford"))
+          for s in (7, 9)]
+  eng.run_until_idle()
+  for fut in futs:
+    with pytest.raises(InjectedFault):
+      fut.result()
+  assert next(iter(eng._arenas.values())).live_slots() == 0
+  assert not eng._inflight
+  faults.clear("execute")
   ok = eng.submit(apsp_request(_line(10, 8), algorithm="bellman_ford"))
   eng.run_until_idle()
   assert ok.result().extras["iterations"] == 9

@@ -117,11 +117,55 @@ def test_each_unported_knob_raises(knob):
   tserve.MMOEngine(device="cpu", **{knob: inert[0]})  # inert: accepted
 
 
-@pytest.mark.parametrize("kw", [dict(schedule="dp"), dict(trace=True),
-                                dict(watchdog_s=1.0)])
+@pytest.mark.parametrize("kw", [dict(schedule="dp"), dict(mesh=(2, 4)),
+                                dict(shard_flops=1e9)])
 def test_unported_modes_raise(kw):
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(NotImplementedError, match="item 11"):
     tserve.MMOEngine(device="cpu", **kw)
+
+
+# ROADMAP item 9's knobs, each with a value that asks for something
+_OPERABILITY_KNOBS = {
+    "trace": False,
+    "trace_capacity": 64,
+    "tracer": "recorder",
+    "faults": "injector",
+    "transient_retries": 3,
+    "retry_backoff_s": 0.0,
+    "bisect": False,
+    "breaker_threshold": None,
+    "breaker_probe_s": 1.0,
+    "watchdog_s": 30.0,
+    "fallback_backends": ("vector",),
+    "resilience": "manager",
+}
+
+
+def test_operability_knobs_take_the_reference_defaults():
+  import inspect
+  ref = inspect.signature(jserve.MMOEngine).parameters
+  port = inspect.signature(tserve.MMOEngine).parameters
+  assert set(_OPERABILITY_KNOBS) <= set(port)
+  for name in _OPERABILITY_KNOBS:
+    assert port[name].default == ref[name].default, name
+  assert set(tengine._UNPORTED_KNOBS) == {"mesh", "schedule", "shard_flops"}
+
+
+@pytest.mark.parametrize("knob", sorted(_OPERABILITY_KNOBS))
+def test_each_operability_knob_constructs_and_serves(knob):
+  """Each knob once refused as unported now builds an engine that serves:
+  one APSP request, the same distances as the default engine."""
+  value = {"recorder": tserve.FlightRecorder(capacity=64),
+           "injector": tserve.FaultInjector(),
+           "manager": tserve.ResilienceManager()}.get(
+               _OPERABILITY_KNOBS[knob], _OPERABILITY_KNOBS[knob])
+  w = graphs.weighted_digraph(12, 0.3, seed=4)
+  eng = tserve.MMOEngine(device="cpu", **{knob: value})
+  fut = eng.submit(tserve.apsp_request(w))
+  want = tserve.MMOEngine(device="cpu").submit(tserve.apsp_request(w))
+  np.testing.assert_array_equal(fut.result().value, want.result().value)
+  assert eng.metrics_snapshot()["counters"]["completed"] == 1
+  assert eng._abandoned == []
 
 
 def _knob_values():

@@ -14,12 +14,17 @@ Phases (any failure exits non-zero):
      -sass``), every K4 instance too (HMMA or HGMMA), K1's and K2's other
      instances cp.async (LDGSTS);
   3. kernels vs their plain PyTorch versions on the card — K1: all nine
-     rings at three shapes, a batched ragged k_valid case, bf16, and one
-     4096³ minplus step C ⊕ C⊗C; K2: every ring with a ⊗-identity × both
-     algorithms at n̄ ∈ {12, 64, 200} (ragged kv, budgets that differ, a
-     frozen request), a NaN edge, and one minplus Leyzorek chunk (g = 2) at
-     4096; then K2's fused arm against the K1 dispatch arm, which must be
-     bit-identical on every ring, mma included; K3 at the LM main path's
+     rings at three shapes, a batched ragged k_valid case, bf16, the six
+     min/max rings in int32 (bit-exact, INT32_MAX ⊗ 1 wrapping on minplus,
+     a ragged k_valid case) and every ring but orand in float16 (widened
+     to the f32 instance, rounded once), and one 4096³ minplus step
+     C ⊕ C⊗C; K2: every ring with a ⊗-identity × both algorithms at
+     n̄ ∈ {12, 64, 200} (ragged kv, budgets that differ, a frozen request),
+     a NaN edge, and one minplus Leyzorek chunk (g = 2) at 4096; then K2's
+     fused arm against the K1 dispatch arm, which must be bit-identical on
+     every ring, mma included; the six min/max rings in int32 and float16
+     at n̄ ∈ {12, 64, 200}, both algorithms, each chunk against the plain
+     version and the fused arm against K1 dispatch, bit for bit; K3 at the LM main path's
      shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
      FA_CASES in f32 and bf16 (a window, head dims 32 to 128, Sq ≠ Skv,
      non-causal), head dims 128 and 16 in bf16, rows that see no key in
@@ -76,8 +81,9 @@ Phases (any failure exits non-zero):
   5. timing — K1, its plain version and (for mma) torch.matmul at the main
      path's shapes, each result held against the plain version (for mma
      also the split pass and the tensor-core tiles apart, by
-     torch.profiler); K2 per chunk at the main path's shapes and its plain
-     version; the APSP-4096 fixpoint on the dispatch arm (one host sync per
+     torch.profiler); K1's int32 and float16 minplus at 4096³ (float16 with
+     its widen and round passes); K2 per chunk at the main path's shapes
+     and its plain version, and the APSP-4096 chunk in int32 and float16; the APSP-4096 fixpoint on the dispatch arm (one host sync per
      iteration) against the fused arm; each with the tile it takes and its
      bound on this card
      (``ops_seconds``: the tensor-core rate for mma, the CUDA-core issue
@@ -104,7 +110,30 @@ Phases (any failure exits non-zero):
      library call computes the term) are timed at the prefill's shape, in
      the model's layout, with K4's share of its bound (the products at the
      3×TF32 tensor-core rate; the f32 CUDA-core figure beside it) and its
-     head block.
+     head block;
+  8. the rest of the applications, at Table 4's sizes from
+     ``repro_torch.configs.simd2_apps`` — (a) the eight solvers on
+     'pallas' against the port's numpy baselines (``apps/baselines.py``,
+     computed meanwhile in worker processes) under tests/test_apps.py's
+     tolerances, inputs built as benchmarks/apps_bench.py builds them: MST
+     and GTC at APP_SIZES "small" (1024), four Floyd-Warshall apps and KNN
+     at BENCH_SIZES "large" (1024), a cut: the numpy k-pivot baseline at
+     Table 4's 4096 would take minutes on the host (phase 4 serves APSP
+     4096 against the plain path); minrp at BENCH_SIZES "small" (256):
+     from 512 on its f32 products underflow and 0 ⊗ ∞ turns every entry
+     into NaN, the reference's too; then the seven closure apps on the fused
+     arm, equal to 'pallas'; (b) ``newton_inverse`` at n = 4096 on K1 mma
+     (65 launches), its residual and its error against float64
+     ``torch.linalg.inv`` within stated limits; (c) ``kmeans`` on K1
+     addnorm (256 well-separated centres × 64 points, D 16, 20
+     iterations), every assignment equal to the 'xla' arm's; (d)
+     ``prune_24`` and ``mmo_sparse24`` at n = 1024 (a cut: the gathered
+     (M, K/2, N) block is 2 GiB there, 128 GiB at 4096) on mma, minplus and
+     maxmin against the CPU, mma also against K1 on ``densify_24``'s
+     output, and ``csr_spmm`` at densities 0.01 and 0.1 against dense K1;
+     (e) int32 and float16 minplus mmo and closure requests through
+     ``MMOEngine`` on 'pallas' and on the fused arm.  Each step prints its
+     host seconds and K1/K2 launches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -142,6 +171,7 @@ K2_DESIGN = ("cooperative persistent grid, two grid barriers per step "
              "128×128 or 64×64 by K1's rule applied to the live tiles each "
              "step)")
 MIN_MAX_RINGS = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin")
+ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4, "bool": 1}
 TOL = {"rtol": 1e-5, "atol": 1e-4}   # mma / addnorm: summation order differs
 BF16_TOL = {"rtol": 3e-2, "atol": 3e-2}  # the reference's own bf16 tolerance
 # K3 vs its plain version: the reference kernel test's own tolerances
@@ -225,8 +255,8 @@ def max_abs_err(x, y) -> float:
 
 
 def check(name: str, got, want, op: str, bf16: bool = False) -> float:
-  """Kernel vs plain: bit-exact for the min/max rings and orand in f32, the
-  stated tolerance for mma/addnorm and for bf16."""
+  """Kernel vs plain: bit-exact for the min/max rings and orand (f32,
+  float16, int32), the stated tolerance for mma/addnorm and for bf16."""
   import torch
   err = max_abs_err(got, want)
   if got.dtype != want.dtype or got.shape != want.shape:
@@ -249,7 +279,7 @@ def bound_ms(op: str, dtype: str, r: int, m: int, k: int, n: int,
   """Least time for R requests of D = C ⊕ (A ⊗ B): M·N·ΣK_live terms at the
   ring's rate (``ops_seconds``), or each operand read once and D written
   once at HBM bandwidth — whichever is larger."""
-  isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
+  isz = ITEMSIZE[dtype]
   osz = 1 if dtype == "bool" else (4 if op in ("mma", "addnorm") else isz)
   nbytes = r * (m * k + k * n) * isz + r * m * n * osz * (2 if has_c else 1)
   t_ops = hw.ops_seconds(op, dtype, float(m) * n * k_live_total)
@@ -264,7 +294,7 @@ def fixpoint_bound_ms(op: str, dtype: str, r: int, n: int,
   n²·kv terms at the ring's rate (``ops_seconds``), or the stack read once
   and written once (plus the constant A for Bellman-Ford) at HBM bandwidth
   — whichever is larger."""
-  isz = {"float32": 4, "bfloat16": 2, "bool": 1}[dtype]
+  isz = ITEMSIZE[dtype]
   t_ops = hw.ops_seconds(op, dtype, float(n) * n * live_steps_kv)
   t_bytes = isz * r * n * n * (2 + int(has_adj)) / hw.PEAK_BYTES_S
   return (max(t_ops, t_bytes) * 1e3,
@@ -289,6 +319,14 @@ def kernel_ms(torch, fn, reps: int) -> dict:
     return m.group(1) if m else key[:80]
   return {name(e.key): e.self_device_time_total / reps / 1e3
           for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def dtype_instance(row: dict) -> dict:
+  """A phase-5 timing row of one of K1's or K2's int32/float16 instances,
+  as the kernel record lists it."""
+  return {k: row[k] for k in ("dtype", "case", "op", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "max_abs_err")}
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -342,6 +380,43 @@ def phase_kernel_vs_plain(sm, torch, gen):
     got = sm.semiring_mmo(a, b, op=op)
     check(f"{op} bf16 2x64x96x32", got, sm.semiring_mmo_plain(a, b, op=op),
           op, bf16=True)
+  # int32: the min/max rings' own instances, ⊗ wrapping in two's
+  # complement (an INT32_MAX row of A against a column of 1 in B: minplus
+  # gives INT32_MIN), bit-exact, and a ragged k_valid case
+  top = torch.iinfo(torch.int32).max
+  for op in MIN_MAX_RINGS:
+    for (m, k, n) in ((13, 7, 5), (64, 200, 96), (256, 384, 128)):
+      a, b, c = (torch.randint(-1000, 1001, shape, generator=gen,
+                               dtype=torch.int32)
+                 for shape in ((1, m, k), (1, k, n), (1, m, n)))
+      a[:, 0, :] = top
+      b[:, :, 0] = 1
+      a, b, c = a.to(dev), b.to(dev), c.to(dev)
+      got = sm.semiring_mmo(a, b, c, op=op)
+      check(f"{op} int32 {m}x{k}x{n}", got,
+            sm.semiring_mmo_plain(a, b, c, op=op), op)
+    if op == "minplus" and int(got[0, 0, 0]) != -top - 1:
+      raise AssertionError("int32 minplus: INT32_MAX ⊗ 1 did not wrap")
+    a, b = (torch.randint(-1000, 1001, shape, generator=gen,
+                          dtype=torch.int32).to(dev)
+            for shape in ((4, 64, 200), (4, 200, 96)))
+    kv = torch.tensor([200, 131, 17, 0], dtype=torch.int32, device=dev)
+    check(f"{op} int32 ragged R=4 kv={kv.tolist()}",
+          sm.semiring_mmo(a, b, op=op, k_valid=kv),
+          sm.semiring_mmo_plain(a, b, op=op, k_valid=kv), op)
+  # float16: the f32 instance on widened operands, rounded once (min/max
+  # rings bit-exact, mma and addnorm f32 within TOL)
+  for op in sr_mod.ALL_OPS:
+    if op == "orand":
+      continue
+    for (m, k, n) in ((13, 7, 5), (64, 200, 96), (256, 384, 128)):
+      a = torch.randn(1, m, k, generator=gen).to(dev, torch.float16)
+      b = torch.randn(1, k, n, generator=gen).to(dev, torch.float16)
+      c = torch.randn(1, m, n, generator=gen).to(
+          dev, sm.out_dtype(op, torch.float16))
+      got = sm.semiring_mmo(a, b, c, op=op)
+      check(f"{op} float16 {m}x{k}x{n}", got,
+            sm.semiring_mmo_plain(a, b, c, op=op), op)
   torch.cuda.synchronize()
 
 
@@ -457,6 +532,63 @@ def phase_fused_vs_dispatch(cl, torch) -> None:
       if not same:
         raise AssertionError(f"fused arm differs from dispatch: {op} "
                              f"{algorithm}")
+  torch.cuda.synchronize()
+
+
+def int_closure_stack(torch, op: str, n: int, r: int, seed: int):
+  """(R, n, n) int32 iterates: small weights, the ring's self value on the
+  diagonal, and a tenth of the entries at the ⊕-identity (INT32_MAX or
+  INT32_MIN), whose ⊗ with a weight wraps in two's complement."""
+  g = torch.Generator().manual_seed(seed)
+  lo, hi = (1, 4) if op in ("minmul", "maxmul") else (-50, 51)
+  x = torch.randint(lo, hi, (r, n, n), generator=g, dtype=torch.int32)
+  info = torch.iinfo(torch.int32)
+  x[torch.rand((r, n, n), generator=g) < 0.1] = (
+      info.max if op.startswith("min") else info.min)
+  if op in ("minplus", "maxplus", "minmul", "maxmul"):
+    x.diagonal(dim1=1, dim2=2).fill_(0 if op.endswith("plus") else 1)
+  return x
+
+
+def phase_dtype_fixpoints(mk, cl, torch) -> None:
+  """Phase 3, K2 in int32 and float16 (the min/max rings): every chunk case
+  against the plain version at n̄ ∈ {12, 64, 200}, then the fused arm
+  against per-iteration K1 at the same sizes with ragged valid_n, bit for
+  bit, iteration counts included."""
+  solvers = {"leyzorek": cl.batched_leyzorek_closure,
+             "bellman_ford": cl.batched_bellman_ford_closure}
+  for dtype in (torch.int32, torch.float16):
+    name = str(dtype).removeprefix("torch.")
+    for op in MIN_MAX_RINGS:
+      for n in (12, 64, 200):
+        for algorithm, solve in solvers.items():
+          c, adj, kv, act, it, glim = chunk_case(cl, torch, op, algorithm,
+                                                 n, seed=n)
+          c = (int_closure_stack(torch, op, n, 4, seed=n).cuda()
+               if dtype == torch.int32 else c.to(dtype))
+          adj = c if algorithm == "bellman_ford" else None
+          got = mk.fixpoint_chunk(c, adj, kv, act, it, glim, op=op,
+                                  g_steps=4)
+          want = mk.fixpoint_chunk_plain(c, adj, kv, act, it, glim, op=op,
+                                         g_steps=4)
+          if got[0].dtype != dtype:
+            raise AssertionError(f"K2 {op} {name}: iterate is "
+                                 f"{got[0].dtype}")
+          check_chunk(f"K2 {op} {name} {algorithm} n={n} chunk", got, want,
+                      op)
+          x = c[:3].contiguous()
+          valid = torch.tensor([n, max(1, n - 3), max(1, n // 2)],
+                               dtype=torch.int32, device="cuda")
+          want, want_it = solve(x, op=op, backend="pallas", valid_n=valid)
+          got, got_it = solve(x, op=op, fixpoint_backend="megakernel",
+                              megakernel_g=3, valid_n=valid)
+          if not (torch.equal(got_it, want_it) and got.dtype == want.dtype
+                  and equal_nan(got, want)):
+            raise AssertionError(f"K2 fused vs K1 dispatch differ: {op} "
+                                 f"{name} {algorithm} n={n}")
+      log(f"[check] K2 {op} {name}: chunks equal the plain version and the "
+          f"fused arm equals K1 dispatch bit for bit at n=12, 64, 200, both "
+          f"algorithms")
   torch.cuda.synchronize()
 
 
@@ -1100,6 +1232,343 @@ def check_fa(fa, torch, case, dtype, seed=0) -> float:
   return err
 
 
+# Phase 8: the rest of the applications.  Sizes from the paper's Table 4
+# (repro_torch.configs.simd2_apps): MST and GTC at APP_SIZES "small"
+# (1024); the five Floyd-Warshall apps and KNN at BENCH_SIZES "large"
+# (1024), because their numpy k-pivot baseline at Table 4's 4096 would take
+# minutes on the host (phase 4 serves APSP 4096 against the plain path).
+APP_OPS = {"apsp": "minplus", "aplp": "maxplus", "mcp": "maxmin",
+           "maxrp": "maxmul", "minrp": "minmul", "mst": "minmax",
+           "gtc": "orand"}
+NEWTON_N, NEWTON_ITERS = 4096, 32
+# newton_inverse's limits, A = G Gᵀ + n·I (G standard normal, κ ≈ 5):
+# four times what an H100 measured with this seed, ‖AX − I‖∞ 2.98e-7 and
+# max |X − A⁻¹ (float64)| / max |A⁻¹| 6.39e-7 (the 3×TF32 products hold
+# f32 accuracy; another card's cuBLAS may form G Gᵀ in another order)
+NEWTON_RESID_MAX = 1.2e-6
+NEWTON_REL_MAX = 2.6e-6
+# k-means: 256 centres with 64 points each, D = 16 (the KNN corpus's
+# width), 20 iterations
+KMEANS_K, KMEANS_PER, KMEANS_D, KMEANS_ITERS = 256, 64, 16, 20
+SPARSE_N = 1024  # the gathered (M, K/2, N) f32 block: 2 GiB (128 at 4096)
+
+
+def app_size(app: str) -> int:
+  """MST and GTC at APP_SIZES "small"; minrp at BENCH_SIZES "small" (its
+  minimum-reliability products fall below f32's smallest normal from 512
+  on: they underflow to 0, 0 ⊗ ∞ is NaN, and NaN reaches every entry, in
+  the reference's f32 arithmetic as in the port's); the others at
+  BENCH_SIZES "large"."""
+  from repro_torch.configs.simd2_apps import APP_SIZES, BENCH_SIZES
+  if app in ("mst", "gtc"):
+    return APP_SIZES[app]["small"]
+  return BENCH_SIZES[app]["small" if app == "minrp" else "large"]
+
+
+def app_inputs(graphs, app: str, n: int, seed: int = 0) -> tuple:
+  """One application's inputs, built as benchmarks/apps_bench.py::_inputs
+  builds them."""
+  if app == "apsp":
+    return (graphs.weighted_digraph(n, 0.25, seed=seed),)
+  if app == "aplp":
+    return (graphs.dag(n, 0.25, seed=seed),)
+  if app == "mcp":
+    return (graphs.capacity_graph(n, 0.25, seed=seed),)
+  if app == "maxrp":
+    return (graphs.reliability_graph(n, 0.25, seed=seed, maximize=True),)
+  if app == "minrp":
+    return (graphs.reliability_graph(n, 0.25, seed=seed, maximize=False),)
+  if app == "mst":
+    return (graphs.undirected_weighted(n, 0.3, seed=seed),)
+  if app == "gtc":
+    return (graphs.boolean_digraph(n, 0.03, seed=seed),)
+  if app == "knn":
+    return graphs.knn_points(n, max(32, n // 8), 64, seed=seed)
+  raise KeyError(app)
+
+
+def app_baseline(app: str, n: int):
+  """The port's numpy baseline of one application at size n (in a worker
+  process: the k-pivot and BFS loops are host-bound)."""
+  import numpy as np
+  from repro_torch.apps import baselines as bl
+  from repro_torch.apps import graphs
+  x = app_inputs(graphs, app, n)
+  if app == "apsp":
+    return bl.apsp_np(np.where(np.eye(n, dtype=bool), 0, x[0]))
+  if app == "mst":
+    return bl.minimax_paths_np(x[0]), bl.kruskal_mst_np(x[0])[0]
+  if app == "knn":
+    return bl.knn_np(x[0], x[1], 8)
+  return {"aplp": bl.aplp_np, "mcp": bl.maxcp_np, "maxrp": bl.maxrp_np,
+          "minrp": bl.minrp_np, "gtc": bl.gtc_np}[app](x[0])
+
+
+def app_holds(np, app: str, n: int, got, ref) -> tuple:
+  """(ok, max |err| on the finite entries): tests/test_apps.py's checks
+  and tolerances; for aplp's long paths rtol n·2⁻²⁴, the f32 rounding of a
+  sum of up to n hops."""
+  if app == "gtc":
+    return bool(np.array_equal(got, ref)), 0.0
+  if app == "mst":
+    mm, edges = got
+    mm_ref, edges_ref = ref
+    fin = np.isfinite(mm_ref) & ~np.eye(n, dtype=bool)
+    err = float(np.abs(mm[fin] - mm_ref[fin]).max())
+    return (bool(np.allclose(mm[fin], mm_ref[fin], rtol=1e-7, atol=1e-4))
+            and edges == edges_ref), err
+  g = np.asarray(got, np.float64)
+  fin = np.isfinite(ref)
+  err = float(np.abs(g[fin] - ref[fin]).max())
+  rtol, atol = {"apsp": (1e-5, 1e-4), "aplp": (n * 2.0 ** -24, 1e-4),
+                "mcp": (1e-7, 1e-4), "maxrp": (1e-7, 1e-5),
+                "minrp": (1e-5, 1e-5)}[app]
+  ok = bool(np.allclose(g[fin], ref[fin], rtol=rtol, atol=atol))
+  if app in ("apsp", "minrp"):
+    ok = ok and bool(np.array_equal(~np.isfinite(g), ~fin))
+  if app == "maxrp":
+    ok = ok and bool(fin.all())
+  return ok, err
+
+
+def phase_apps(sm, mk, torch, np) -> dict:
+  """Phase 8: the eight solvers on 'pallas' against the port's numpy
+  baselines, the closure apps on the fused arm, newton_inverse at 4096,
+  kmeans, the sparse module, and the new dtypes through the engine.
+  Returns the K1/K2 launches and the per-step host seconds."""
+  import multiprocessing
+  from concurrent.futures import ProcessPoolExecutor
+  from repro_torch.apps import extras, graphs
+  from repro_torch.apps import solvers as sv
+  from repro_torch.core import closure as cl
+  from repro_torch.core import sparse
+  from repro_torch.core.mmo import mmo
+  from repro_torch.serve_mmo import MMOEngine, closure_request, mmo_request
+  t_phase = time.perf_counter()
+  k1_0, k2_0 = sm.semiring_mmo.launches, mk.fixpoint_chunk.launches
+  steps = []
+
+  def step(name, fn):
+    k1, k2 = sm.semiring_mmo.launches, mk.fixpoint_chunk.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = {"step": name, "s": dt, "k1": sm.semiring_mmo.launches - k1,
+           "k2": mk.fixpoint_chunk.launches - k2}
+    steps.append(rec)
+    log(f"[apps] {name}: {dt:.3f}s, K1 launches {rec['k1']}, K2 launches "
+        f"{rec['k2']}")
+    return out
+
+  # (a) the eight apps on 'pallas' while the baselines run on the host
+  apps = list(APP_OPS) + ["knn"]
+  ctx = multiprocessing.get_context("spawn")
+  with ProcessPoolExecutor(max_workers=len(apps), mp_context=ctx) as pool:
+    t_base = time.perf_counter()
+    futs = {app: pool.submit(app_baseline, app, app_size(app))
+            for app in apps}
+    got = {}
+    for app in apps:
+      n = app_size(app)
+      x = app_inputs(graphs, app, n)
+      if app == "knn":
+        got[app] = step(f"(a) knn {n} refs x {len(x[1])} queries x 64, k=8",
+                        lambda: [t.cpu().numpy() for t in sv.knn(
+                            x[0], x[1], k=8, backend="pallas")])
+      elif app == "mst":
+        def run_mst():
+          mm, it = sv.mst_minimax(x[0], backend="pallas")
+          in_mst, _ = sv.mst_edges(x[0], backend="pallas")
+          edges = {(min(i, j), max(i, j))
+                   for i, j in zip(*np.nonzero(in_mst.cpu().numpy()))}
+          return mm.cpu().numpy(), edges, int(it)
+        got[app] = step(f"(a) mst {n}", run_mst)
+      else:
+        def run_closure_app():
+          out, it = sv.ALL_APPS[app](x[0], backend="pallas")
+          return out.cpu().numpy(), int(it)
+        got[app] = step(f"(a) {app} {n}", run_closure_app)
+    refs = {app: f.result(timeout=600) for app, f in futs.items()}
+    log(f"[apps] numpy baselines in {time.perf_counter() - t_base:.1f}s "
+        f"({len(apps)} worker processes)")
+  for app in apps:
+    n = app_size(app)
+    if app == "knn":
+      x = app_inputs(graphs, app, n)
+      (d_got, i_got), (d_ref, i_ref) = got[app], refs[app]
+      # near-tie rule: a differing index must be as near in float64
+      q, r = x[1].astype(np.float64), x[0].astype(np.float64)
+      d_at = ((q[:, None, :] - r[i_got.astype(np.int64)]) ** 2).sum(-1)
+      flips = int((i_got != i_ref).sum())
+      ok = (np.allclose(d_got, d_ref, rtol=1e-3, atol=1e-3)
+            and np.allclose(d_at, d_ref, rtol=1e-3, atol=1e-3))
+      err = float(np.abs(d_got - d_ref).max())
+      log(f"[apps] knn vs knn_np: indices differing {flips} (near ties), "
+          f"max |d err| {err!r} {'ok' if ok else 'FAIL'}")
+    elif app == "mst":
+      mm, edges, _ = got[app]
+      ok, err = app_holds(np, app, n, (mm, edges), refs[app])
+      log(f"[apps] mst vs minimax_paths_np/kruskal_mst_np: {len(edges)} "
+          f"edges, max |err| {err!r} {'ok' if ok else 'FAIL'}")
+    else:
+      ok, err = app_holds(np, app, n, got[app][0], refs[app])
+      log(f"[apps] {app} vs its baseline: iterations {got[app][1]}, max "
+          f"|err| {err!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+      raise AssertionError(f"{app} differs from its numpy baseline")
+  # the closure apps on the fused arm: equal to 'pallas', iterations too
+  for app, op in APP_OPS.items():
+    n = app_size(app)
+    x = app_inputs(graphs, app, n)[0]
+    adj = cl.prepare_adjacency(torch.from_numpy(x).cuda(), op=op)[None]
+    out, it = step(f"(a) {app} {n} on the fused arm",
+                   lambda: cl.batched_leyzorek_closure(
+                       adj, op=op, fixpoint_backend="megakernel"))
+    want, want_it = (got[app][0], got[app][2]) if app == "mst" else got[app]
+    out = out[0].cpu().numpy()
+    if not (np.array_equal(out, want, equal_nan=out.dtype.kind == "f")
+            and int(it[0]) == int(want_it)):
+      raise AssertionError(f"{app}: the fused arm differs from 'pallas'")
+  log("[apps] the seven closure apps on the fused arm equal 'pallas' "
+      "(values and iterations)")
+
+  # (b) newton_inverse at 4096 on K1 mma
+  g = torch.Generator().manual_seed(31)
+  gm = torch.randn(NEWTON_N, NEWTON_N, generator=g).cuda()
+  a = gm @ gm.T + NEWTON_N * torch.eye(NEWTON_N, device="cuda")
+  inv, resid = step(f"(b) newton_inverse n={NEWTON_N} iters={NEWTON_ITERS}",
+                    lambda: extras.newton_inverse(a, iters=NEWTON_ITERS,
+                                                  backend="pallas"))
+  if steps[-1]["k1"] != 2 * NEWTON_ITERS + 1:
+    raise AssertionError(f"newton_inverse launched K1 {steps[-1]['k1']} "
+                         f"times, want {2 * NEWTON_ITERS + 1}")
+  inv64 = torch.linalg.inv(a.double())
+  rel = float((inv.double() - inv64).abs().max() / inv64.abs().max())
+  resid = float(resid)
+  log(f"[apps] newton_inverse: ‖AX − I‖∞ {resid!r} (limit "
+      f"{NEWTON_RESID_MAX}), max |X − inv64| / max |inv64| {rel!r} (limit "
+      f"{NEWTON_REL_MAX})")
+  if not (resid <= NEWTON_RESID_MAX and rel <= NEWTON_REL_MAX):
+    raise AssertionError("newton_inverse outside its limits")
+  del gm, a, inv, inv64
+
+  # (c) kmeans on K1 addnorm against the 'xla' arm
+  rng = np.random.default_rng(37)
+  cents = rng.uniform(-2.0, 2.0, (KMEANS_K, KMEANS_D))
+  while True:  # well separated: every pair of centres at least 1 apart
+    d = np.sqrt(((cents[:, None] - cents[None]) ** 2).sum(-1))
+    np.fill_diagonal(d, np.inf)
+    close = np.nonzero(d.min(axis=1) < 1.0)[0]
+    if not len(close):
+      break
+    cents[close[:1]] = rng.uniform(-2.0, 2.0, (1, KMEANS_D))
+  pts = (np.repeat(cents, KMEANS_PER, axis=0) + 0.05 * rng.standard_normal(
+      (KMEANS_K * KMEANS_PER, KMEANS_D))).astype(np.float32)
+  init = np.arange(KMEANS_K) * KMEANS_PER  # one point of each cluster
+  km = step(f"(c) kmeans {KMEANS_K} x {KMEANS_PER} points, D={KMEANS_D}, "
+            f"{KMEANS_ITERS} iterations on K1",
+            lambda: extras.kmeans(pts, k=KMEANS_K, iters=KMEANS_ITERS,
+                                  init_idx=init, backend="pallas"))
+  kx = extras.kmeans(pts, k=KMEANS_K, iters=KMEANS_ITERS, init_idx=init,
+                     backend="xla")
+  d2 = ((pts.astype(np.float64)[:, None] - km[0].cpu().double().numpy()[None])
+        ** 2).sum(-1)
+  d2.sort(axis=1)
+  margin = float((d2[:, 1] - d2[:, 0]).min())
+  labels = np.repeat(np.arange(KMEANS_K), KMEANS_PER)
+  ok = (torch.equal(km[1], kx[1])
+        and np.array_equal(km[1].cpu().numpy(), labels)
+        and torch.allclose(km[0], kx[0], **TOL)
+        and abs(float(km[2]) - float(kx[2])) <= len(pts) * TOL["atol"])
+  log(f"[apps] kmeans: assignments equal the 'xla' arm's and the clusters; "
+      f"centroid max |d| {max_abs_err(km[0], kx[0])!r}, inertia "
+      f"{float(km[2])!r} vs {float(kx[2])!r}; smallest margin between a "
+      f"point's two nearest centroids {margin!r} (f64) "
+      f"{'ok' if ok else 'FAIL'}")
+  if not ok or margin <= 1e-2:
+    raise AssertionError("kmeans: K1 differs from the 'xla' arm")
+
+  # (d) sparse: 2:4 pruning and the compacted contraction, card vs CPU
+  g = torch.Generator().manual_seed(41)
+  a_c = torch.randn(SPARSE_N, SPARSE_N, generator=g)
+  b_c = torch.randn(SPARSE_N, SPARSE_N, generator=g)
+  vals, idx = step(f"(d) prune_24 {SPARSE_N}²",
+                   lambda: sparse.prune_24(a_c.cuda()))
+  vals_c, idx_c = sparse.prune_24(a_c)
+  if not (torch.equal(vals.cpu(), vals_c) and torch.equal(idx.cpu(), idx_c)):
+    raise AssertionError("prune_24 on the card differs from the CPU")
+  b_g = b_c.cuda()
+  for op in ("mma", "minplus", "maxmin"):
+    out = step(f"(d) mmo_sparse24 {op} {SPARSE_N}³ (K/2 = {SPARSE_N // 2} "
+               f"gathered)", lambda: sparse.mmo_sparse24(vals, idx, b_g,
+                                                         op=op))
+    check(f"mmo_sparse24 {op} card vs CPU", out,
+          sparse.mmo_sparse24(vals_c, idx_c, b_c, op=op).cuda(), op)
+    if op == "mma":
+      dense = mmo(sparse.densify_24(vals, idx, SPARSE_N), b_g, op="mma",
+                  backend="pallas")
+      check("mmo_sparse24 mma vs K1 on densify_24", out, dense, "mma")
+    del out
+  # CSR at two densities, against dense K1 on the same matrix (integer
+  # weights: minplus sums are exact in f32 and float64 alike)
+  rng = np.random.default_rng(43)
+  bm = rng.integers(1, 10, (SPARSE_N, SPARSE_N)).astype(np.float32)
+  for density in (0.01, 0.1):
+    for op in ("minplus", "mma"):
+      w = rng.integers(1, 10, (SPARSE_N, SPARSE_N)).astype(np.float32)
+      am = np.where(rng.random(w.shape) < density, w,
+                    np.float32(sparse.csr_absent_value(op)))
+      csr = sparse.to_csr(am, op=op)
+      got_csr = step(f"(d) csr_spmm {op} density {density} "
+                     f"({len(csr[2])} stored)",
+                     lambda: sparse.csr_spmm(*csr, bm, op=op))
+      dense = mmo(torch.from_numpy(am).cuda(), torch.from_numpy(bm).cuda(),
+                  op=op, backend="pallas")
+      check(f"csr_spmm {op} density {density} vs dense K1",
+            torch.from_numpy(got_csr).cuda().float(), dense, op)
+
+  # (e) float16 and int32 through the engine: K1's new instances on
+  # mmo requests, K2's on closure requests
+  rng = np.random.default_rng(47)
+  ints = rng.integers(-1000, 1001, (2, 512, 512)).astype(np.int32)
+  halves = rng.standard_normal((2, 512, 512)).astype(np.float16)
+  cint = rng.integers(1, 100, (256, 256)).astype(np.int32)
+  cint[rng.random(cint.shape) > 0.2] = 1 << 29  # no edge, and no wrap
+  np.fill_diagonal(cint, 0)
+  chalf = graphs.weighted_digraph(256, 0.2, seed=48).astype(np.float16)
+  reqs = [mmo_request(ints[0], ints[1], op="minplus"),
+          mmo_request(halves[0], halves[1], op="minplus")]
+  closures = [closure_request(cint, op="minplus", prepared=True),
+              closure_request(chalf, op="minplus", prepared=True)]
+  eng = MMOEngine(backend="pallas", max_batch=4, device="cuda")
+  res = step("(e) int32 and float16 minplus mmo + closures on 'pallas'",
+             lambda: serve_all(eng, reqs + closures))
+  fused = MMOEngine(backend="megakernel", max_batch=4, device="cuda")
+  fres = step("(e) the int32 and float16 closures on the fused arm",
+              lambda: serve_all(fused, closures))
+  for r, x in zip(res[:2], (ints, halves)):
+    want = sm.semiring_mmo_plain(torch.from_numpy(x[:1]).cuda(),
+                                 torch.from_numpy(x[1:]).cuda(),
+                                 op="minplus")[0].cpu().numpy()
+    if not (r.value.dtype == x.dtype and np.array_equal(r.value, want)):
+      raise AssertionError(f"{x.dtype} mmo request differs from the plain "
+                           f"version")
+  for got_r, want_r in zip(fres, res[2:]):
+    if not same_result(got_r, want_r):
+      raise AssertionError("the fused arm differs from 'pallas' on an "
+                           "int32 or float16 closure")
+  log("[apps] int32 and float16: mmo requests equal the plain version, "
+      "closures equal on both arms (values and iterations)")
+  total = time.perf_counter() - t_phase
+  log(f"[apps] phase 8 in {total:.1f}s")
+  return {"k1": sm.semiring_mmo.launches - k1_0,
+          "k2": mk.fixpoint_chunk.launches - k2_0, "steps": steps,
+          "seconds": total, "newton": {"resid": resid, "rel": rel},
+          "kmeans_margin": margin}
+
+
 def phase_flash_vs_plain(fa, torch) -> float:
   """Phase 3, K3: the LM main path's shape, FA_CASES in f32 and in bf16
   (the tensor-core instance: all five head dims, Sq ≠ Skv, a window,
@@ -1328,10 +1797,12 @@ def tensor_core_sass(fa) -> dict:
 
 def semiring_sass(sm, mk) -> dict:
   """K1's and K2's instances in their SASS: every mma instance must hold
-  HGMMA (wgmma) and every other ring's instance LDGSTS (cp.async).  Returns
-  the counts, keyed by kernel and instance kind."""
-  k1 = sass_counts(sm.library_path(), ("HGMMA", "LDGSTS"))
-  k2 = sass_counts(mk.library_path(), ("HGMMA", "LDGSTS"))
+  HGMMA (wgmma), every other ring's instance LDGSTS (cp.async), and the
+  int32 minplus and maxplus instances VIADDMNMX.  Returns the counts,
+  keyed by kernel and instance kind."""
+  import re
+  k1 = sass_counts(sm.library_path(), ("HGMMA", "LDGSTS", "VIADDMNMX"))
+  k2 = sass_counts(mk.library_path(), ("HGMMA", "LDGSTS", "VIADDMNMX"))
   groups = {
       "K1 mma (HGMMA)": [c["HGMMA"] for fn, c in k1.items()
                          if "semiring_mma_tc_kernel" in fn],
@@ -1343,11 +1814,23 @@ def semiring_sass(sm, mk) -> dict:
       "K2 other rings (LDGSTS)": [c["LDGSTS"] for fn, c in k2.items()
                                   if "fixpoint_kernel" in fn
                                   and "fixpoint_kernelILi0E" not in fn],
+      # int32 minplus (ring 1) and maxplus (2): one fused DPX add-min/max
+      # per term, which hw.ops_seconds' bound assumes
+      "K1 int32 minplus/maxplus (VIADDMNMX)": [
+          c["VIADDMNMX"] for fn, c in k1.items()
+          if re.search(r"semiring_mmo_kernelILi[12]EiiLi", fn)],
+      "K2 int32 minplus/maxplus (VIADDMNMX)": [
+          c["VIADDMNMX"] for fn, c in k2.items()
+          if re.search(r"fixpoint_kernelILi[12]EiLi", fn)],
   }
-  # instances: K1 mma f32 and bf16; 15 (ring, dtype) pairs × two register
-  # tiles; K2 mma f32; 13 (ring, dtype) pairs × two largest register tiles
-  want = {"K1 mma (HGMMA)": 2, "K1 other rings (LDGSTS)": 30,
-          "K2 mma (HGMMA)": 1, "K2 other rings (LDGSTS)": 26}
+  # instances: K1 mma f32 and bf16; 21 (ring, dtype) pairs (the min/max
+  # rings in f32, bf16 and int32, addnorm in f32 and bf16, orand) × two
+  # register tiles; K2 mma f32; 25 pairs (the min/max rings in f32, bf16,
+  # float16 and int32, orand) × two largest register tiles
+  want = {"K1 mma (HGMMA)": 2, "K1 other rings (LDGSTS)": 42,
+          "K2 mma (HGMMA)": 1, "K2 other rings (LDGSTS)": 50,
+          "K1 int32 minplus/maxplus (VIADDMNMX)": 4,
+          "K2 int32 minplus/maxplus (VIADDMNMX)": 4}
   for name, found in groups.items():
     if len(found) != want[name] or not all(found):
       raise AssertionError(f"{name}: {len(found)} instances (want "
@@ -1749,6 +2232,7 @@ def main() -> int:
   del step_k, step_p
   k2_err = phase_fixpoint_vs_plain(mk, cl, torch, adj_big)
   phase_fused_vs_dispatch(cl, torch)
+  phase_dtype_fixpoints(mk, cl, torch)
   k3_err = phase_flash_vs_plain(fa, torch)
   k4_err = phase_ssd_vs_plain(ssd, torch)
 
@@ -1995,6 +2479,31 @@ def main() -> int:
       row["kernels_ms"] = parts
     rows_out.append(row)
     log(f"[time] {json.dumps(row)}")
+  # K1's int32 and float16 minplus at the raw mmo's 4096³: int32 on its
+  # own instance; float16 widened, on the f32 instance, rounded once (the
+  # two elementwise passes are in the time, and apart in kernels_ms)
+  k1_dtype_rows = []
+  for dtype, a, b in (
+      ("int32", (a_t * 100).round().to(torch.int32)[None],
+       (b_t * 100).round().to(torch.int32)[None]),
+      ("float16", a_t.half()[None], b_t.half()[None])):
+    fn = (lambda: sm.semiring_mmo(a, b, op="minplus"))
+    ms = cuda_time_ms(fn, 10)
+    plain_ms = cuda_time_ms(
+        lambda: sm.semiring_mmo_plain(a, b, op="minplus"), 1)
+    err = check(f"raw mmo 4096³ minplus {dtype}", fn(),
+                sm.semiring_mmo_plain(a, b, op="minplus"), "minplus")
+    b_ms, b_by = bound_ms("minplus", dtype, 1, 4096, 4096, 4096, 4096,
+                          False)
+    row = {"case": f"raw mmo 4096³ {dtype}", "op": "minplus",
+           "dtype": dtype, "shape": [1, 4096, 4096, 4096],
+           "tile": list(sm.tile_shape("minplus", a.dtype, 1, 4096, 4096)),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "library_ms": None, "max_abs_err": err,
+           "kernels_ms": kernel_ms(torch, fn, 3)}
+    k1_dtype_rows.append(row)
+    log(f"[time] {json.dumps(row)}")
   # K2 per chunk at the main path's shapes: the first chunk of each
   # closure bucket (g = 8, the fused arm's default), from the adjacency
   k2_rows = []
@@ -2028,6 +2537,38 @@ def main() -> int:
            "library_ms": None, "max_abs_err": err}
     k2_rows.append(row)
     log(f"[time] K2 {json.dumps(row)}")
+  # K2's int32 and float16 instances on the APSP-4096 chunk: float16 is the
+  # adjacency rounded; int32 weights ×100, no edge 2²⁹ (no sum wraps)
+  w_i = torch.from_numpy(np.where(np.isfinite(w_big), np.round(w_big * 100),
+                                  2 ** 29).astype(np.int32)).cuda()
+  w_i.fill_diagonal_(0)
+  k2_dtype_rows = []
+  for dtype, x in (("int32", w_i[None].contiguous()),
+                   ("float16", adj_big.half())):
+    r, n = 1, x.shape[-1]
+    kv = torch.full((r,), n, dtype=torch.int32, device="cuda")
+    act = torch.ones(r, dtype=torch.int32, device="cuda")
+    it0 = torch.zeros(r, dtype=torch.int32, device="cuda")
+    glim = torch.full((r,), 8, dtype=torch.int32, device="cuda")
+    args = (x, None, kv, act, it0, glim)
+    got = mk.fixpoint_chunk(*args, op="minplus", g_steps=8)
+    ms = cuda_time_ms(lambda: mk.fixpoint_chunk(*args, op="minplus",
+                                                g_steps=8), 2)
+    plain_ms = cuda_time_ms(
+        lambda: mk.fixpoint_chunk_plain(*args, op="minplus", g_steps=8), 1)
+    want = mk.fixpoint_chunk_plain(*args, op="minplus", g_steps=8)
+    err = check_chunk(f"K2 APSP 4096 chunk {dtype}", got, want, "minplus")
+    live_kv = int((got[1].to(torch.int64) * n).sum())
+    b_ms, b_by = fixpoint_bound_ms("minplus", dtype, r, n, live_kv, False)
+    row = {"case": f"APSP 4096 chunk {dtype}", "op": "minplus",
+           "dtype": dtype, "shape": [r, n], "g": 8,
+           "tile_all_live": list(mk.tile_shape("minplus", x.dtype, r, n)),
+           "steps": got[1].tolist(), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "library_ms": None, "max_abs_err": err}
+    k2_dtype_rows.append(row)
+    log(f"[time] K2 {json.dumps(row)}")
+  del w_i
   # the same fixpoints on both arms, host clock to the result: dispatch
   # (K1 + one sync per iteration) vs fused (K2 + one sync per chunk), in
   # turns, for APSP 4096 and the ragged 8x256 bucket
@@ -2060,25 +2601,32 @@ def main() -> int:
   torch.cuda.empty_cache()
   k4 = phase_ssd_timing(ssd, torch, k4_err, ssm_run["launches"])
 
+  # -- phase 8: the rest of the applications ----------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  apps = phase_apps(sm, mk, torch, np)
+
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
       "name": "semiring_mmo", "design": K1_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
-      "launches": launches + qos["k1"] + ops["k1"],
+      "launches": launches + qos["k1"] + ops["k1"] + apps["k1"],
       "max_abs_err": big_err,
       "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-      "bound_by": head["bound_by"], "library_ms": head["library_ms"]}, {
+      "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+      "instances": [dtype_instance(row) for row in k1_dtype_rows]}, {
       "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",
-      "launches": k2_batch + k2_arena + qos["k2"] + ops["k2"],
+      "launches": k2_batch + k2_arena + qos["k2"] + ops["k2"] + apps["k2"],
       "max_abs_err": k2_err,
       "ms": k2["ms"], "plain_ms": k2["plain_ms"],
       "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-      "library_ms": None}, {
+      "library_ms": None,
+      "instances": [dtype_instance(row) for row in k2_dtype_rows]}, {
       "name": "flash_attention_wgmma", "design": K3_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
       "replaces": "src/repro/kernels/flash_attention.py:107",

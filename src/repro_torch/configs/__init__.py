@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/configs/__init__.py``.  Each ``<arch>.py`` exports
 ``CONFIG`` (the published configuration, full scale) and ``smoke_config()``
-(a reduced same-family config for CPU tests).  The other families of the
-reference's registry (MoE, hybrid, enc-dec, VLM) are later slices of
-ROADMAP item 13.
+(a reduced same-family config for CPU tests); ``simd2_apps`` holds the
+paper's own workloads (Table 4).  The other families of the reference's
+registry (MoE, hybrid, enc-dec, VLM) are later slices of ROADMAP item 13.
 """
 from __future__ import annotations
 

@@ -162,6 +162,15 @@ def _fused_arm(adj: Tensor, fixpoint_backend: str, backend: str) -> bool:
   return False
 
 
+def _iterate(adj: Tensor, op: str) -> Tensor:
+  """The dispatch arm's first iterate: mma iterates in f32 whatever its
+  input (as the fused arm, ``chunk_geometry``, and the kernel's output do),
+  the other rings in the input's dtype."""
+  if sr_mod.get(op).name == "mma" and adj.dtype != torch.float32:
+    return adj.to(torch.float32)
+  return adj
+
+
 def _megakernel_fixpoint(adj, *, op, algorithm, max_iters, valid_n,
                          megakernel_g):
   """The fused arm's dispatch target (imported here, on use, so that
@@ -198,7 +207,8 @@ def batched_leyzorek_closure(adj: Tensor,
                                 max_iters=iters, valid_n=valid_n,
                                 megakernel_g=megakernel_g)
   f = mmo_fn or _default_mmo
-  return _batched_fixpoint(adj, lambda c, kv: f(c, c, c, op, backend, kv),
+  return _batched_fixpoint(_iterate(adj, op),
+                           lambda c, kv: f(c, c, c, op, backend, kv),
                            iters, valid_n=valid_n)
 
 
@@ -219,6 +229,7 @@ def batched_bellman_ford_closure(adj: Tensor,
                                 max_iters=iters, valid_n=valid_n,
                                 megakernel_g=megakernel_g)
   f = mmo_fn or _default_mmo
+  adj = _iterate(adj, op)
   return _batched_fixpoint(adj, lambda d, kv: f(d, adj, d, op, backend, kv),
                            iters, valid_n=valid_n)
 

@@ -111,7 +111,8 @@ def _contract_vector_dynk(a: Tensor, b: Tensor, sr: sr_mod.Semiring,
   bk = _dyn_block_k(k, block_k)
   kp = ((k + bk - 1) // bk) * bk
   if kp != k:  # pad the K tail so every dynamic block is full-width
-    pa, pb = (False, False) if sr.boolean else sr_mod.contraction_pads(sr)
+    pa, pb = ((False, False) if sr.boolean else
+              sr_mod.contraction_pads(sr, a.dtype))
     a = torch.cat([a, a.new_full(tuple(batch) + (m, kp - k), pa)], dim=-1)
     b = torch.cat([b, b.new_full(tuple(b.shape[:-2]) + (kp - k, b.shape[-1]),
                                  pb)], dim=-2)
@@ -142,12 +143,15 @@ def _contract_addnorm(a: Tensor, b: Tensor, sr: sr_mod.Semiring) -> Tensor:
   terms near the points' spread instead of their magnitude, so they no
   longer cancel catastrophically at large coordinates.  B's first column is
   a real point in every padded serving layout (pads are appended), unlike
-  a mean over its columns, which padded zero columns would drag away.
+  a mean over its columns, which padded zero columns would drag away.  Its
+  non-finite coordinates translate by 0 instead, so an inf or NaN there
+  stays in its own column of the result.
   """
   del sr
   a, b = a.to(torch.float32), b.to(torch.float32)
   if b.shape[-1] > 0:
     origin = b[..., :, :1]  # (..., K, 1): one point of B, per feature
+    origin = torch.where(torch.isfinite(origin), origin, 0.0)
     a, b = a - origin.transpose(-1, -2), b - origin
   ab = torch.matmul(a, b)
   a2 = torch.sum(a * a, dim=-1, keepdim=True)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -55,7 +56,8 @@ class Semiring:
   def identity_like(self, shape, dtype, device=None) -> Tensor:
     if self.boolean:
       return torch.zeros(shape, dtype=torch.bool, device=device)
-    return torch.full(shape, self.oplus_identity, dtype=dtype, device=device)
+    return torch.full(shape, saturate(self.oplus_identity, dtype),
+                      dtype=dtype, device=device)
 
   def acc_dtype(self, in_dtype: torch.dtype) -> torch.dtype:
     if self.boolean:
@@ -139,8 +141,8 @@ def oplus_reduce(sr, x: Tensor, dim: int) -> Tensor:
   sr = get(sr)
   if sr.boolean:
     return torch.any(x, dim=dim)
-  if sr.oplus is torch.add:
-    return torch.sum(x, dim=dim)
+  if sr.oplus is torch.add:  # in x's dtype: torch widens integer sums
+    return torch.sum(x, dim=dim, dtype=x.dtype)
   if sr.oplus is torch.minimum:
     return torch.amin(x, dim=dim)
   if sr.oplus is torch.maximum:
@@ -166,6 +168,44 @@ _CONTRACTION_PADS = {
 }
 
 
-def contraction_pads(sr) -> tuple:
-  """(pad_a, pad_b) for K-axis padding with ⊗(pad_a, pad_b) == ⊕-identity."""
-  return _CONTRACTION_PADS[get(sr).name]
+def _integer_info(dtype):
+  """iinfo of an integer torch or numpy dtype; None for the others."""
+  if dtype is None:
+    return None
+  if isinstance(dtype, torch.dtype):
+    return (None if dtype.is_floating_point or dtype == torch.bool
+            else torch.iinfo(dtype))
+  dtype = np.dtype(dtype)
+  return np.iinfo(dtype) if np.issubdtype(dtype, np.integer) else None
+
+
+def saturate(v: float, dtype=None):
+  """``v`` as a value of ``dtype`` (torch or numpy).  An integer dtype has
+  no inf: ±inf saturate to its range, as the reference's casts do, so its
+  largest value stands for +inf (the min rings' ⊕-identity) and its
+  smallest for −inf."""
+  info = _integer_info(dtype)
+  if info is None:
+    return v
+  return int(min(max(v, info.min), info.max))
+
+
+def oplus_identity(sr, dtype=None):
+  """The ⊕-identity as a value of ``dtype`` (``saturate``)."""
+  return saturate(get(sr).oplus_identity, dtype)
+
+
+def contraction_pads(sr, dtype=None) -> tuple:
+  """(pad_a, pad_b) for K-axis padding with ⊗(pad_a, pad_b) == ⊕-identity.
+
+  For an integer ``dtype`` the min/max rings pad with (⊕-identity,
+  ⊗-identity): INT32_MAX + 0 stays INT32_MAX, where INT32_MAX + INT32_MAX
+  would wrap (csrc/semiring_ring.cuh, ``SIMD2_IRING``)."""
+  sr = get(sr)
+  pads = _CONTRACTION_PADS[sr.name]
+  if _integer_info(dtype) is None or pads == (0.0, 0.0):
+    return pads
+  top = oplus_identity(sr, dtype)
+  if sr.otimes in (torch.add, torch.mul):
+    return top, int(sr.otimes_identity)
+  return top, top

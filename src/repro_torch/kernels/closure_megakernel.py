@@ -20,6 +20,12 @@ CUDA tensors it launches the kernel or raises.
 ``megakernel_fixpoint`` and the request arena (``serve_mmo/arena.py``), so a
 request lands in the same layout on both paths.  The kernel masks its own
 ragged tiles, so unlike the TPU layout no row-slab alignment pads n̄.
+
+The iterate keeps the reference's dtype: f32 for mma, bool for orand, and
+the input's own (f32, bf16, float16 or int32) for the min/max rings.  A
+float16 iterate is computed in f32 and rounded to float16 at each step's
+store, as the reference stores it between steps; int32 ⊗ wraps in two's
+complement.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ Tensor = torch.Tensor
 
 DEFAULT_G = 8  # chunk length: fixpoint iterations fused per kernel launch
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2,
+                torch.int32: 3, torch.float16: 4}
 
 LIBRARY = nvcc.KernelLibrary(
     "closure_megakernel", "simd2_closure_fixpoint",
@@ -115,7 +122,8 @@ def _check(c: Tensor, adj: Optional[Tensor], vecs, sr: sr_mod.Semiring,
   if sr.otimes_identity is None:
     raise ValueError(f"op {sr.name!r} has no ⊗-identity: no closure")
   allowed = ((torch.bool,) if sr.boolean else (torch.float32,)
-             if sr.name == "mma" else (torch.float32, torch.bfloat16))
+             if sr.name == "mma" else (torch.float32, torch.bfloat16,
+                                       torch.float16, torch.int32))
   if c.dtype not in allowed:
     raise TypeError(f"{sr.name} iterates in {allowed}, got {c.dtype}")
   if adj is not None and (adj.shape != c.shape or adj.dtype != c.dtype
@@ -225,11 +233,12 @@ def _pad_closure(x: Tensor, np_: int, missing, self_value) -> Tensor:
   r, n = x.shape[0], x.shape[-1]
   if np_ == n:
     return x
-  out = torch.full((r, np_, np_), missing, dtype=x.dtype, device=x.device)
+  out = torch.full((r, np_, np_), sr_mod.saturate(missing, x.dtype),
+                   dtype=x.dtype, device=x.device)
   out[:, :n, :n] = x
   diag = torch.arange(n, np_, device=x.device)
-  out[:, diag, diag] = torch.tensor(self_value, dtype=x.dtype,
-                                    device=x.device)
+  out[:, diag, diag] = torch.tensor(sr_mod.saturate(self_value, x.dtype),
+                                    dtype=x.dtype, device=x.device)
   return out
 
 

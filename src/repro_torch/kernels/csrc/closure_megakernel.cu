@@ -39,6 +39,15 @@
 // Keeping the iterate in shared memory or in a thread-block cluster is
 // later speed work.
 //
+// Types.  The min/max rings iterate in f32, bf16, float16 or int32, each
+// stored in its own type between steps, as the reference stores the
+// iterate in c.dtype: a float16 iterate is computed in f32 and rounded to
+// float16 at each step's store, which is bit-identical to the reference's
+// float16 arithmetic (f32's 24 bits are at least 2·11 + 2, and rounding is
+// monotone under min and max) and to K1 on the widened operands, step by
+// step.  int32 ⊗ wraps in two's complement.  mma's iterate is f32, orand's
+// {0,1} bytes.
+//
 // Interface: a plain C function, loaded with ctypes.  It launches on the
 // given stream, allocates nothing (the caller passes out, scratch and an
 // int32 workspace of 2·R + 2 and, for mma, the tensor-core workspace of
@@ -91,6 +100,7 @@ __device__ void advance(int* act, int* it, const int* glim, int* changed,
 __device__ __forceinline__ bool moved(float nv, float old) {
   return !(nv == old || (nv != nv && old != old));
 }
+__device__ __forceinline__ bool moved(int nv, int old) { return nv != old; }
 
 // One step's tiles of the CUDA-core rings at register tile TM: every
 // (live request, (16·TM)² tile) pair this CTA's stride reaches.
@@ -98,7 +108,8 @@ template <int OP, typename T, int TM>
 __device__ void cc_step(const T* cur, const T* adj, T* nxt, const int* kv,
                         const int* act, const int* glim, int* changed, int R,
                         int n, int s, T* smem) {
-  using Rg = Ring<OP>;
+  using V = val_t<T>;
+  using Rg = Ring<OP, V>;
   using Tl = CcTile<TM>;
   const int tiles_n = (n + Tl::BM - 1) / Tl::BM;
   const long long tiles = (long long)tiles_n * tiles_n;
@@ -117,13 +128,13 @@ __device__ void cc_step(const T* cur, const T* adj, T* nxt, const int* kv,
     const T* c_r = cur + (size_t)r * nn;
     const T* b_r = (adj != nullptr ? adj : cur) + (size_t)r * nn;
     T* d_r = nxt + (size_t)r * nn;
-    float acc[TM][TM];
+    V acc[TM][TM];
     contract_cc<OP, T, TM>(c_r, b_r, n, n, n, k, row0, col0,
                            cc_vec(c_r, b_r, n, n), smem, acc);
     // f32 rows of whole 16-byte chunks: each thread's 4 consecutive
     // columns come in and go out as one 16-byte access
-    const bool vec = sizeof(T) == 4 && n % 4 == 0 && aligned16(c_r) &&
-                     aligned16(d_r);
+    constexpr bool F32 = std::is_same_v<T, float>;
+    const bool vec = F32 && n % 4 == 0 && aligned16(c_r) && aligned16(d_r);
     int diff = 0;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -133,7 +144,7 @@ __device__ void cc_step(const T* cur, const T* adj, T* nxt, const int* kv,
       for (int j4 = 0; j4 < TM; j4 += 4) {
         const int gn = col0 + Tl::off(j4, tx);
         const size_t at = (size_t)gm * n + gn;
-        if constexpr (sizeof(T) == 4) {
+        if constexpr (F32) {
           if (vec && gn + 3 < n) {
             const float4 o = __ldcg(reinterpret_cast<const float4*>(c_r + at));
             const float4 v = make_float4(
@@ -148,7 +159,7 @@ __device__ void cc_step(const T* cur, const T* adj, T* nxt, const int* kv,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           if (gn + q >= n) continue;
-          const float old = ld_f(c_r + at + q);
+          const V old = ld_v(c_r + at + q);
           diff |= moved(store(&d_r[at + q], Rg::oplus(acc[i][j4 + q], old)),
                         old);
         }
@@ -366,15 +377,18 @@ int launch(const void* src, const void* adj, void* out, void* scratch,
 }
 
 // Calls f.template operator()<OP, T>() for the instance that takes
-// (op, dtype): f32 for every ring with a ⊗-identity; bf16 for the min/max
-// rings (mma's iterate is f32 whatever its input); {0,1} bytes for orand.
-// -1 for a pair no instance takes (addnorm has no ⊗-identity: no closure).
+// (op, dtype): f32 for every ring with a ⊗-identity; bf16, float16 and
+// int32 for the min/max rings (mma's iterate is f32 whatever its input);
+// {0,1} bytes for orand.  -1 for a pair no instance takes (addnorm has no
+// ⊗-identity: no closure).
 template <typename F>
 int dispatch(int op, int dtype, F&& f) {
-#define SIMD2_MINMAX_RING(OPC)                                   \
-  case OPC:                                                      \
-    if (dtype == F32) return f.template run<OPC, float>();      \
+#define SIMD2_MINMAX_RING(OPC)                                       \
+  case OPC:                                                          \
+    if (dtype == F32) return f.template run<OPC, float>();          \
     if (dtype == BF16) return f.template run<OPC, __nv_bfloat16>(); \
+    if (dtype == F16) return f.template run<OPC, __half>();         \
+    if (dtype == I32) return f.template run<OPC, int>();            \
     return -1;
   switch (op) {
     case MMA:

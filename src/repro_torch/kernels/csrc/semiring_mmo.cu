@@ -37,7 +37,11 @@
 // Numerics.  Values are widened to f32; ⊗ and ⊕ run in f32 and the result
 // is rounded once at the store.  For the min/max rings with bf16 in and
 // bf16 out that is bit-identical to rounding each ⊗ then taking the
-// min/max in bf16, because rounding is monotone.  min/max propagate NaN
+// min/max in bf16, because rounding is monotone.  float16 comes to this
+// kernel widened to f32 by the wrapper, which rounds the result once: for
+// + and × that equals f16 arithmetic, as f32's 24 bits are at least
+// 2·11 + 2.  int32 runs the min/max rings in int32 instances, ⊗ wrapping
+// in two's complement; mma and addnorm take it widened to f32.  min/max propagate NaN
 // (min.NaN / max.NaN), as jnp.minimum / torch.minimum do, so a NaN edge
 // weight stays visible to the closure's convergence compare.  mma in f32
 // holds to about f32 accuracy (3×TF32; non-finite inputs give the f32
@@ -71,7 +75,8 @@ __global__ void __launch_bounds__(THREADS)
                         const TOut* __restrict__ C,
                         const int* __restrict__ KV, TOut* __restrict__ D,
                         int M, int K, int N) {
-  using R = Ring<OP>;
+  using V = val_t<TIn>;
+  using R = Ring<OP, V>;
   using Tl = CcTile<TM>;
   __shared__ __align__(16) TIn smem[2 * Tl::STAGE];
 
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.y * Tl::BM;
   const int col0 = blockIdx.x * Tl::BM;
 
-  float acc[TM][TM];
+  V acc[TM][TM];
   contract_cc<OP, TIn, TM>(A, B, M, K, N, kv, row0, col0,
                            cc_vec(A, B, K, N), smem, acc);
 
@@ -96,7 +101,8 @@ __global__ void __launch_bounds__(THREADS)
   const int ty = threadIdx.x / 16;
   // f32 rows of whole 16-byte chunks: each thread's 4 consecutive columns
   // go out (and C comes in) as one 16-byte access
-  const bool vec = sizeof(TOut) == 4 && N % 4 == 0 && aligned16(D) &&
+  constexpr bool F32_OUT = std::is_same_v<TOut, float>;
+  const bool vec = F32_OUT && N % 4 == 0 && aligned16(D) &&
                    (C == nullptr || aligned16(C));
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -106,7 +112,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j4 = 0; j4 < TM; j4 += 4) {
       const int gn = col0 + Tl::off(j4, tx);
       const size_t at = (size_t)gm * N + gn;
-      if constexpr (sizeof(TOut) == 4) {
+      if constexpr (F32_OUT) {
         if (vec && gn + 3 < N) {
           float4 v = make_float4(acc[i][j4], acc[i][j4 + 1], acc[i][j4 + 2],
                                  acc[i][j4 + 3]);
@@ -122,8 +128,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (gn + q >= N) continue;
-        float v = acc[i][j4 + q];
-        if (C != nullptr) v = R::oplus(v, to_f(C[at + q]));
+        V v = acc[i][j4 + q];
+        if (C != nullptr) v = R::oplus(v, to_v(C[at + q]));
         store(&D[at + q], v);
       }
     }
@@ -200,31 +206,40 @@ struct Tag {
 // Calls f(OpC<op>, Tag<TIn>, Tag<TOut>) for the instance that takes
 // (op, dtype): f32 in → f32 out; bf16 in → bf16 out for the min/max rings
 // (they keep the input dtype) and f32 out for mma and addnorm (they widen);
-// {0,1} bytes for orand.  -1 for a pair no instance takes.
+// int32 in → int32 out for the min/max rings; {0,1} bytes for orand.  -1
+// for a pair no instance takes (float16, and int32 for mma and addnorm,
+// arrive widened to f32).
 template <typename F>
 int dispatch(int op, int dtype, F&& f) {
   using bf16 = __nv_bfloat16;
-#define SIMD2_FLOAT_RING(OPC, BF16_OUT)                                     \
+#define SIMD2_WIDE_RING(OPC)                                                \
   case OPC:                                                                 \
     if (dtype == F32) return f(OpC<OPC>{}, Tag<float>{}, Tag<float>{});     \
-    if (dtype == BF16) return f(OpC<OPC>{}, Tag<bf16>{}, Tag<BF16_OUT>{});  \
+    if (dtype == BF16) return f(OpC<OPC>{}, Tag<bf16>{}, Tag<float>{});     \
+    return -1;
+#define SIMD2_MINMAX_RING(OPC)                                              \
+  case OPC:                                                                 \
+    if (dtype == F32) return f(OpC<OPC>{}, Tag<float>{}, Tag<float>{});     \
+    if (dtype == BF16) return f(OpC<OPC>{}, Tag<bf16>{}, Tag<bf16>{});      \
+    if (dtype == I32) return f(OpC<OPC>{}, Tag<int>{}, Tag<int>{});         \
     return -1;
   switch (op) {
-    SIMD2_FLOAT_RING(MMA, float)
-    SIMD2_FLOAT_RING(MINPLUS, bf16)
-    SIMD2_FLOAT_RING(MAXPLUS, bf16)
-    SIMD2_FLOAT_RING(MINMUL, bf16)
-    SIMD2_FLOAT_RING(MAXMUL, bf16)
-    SIMD2_FLOAT_RING(MINMAX, bf16)
-    SIMD2_FLOAT_RING(MAXMIN, bf16)
-    SIMD2_FLOAT_RING(ADDNORM, float)
+    SIMD2_WIDE_RING(MMA)
+    SIMD2_MINMAX_RING(MINPLUS)
+    SIMD2_MINMAX_RING(MAXPLUS)
+    SIMD2_MINMAX_RING(MINMUL)
+    SIMD2_MINMAX_RING(MAXMUL)
+    SIMD2_MINMAX_RING(MINMAX)
+    SIMD2_MINMAX_RING(MAXMIN)
+    SIMD2_WIDE_RING(ADDNORM)
     case ORAND:
       if (dtype == U8) return f(OpC<ORAND>{}, Tag<uint8_t>{}, Tag<uint8_t>{});
       return -1;
     default:
       return -1;
   }
-#undef SIMD2_FLOAT_RING
+#undef SIMD2_WIDE_RING
+#undef SIMD2_MINMAX_RING
 }
 
 // The register tile of a CUDA-core launch: 8 (128×128) where R·⌈M/128⌉·

@@ -12,16 +12,21 @@
 //   256 threads own a (16·TM)² output tile, a TM×TM register tile each
 //   (TM = 8: 128×128; TM = 4: 64×64).  K runs in slabs of BK = 16, double
 //   buffered: slab s+1 is copied with 16-byte cp.async while slab s
-//   computes.  Operands are staged raw (f32, bf16 or {0,1} bytes) as they
-//   lie in device memory — A's slab M×BK, B's BK×N — and each value is
-//   widened once, when a fragment is read into registers (4 k values of A
-//   per row, 4 columns of B per read).  Each element is the fold
+//   computes.  Operands are staged raw (f32, bf16, f16, int32 or {0,1}
+//   bytes) as they lie in device memory — A's slab M×BK, B's BK×N — and
+//   each value is widened once, when a fragment is read into registers (4 k
+//   values of A per row, 4 columns of B per read): floats to f32, int32
+//   stays int32 (val_t).  Each element is the fold
 //   acc ← step(acc, a_k, b_k) over k = 0 … ceil(kv/16)·16 − 1 in increasing
 //   order from the ⊕-identity, one step per term, so its bits do not depend
 //   on TM.  Lanes at or past kv (and rows or columns past the edge) hold
 //   the ring's contraction pads, whose ⊗ is the ⊕-identity: the ±inf pads
 //   are not zeros, so such edge slabs are filled by the threads and only
 //   interior slabs of 16-byte aligned operands go through cp.async.
+//   int32 has no inf: its pads are the ⊕-identity (INT32_MAX for the min
+//   rings, INT32_MIN for the max rings) against the ⊗-identity (0 for +, 1
+//   for ×), whose ⊗ is the ⊕-identity without wrapping.  int32 ⊗ wraps in
+//   two's complement, as torch's and jnp's int32 do.
 //
 // contract_tc — mma on the tensor cores, 3×TF32.
 //   Each f32 operand value x is split into big = tf32_rna(x) and small =
@@ -55,10 +60,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -99,7 +106,7 @@ enum Op {
   MMA = 0, MINPLUS = 1, MAXPLUS = 2, MINMUL = 3, MAXMUL = 4,
   MINMAX = 5, MAXMIN = 6, ORAND = 7, ADDNORM = 8
 };
-enum DType { F32 = 0, BF16 = 1, U8 = 2 };
+enum DType { F32 = 0, BF16 = 1, U8 = 2, I32 = 3, F16 = 4 };
 
 __device__ __forceinline__ float fmin_nan(float a, float b) {
   float r;
@@ -120,7 +127,9 @@ __device__ __forceinline__ bool finite(float x) {
   return (__float_as_uint(x) & 0x7f800000u) != 0x7f800000u;
 }
 
-template <int OP>
+// Ring<OP, V>: the ring's arithmetic on values of type V, f32 (the default)
+// or int32.
+template <int OP, typename V = float>
 struct Ring;
 
 // identity: ⊕-identity.  pad_a/pad_b: K-lane pads with ⊗(pad_a, pad_b) equal
@@ -128,7 +137,7 @@ struct Ring;
 // step(acc, a, b) = acc ⊕ (a ⊗ b).
 #define SIMD2_RING(OPC, ID, PA, PB, OPLUS, STEP)                            \
   template <>                                                               \
-  struct Ring<OPC> {                                                        \
+  struct Ring<OPC, float> {                                                 \
     static __device__ __forceinline__ float identity() { return ID; }       \
     static __device__ __forceinline__ float pad_a() { return PA; }          \
     static __device__ __forceinline__ float pad_b() { return PB; }          \
@@ -159,6 +168,57 @@ SIMD2_RING(ADDNORM, 0.f, 0.f, 0.f, x + y, fmaf(a - b, a - b, acc))
 
 #undef SIMD2_RING
 
+// int32 ⊗ wraps in two's complement (unsigned arithmetic: signed overflow is
+// undefined in C++).
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+constexpr int I32_MAX = 0x7fffffff;
+constexpr int I32_MIN = -0x7fffffff - 1;
+
+// The min/max rings on int32.  pad_a is the ⊕-identity and pad_b the
+// ⊗-identity, so ⊗(pad_a, pad_b) is the ⊕-identity and cannot wrap.
+#define SIMD2_IRING(OPC, ID, PB, OPLUS, STEP)                               \
+  template <>                                                               \
+  struct Ring<OPC, int> {                                                   \
+    static __device__ __forceinline__ int identity() { return ID; }         \
+    static __device__ __forceinline__ int pad_a() { return ID; }            \
+    static __device__ __forceinline__ int pad_b() { return PB; }            \
+    static __device__ __forceinline__ int oplus(int x, int y) {             \
+      return OPLUS;                                                         \
+    }                                                                       \
+    static __device__ __forceinline__ int step(int acc, int a, int b) {     \
+      return STEP;                                                          \
+    }                                                                       \
+  };
+
+SIMD2_IRING(MINPLUS, I32_MAX, 0, imin(x, y), imin(acc, wrap_add(a, b)))
+SIMD2_IRING(MAXPLUS, I32_MIN, 0, imax(x, y), imax(acc, wrap_add(a, b)))
+SIMD2_IRING(MINMUL, I32_MAX, 1, imin(x, y), imin(acc, wrap_mul(a, b)))
+SIMD2_IRING(MAXMUL, I32_MIN, 1, imax(x, y), imax(acc, wrap_mul(a, b)))
+SIMD2_IRING(MINMAX, I32_MAX, I32_MAX, imin(x, y), imin(acc, imax(a, b)))
+SIMD2_IRING(MAXMIN, I32_MIN, I32_MIN, imax(x, y), imax(acc, imin(a, b)))
+
+#undef SIMD2_IRING
+
+// The type a stored value is computed in: f32 for the float types and the
+// {0,1} bytes, int32 for int32.
+template <typename T>
+struct Val {
+  using type = float;
+};
+template <>
+struct Val<int> {
+  using type = int;
+};
+template <typename T>
+using val_t = typename Val<T>::type;
+
 // -- loads and stores -------------------------------------------------------
 
 // Device-memory reads go through L2 only (ld.global.cg): K2 reads in one step
@@ -167,6 +227,7 @@ __device__ __forceinline__ float ld_raw(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 ld_raw(const __nv_bfloat16* p) {
   return __ldcg(p);
 }
+__device__ __forceinline__ __half ld_raw(const __half* p) { return __ldcg(p); }
 __device__ __forceinline__ uint8_t ld_raw(const uint8_t* p) {
   return __ldcg(p);
 }
@@ -176,6 +237,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(uint8_t x) { return x ? 1.f : 0.f; }
 
 template <typename T>
@@ -183,7 +245,20 @@ __device__ __forceinline__ float ld_f(const T* p) {
   return to_f(ld_raw(p));
 }
 
-// A ring's pad in the stored type (bf16 holds ±inf; orand's pads are 0).
+// A stored value in its compute type (val_t): int32 as it is, the rest
+// widened to f32.
+__device__ __forceinline__ int to_v(int x) { return x; }
+template <typename T>
+__device__ __forceinline__ float to_v(T x) {
+  return to_f(x);
+}
+template <typename T>
+__device__ __forceinline__ val_t<T> ld_v(const T* p) {
+  return to_v(ld_raw(p));
+}
+
+// A ring's pad in the stored type (bf16 and f16 hold ±inf; orand's pads
+// are 0).
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -193,8 +268,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
 __device__ __forceinline__ uint8_t from_f<uint8_t>(float v) {
   return v > 0.5f ? 1 : 0;
+}
+template <typename T>
+__device__ __forceinline__ T from_v(val_t<T> v) {
+  if constexpr (std::is_same_v<T, int>) {
+    return v;
+  } else {
+    return from_f<T>(v);
+  }
 }
 
 // Rounds v once to the stored type and returns the stored value, widened.
@@ -207,10 +294,19 @@ __device__ __forceinline__ float store(__nv_bfloat16* p, float v) {
   *p = s;
   return __bfloat162float(s);
 }
+__device__ __forceinline__ float store(__half* p, float v) {
+  const __half s = __float2half_rn(v);
+  *p = s;
+  return __half2float(s);
+}
 __device__ __forceinline__ float store(uint8_t* p, float v) {
   const uint8_t s = v > 0.5f ? 1 : 0;
   *p = s;
   return s ? 1.f : 0.f;
+}
+__device__ __forceinline__ int store(int* p, int v) {
+  *p = v;
+  return v;
 }
 
 // Four consecutive stored values in shared memory, widened (16, 8 or 4
@@ -227,10 +323,20 @@ __device__ __forceinline__ void ld4(const __nv_bfloat16* s, float (&v)[4]) {
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
   v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
+__device__ __forceinline__ void ld4(const __half* s, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(s);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&t.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&t.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
 __device__ __forceinline__ void ld4(const uint8_t* s, float (&v)[4]) {
   const uint32_t t = *reinterpret_cast<const uint32_t*>(s);
 #pragma unroll
   for (int q = 0; q < 4; ++q) v[q] = ((t >> (8 * q)) & 0xffu) ? 1.f : 0.f;
+}
+__device__ __forceinline__ void ld4(const int* s, int (&v)[4]) {
+  const int4 t = *reinterpret_cast<const int4*>(s);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -290,7 +396,7 @@ template <int OP, typename T, int TM>
 __device__ __forceinline__ void cc_fill(const T* A, const T* B, int M, int K,
                                         int N, int kv, int row0, int col0,
                                         int k0, bool vec, T* st) {
-  using R = Ring<OP>;
+  using R = Ring<OP, val_t<T>>;
   using Tl = CcTile<TM>;
   constexpr int BM = Tl::BM, BK = Tl::BK;
   constexpr int PER = 16 / static_cast<int>(sizeof(T));  // values per chunk
@@ -312,7 +418,7 @@ __device__ __forceinline__ void cc_fill(const T* A, const T* B, int M, int K,
                  B + static_cast<size_t>(k0 + kk) * N + col0 + part * PER);
     }
   } else {
-    const T pa = from_f<T>(R::pad_a()), pb = from_f<T>(R::pad_b());
+    const T pa = from_v<T>(R::pad_a()), pb = from_v<T>(R::pad_b());
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int row = e / BK, kk = e % BK;
       const int gm = row0 + row, gk = k0 + kk;
@@ -331,7 +437,8 @@ __device__ __forceinline__ void cc_fill(const T* A, const T* B, int M, int K,
 }
 
 // acc[i][j] = ⊕_{k < kv} A[row0 + off(i, ty), k] ⊗ B[k, col0 + off(j, tx)]
-// for row-major A (M×K) and B (K×N), tx = tid % 16, ty = tid / 16.  Every
+// in val_t<T>, for row-major A (M×K) and B (K×N), tx = tid % 16,
+// ty = tid / 16.  Every
 // thread of the block must call it (it synchronises the block); smem holds
 // two stages (2 · CcTile<TM>::STAGE values), 16-byte aligned, and may be
 // reused once it returns.
@@ -339,8 +446,9 @@ template <int OP, typename T, int TM>
 __device__ __forceinline__ void contract_cc(const T* A, const T* B, int M,
                                             int K, int N, int kv, int row0,
                                             int col0, bool vec, T* smem,
-                                            float (&acc)[TM][TM]) {
-  using R = Ring<OP>;
+                                            val_t<T> (&acc)[TM][TM]) {
+  using V = val_t<T>;
+  using R = Ring<OP, V>;
   using Tl = CcTile<TM>;
   constexpr int BM = Tl::BM, BK = Tl::BK;
   const int tx = threadIdx.x % 16;
@@ -368,15 +476,15 @@ __device__ __forceinline__ void contract_cc(const T* A, const T* B, int M,
     const T* Bs = As + BM * BK;
 #pragma unroll
     for (int k4 = 0; k4 < BK; k4 += 4) {
-      float a[TM][4];
+      V a[TM][4];
 #pragma unroll
       for (int i = 0; i < TM; ++i) ld4(As + Tl::off(i, ty) * BK + k4, a[i]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        float b[TM];
+        V b[TM];
 #pragma unroll
         for (int j4 = 0; j4 < TM / 4; ++j4) {
-          float v[4];
+          V v[4];
           ld4(Bs + (k4 + kk) * BM + j4 * 64 + tx * 4, v);
 #pragma unroll
           for (int q = 0; q < 4; ++q) b[j4 * 4 + q] = v[q];

@@ -17,6 +17,7 @@ from repro_torch.core import semiring as sr_mod
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.flash_attention import (flash_attention as
                                                  _fa_kernel, kernel_takes)
+from repro_torch.kernels.semiring_mmo import out_dtype
 from repro_torch.kernels.semiring_mmo import semiring_mmo as _sm_kernel
 
 Tensor = torch.Tensor
@@ -45,7 +46,7 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
   b3 = b.reshape(r, k, n).contiguous()
   c3 = None
   if c is not None:
-    c3 = (c.to(sr.acc_dtype(a.dtype)).broadcast_to(batch + (m, n))
+    c3 = (c.to(out_dtype(sr.name, a.dtype)).broadcast_to(batch + (m, n))
           .reshape(r, m, n).contiguous())
   kv = None
   if k_valid is not None:

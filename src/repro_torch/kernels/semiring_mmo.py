@@ -7,6 +7,15 @@ what bounds it and how its design answers that).  Beside it,
 ``semiring_mmo_plain`` computes the same function in plain PyTorch: blocked
 broadcast-⊗ plus ⊕-reduce, like ``core.mmo._contract_vector``.
 
+Types follow the reference's Pallas arm (``repro/kernels/semiring_mmo.py``):
+mma and addnorm return f32 whatever the input; the min/max rings return the
+input's dtype; orand returns bool.  The kernel has f32, bf16 and {0,1}-byte
+instances, and int32 instances of the min/max rings.  float16 is widened to
+f32 here and the result rounded once to float16 (bit-exact for + and ×, as
+f32's 24 bits are at least 2·11 + 2, and rounding is monotone under min and
+max); int32 mma and addnorm are widened to f32 too, as the reference
+computes them in f32.
+
 The wrapper takes the plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  The library
 is built with ``nvcc`` at first use into ``build/kernels/`` under the
@@ -35,7 +44,8 @@ _MAX_GRID_YZ = 65535
 _PLAIN_BLOCK_ELEMS = 1 << 26
 
 OP_CODES = {op: i for i, op in enumerate(sr_mod.ALL_OPS)}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2,
+                torch.int32: 3}
 
 LIBRARY = nvcc.KernelLibrary(
     "semiring_mmo", "simd2_semiring_mmo",
@@ -58,12 +68,31 @@ def _workspace(r: int, m: int, k: int, n: int,
   return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
+def out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+  """The dtype K1 returns for operands of ``dtype``: bool for orand, f32 for
+  mma and addnorm, the operands' own for the min/max rings."""
+  sr = sr_mod.get(op)
+  if sr.boolean:
+    return torch.bool
+  return torch.float32 if sr.name in ("mma", "addnorm") else dtype
+
+
+def kernel_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+  """The dtype of the kernel instance that serves ``dtype``: float16, and
+  int32 under mma and addnorm, run on the f32 instance."""
+  if dtype == torch.float16 or (dtype == torch.int32 and sr_mod.get(
+      op).name in ("mma", "addnorm")):
+    return torch.float32
+  return dtype
+
+
 def tile_shape(op: str, dtype: torch.dtype, r: int, m: int, n: int) -> tuple:
   """(rows, columns) of the output tile a launch at R × M × N takes on the
   current card: 128×128 on the tensor cores for mma; 128×128 for the other
   rings where those tiles cover at least two waves of the card's resident
   CTAs, else 64×64."""
   sr = sr_mod.get(op)
+  dtype = kernel_dtype(sr.name, dtype)
   code = _DTYPE_CODES[torch.uint8 if dtype == torch.bool else dtype]
   tile = (ctypes.c_int * 2)()
   fn = LIBRARY.function("simd2_semiring_mmo_tile",
@@ -88,15 +117,17 @@ def _check(a: Tensor, b: Tensor, c: Optional[Tensor],
     raise ValueError(f"a on {a.device}, b on {b.device}")
   if b.dtype != a.dtype:
     raise TypeError(f"a is {a.dtype}, b is {b.dtype}")
-  allowed = (torch.bool,) if sr.boolean else (torch.float32, torch.bfloat16)
+  allowed = ((torch.bool,) if sr.boolean else
+             (torch.float32, torch.bfloat16, torch.float16, torch.int32))
   if a.dtype not in allowed:
     raise TypeError(f"{sr.name} takes {allowed}, got {a.dtype}")
   if c is not None:
     if tuple(c.shape) != (r, m, n):
       raise ValueError(f"c must be {(r, m, n)}, got {tuple(c.shape)}")
-    if c.dtype != sr.acc_dtype(a.dtype) or c.device != a.device:
-      raise TypeError(f"c must be {sr.acc_dtype(a.dtype)} on {a.device}, got "
-                      f"{c.dtype} on {c.device}")
+    want = out_dtype(sr.name, a.dtype)
+    if c.dtype != want or c.device != a.device:
+      raise TypeError(f"c must be {want} on {a.device}, got {c.dtype} on "
+                      f"{c.device}")
   if k_valid is not None:
     if (tuple(k_valid.shape) != (r,) or k_valid.dtype != torch.int32
         or k_valid.device != a.device):
@@ -109,7 +140,7 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
                  op: str = "mma", k_valid: Optional[Tensor] = None) -> Tensor:
   """K1: D[r] = C[r] ⊕ (A[r] ⊗ B[r]) for a (R, M, K) × (R, K, N) stack.
 
-  ``c`` is in the ring's output dtype (``acc_dtype`` of the input);
+  ``c`` is in the ring's output dtype (``out_dtype`` of the input);
   ``k_valid`` (int32, one per request) bounds the live K lanes — lanes at or
   past it contribute the ⊕-identity and whole K steps past it are skipped.
   CPU tensors run ``semiring_mmo_plain``; CUDA tensors launch the kernel on
@@ -124,13 +155,27 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
   tensors = (a, b) + tuple(t for t in (c, k_valid) if t is not None)
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError("semiring_mmo's kernel takes contiguous tensors")
+  run = kernel_dtype(sr.name, a.dtype)
+  if run == a.dtype:
+    return _launch(a, b, c, k_valid, sr)
+  # the f32 instance on the widened operands, rounded once to the output
+  out = _launch(a.to(run), b.to(run), None if c is None else c.to(run),
+                k_valid, sr)
+  return out.to(out_dtype(sr.name, a.dtype))
+
+
+def _launch(a: Tensor, b: Tensor, c: Optional[Tensor],
+            k_valid: Optional[Tensor], sr: sr_mod.Semiring) -> Tensor:
+  """One launch of the instance of ``a``'s dtype on contiguous CUDA
+  tensors."""
   r, m, k = a.shape
   n = b.shape[2]
   if r > _MAX_GRID_YZ or math.ceil(m / TILE[0]) > _MAX_GRID_YZ:
     raise ValueError(f"grid too large: R={r}, M={m}")
   if max(m, k, n) >= 2 ** 31:
     raise ValueError(f"dimension too large for the kernel: M={m} K={k} N={n}")
-  out = torch.empty((r, m, n), dtype=sr.acc_dtype(a.dtype), device=a.device)
+  out = torch.empty((r, m, n), dtype=out_dtype(sr.name, a.dtype),
+                    device=a.device)
   if out.numel() == 0:
     return out
   if sr.boolean:  # the kernel reads and writes {0,1} bytes
@@ -165,23 +210,29 @@ def semiring_mmo_plain(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
                        k_valid: Optional[Tensor] = None) -> Tensor:
   """The kernel's function in plain PyTorch: blocked broadcast-⊗ + ⊕-reduce.
 
-  Operands widen to f32 (bool for orand), lanes at or past ``k_valid`` take
-  the contraction pads, the result rounds once to the output dtype.  mma
-  widens further, to float64, so its sum is the exact product rounded once
-  to f32: the reference the kernel's 3×TF32 tensor-core sum is held to
-  (a blocked f32 sum of 4096 terms is itself off by up to ~3e-4 from it,
-  three times the check's atol).  K blocks are sized so one block's
-  (R, M, bk, N) intermediate stays near ``_PLAIN_BLOCK_ELEMS`` elements.
+  Operands widen to f32 (bool for orand; int32 stays int32 on the min/max
+  rings, ⊗ wrapping in two's complement), lanes at or past ``k_valid`` take
+  the contraction pads, the result rounds once to the output dtype
+  (``out_dtype``).  mma widens further, to float64, so its sum is the exact
+  product rounded once to f32: the reference the kernel's 3×TF32
+  tensor-core sum is held to (a blocked f32 sum of 4096 terms is itself off
+  by up to ~3e-4 from it, three times the check's atol).  K blocks are sized
+  so one block's (R, M, bk, N) intermediate stays near
+  ``_PLAIN_BLOCK_ELEMS`` elements.
   """
   sr = sr_mod.get(op)
   r, m, k = a.shape
   n = b.shape[-1]
-  work = (torch.bool if sr.boolean else
-          torch.float64 if sr.name == "mma" else torch.float32)
+  if sr.boolean or sr.name == "mma":
+    work = torch.bool if sr.boolean else torch.float64
+  else:  # int32 on the min/max rings' own instances, else f32
+    work = (torch.int32 if kernel_dtype(sr.name, a.dtype) == torch.int32
+            else torch.float32)
   af, bf = a.to(work), b.to(work)
   kmax = k
   if k_valid is not None:
-    pa, pb = (False, False) if sr.boolean else sr_mod.contraction_pads(sr)
+    pa, pb = ((False, False) if sr.boolean else
+              sr_mod.contraction_pads(sr, work))
     kv = k_valid.to(a.device).clamp(0, k)
     live = torch.arange(k, device=a.device)[None, :] < kv[:, None]  # (R, K)
     af = torch.where(live[:, None, :], af, pa)
@@ -194,4 +245,5 @@ def semiring_mmo_plain(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
     acc = sr.oplus(acc, sr_mod.oplus_reduce(sr, prod, dim=2))
   if c is not None:
     acc = sr.oplus(acc, c.to(work))
-  return acc.to(sr.acc_dtype(a.dtype))
+  return acc.to(out_dtype(sr.name, a.dtype))
+

@@ -21,6 +21,15 @@ PEAK_BYTES_S = 3.35e12
 # FADD or FMUL and an FMNMX: no fused f32 add-min), and so is an addnorm
 # term (FADD, FFMA) and an orand term.
 SMS, LANES = 132, 128
+# 32-bit integer add and min/max issue at 64 results per clock per SM on
+# compute capability 9.0, half the f32 rate (the CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table).  An int32 minplus or
+# maxplus term is one instruction: the compiler fuses the add and the
+# min/max into Hopper's DPX VIADDMNMX (chip_smoke.py's build phase checks
+# K1's and K2's int32 instances for it); the other int32 rings take two
+# (IMAD or VIMNMX, then VIMNMX).
+INT32_LANES = 64
+FUSED_INT32_RINGS = ("minplus", "maxplus")
 
 # The SM clock the issue rate is taken at: the H100 SXM boost clock by
 # default.  A caller that reads the card's own maximum (nvidia-smi
@@ -49,12 +58,17 @@ def cuda_core_seconds(terms: float) -> float:
 
 def ops_seconds(op: str, dtype: str, terms: float) -> float:
   """Least time for ``terms`` (i, j, k) terms of ring ``op``: mma on the
-  tensor cores (f32 at the TF32 rate, three products per term for 3×TF32;
-  bf16 at the bf16 rate), orand at the int8 tensor-core rate, the other
-  rings two CUDA-core instructions per term at the issue rate."""
+  tensor cores (bf16 at the bf16 rate; f32, and float16 or int32 widened
+  to f32, at the TF32 rate, three products per term for 3×TF32), orand at
+  the int8 tensor-core rate, the other rings two CUDA-core instructions
+  per term at the issue rate; int32 at ``INT32_LANES`` per SM, one
+  instruction per term for minplus and maxplus, else two."""
   if op == "mma":
-    return (3 * 2.0 * terms / PEAK_TF32 if dtype == "float32"
-            else 2.0 * terms / PEAK_OPS["bfloat16"])
+    return (2.0 * terms / PEAK_OPS["bfloat16"] if dtype == "bfloat16"
+            else 3 * 2.0 * terms / PEAK_TF32)
   if op == "orand":
     return 2.0 * terms / PEAK_OPS["bool"]
+  if dtype == "int32" and op != "addnorm":
+    per_term = 1.0 if op in FUSED_INT32_RINGS else 2.0
+    return per_term * terms / (SMS * INT32_LANES * SM_CLOCK_HZ)
   return cuda_core_seconds(terms)

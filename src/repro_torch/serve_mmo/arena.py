@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import closure as cl_mod
+from repro_torch.core import semiring as sr_mod
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import closure_megakernel as _mk
 from repro_torch.serve_mmo.api import ProblemRequest
@@ -105,9 +106,10 @@ class RequestArena:
     self._has_adj = self.algorithm == "bellman_ford"
 
     cap, np_, dev = self.capacity, self.geom.np_, self.device
-    base = torch.full((np_, np_), self.geom.missing,
-                      dtype=self.geom.acc_dtype)
-    base.fill_diagonal_(self.geom.self_value)
+    acc = self.geom.acc_dtype
+    base = torch.full((np_, np_), sr_mod.saturate(self.geom.missing, acc),
+                      dtype=acc)
+    base.fill_diagonal_(sr_mod.saturate(self.geom.self_value, acc))
     # device slot state — swapped wholesale under _lock by tick
     self._c = base.expand(cap, np_, np_).contiguous().to(dev)
     self._adj = self._c.clone() if self._has_adj else None

@@ -52,7 +52,8 @@ def _pad2d(x: np.ndarray, rows: int, cols: int,
 
 def _stack_mmo(key: BucketKey, reqs: Sequence[ProblemRequest]):
   mb, kb, nb = key.shape
-  pa, pb = sr_mod.contraction_pads(key.op)
+  dtype = reqs[0].arrays["a"].dtype
+  pa, pb = sr_mod.contraction_pads(key.op, dtype)
   boolean = sr_mod.get(key.op).boolean
   if boolean:
     pa = pb = False
@@ -63,7 +64,8 @@ def _stack_mmo(key: BucketKey, reqs: Sequence[ProblemRequest]):
   kv = np.asarray([r.shape[1] for r in reqs], np.int32)
   if not has_c:
     return (a, b, kv)
-  ident = False if boolean else sr_mod.get(key.op).oplus_identity
+  ident = False if boolean else sr_mod.oplus_identity(
+      key.op, reqs[0].arrays["c"].dtype)
   c = np.stack([_pad2d(r.arrays["c"], mb, nb, ident, ident) for r in reqs])
   return (a, b, c, kv)
 

@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 # name -> ROADMAP Queue 1 item that ports it
 UNPORTED = {
     "core": {},
-    "apps": {"baselines": 5},
+    "apps": {},
     "kernels": {},
     "tuning": {
         "SCHEDULE_ARMS": 11, "sharded_prior_seconds": 11, "tune_mesh": 11,
@@ -27,7 +27,7 @@ UNPORTED = {
     },
     "serve_mmo": {},
 }
-ROADMAP_ITEMS = {5, 7, 10, 11, 12, 13, 14}
+ROADMAP_ITEMS = {7, 11, 12, 13, 14}
 
 
 def _reference_all(package: str) -> list:
@@ -67,7 +67,7 @@ def test_unported_names_cite_open_roadmap_items():
 
 
 @pytest.mark.parametrize("package,module", [
-    ("apps", "graphs"), ("models", "zoo")])
+    ("apps", "graphs"), ("apps", "baselines"), ("models", "zoo")])
 def test_module_exports_are_modules(package, module):
   port = importlib.import_module(f"repro_torch.{package}")
   assert isinstance(getattr(port, module), types.ModuleType)

@@ -206,3 +206,77 @@ def test_cuda_core_instances_bf16_bit_exact(cuda, op, shape, tile):
   want = sm.semiring_mmo_plain(a, b, c, op=op)
   assert got.dtype == want.dtype == torch.bfloat16
   assert torch.equal(got, want)
+
+
+def _int_operands(shape, device, batch=1, seed=11):
+  """int32 operands in ±1000 with an INT32_MAX row in A and a column of 1
+  in B: minplus gives INT32_MAX ⊗ 1 = INT32_MIN (two's complement)."""
+  m, k, n = shape
+  g = torch.Generator().manual_seed(seed)
+  a = torch.randint(-1000, 1001, (batch, m, k), generator=g,
+                    dtype=torch.int32)
+  b = torch.randint(-1000, 1001, (batch, k, n), generator=g,
+                    dtype=torch.int32)
+  c = torch.randint(-1000, 1001, (batch, m, n), generator=g,
+                    dtype=torch.int32)
+  a[:, 0, :] = torch.iinfo(torch.int32).max
+  b[:, :, 0] = 1
+  return a.to(device), b.to(device), c.to(device)
+
+
+@pytest.mark.parametrize("shape,tile", INSTANCE_CASES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("op", EXACT[:-1])
+def test_int32_instances_bit_exact(cuda, op, shape, tile):
+  """The min/max rings' int32 instances: ⊗ wraps, the result is int32 and
+  equals the plain version bit for bit, on both register tiles."""
+  m, k, n = shape
+  a, b, c = _int_operands(shape, cuda)
+  assert sm.tile_shape(op, a.dtype, 1, m, n) == (tile, tile)
+  before = sm.semiring_mmo.launches
+  got = sm.semiring_mmo(a, b, c, op=op)
+  assert sm.semiring_mmo.launches == before + 1
+  want = sm.semiring_mmo_plain(a, b, c, op=op)
+  assert got.dtype == want.dtype == torch.int32
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", EXACT[:-1])
+def test_int32_k_valid_bit_exact(cuda, op):
+  """Ragged k_valid on int32 (mid-slab, and 0): dead lanes take
+  (⊕-identity, ⊗-identity), which cannot wrap."""
+  a, b, c = _int_operands((70, 150, 90), cuda, batch=4, seed=12)
+  kv = torch.tensor([150, 37, 17, 0], dtype=torch.int32, device=cuda)
+  got = sm.semiring_mmo(a, b, c, op=op, k_valid=kv)
+  assert torch.equal(got, sm.semiring_mmo_plain(a, b, c, op=op,
+                                                k_valid=kv))
+
+
+@pytest.mark.parametrize("op", ["mma", "addnorm"])
+def test_int32_mma_and_addnorm_widen_to_f32(cuda, op):
+  a, b, c = _int_operands((64, 96, 40), cuda, seed=13)
+  a[:, 0, :] = 7  # keep the f32 products exact
+  got = sm.semiring_mmo(a, b, op=op)
+  want = sm.semiring_mmo_plain(a, b, op=op)
+  assert got.dtype == want.dtype == torch.float32
+  assert_parity(got, want, op)
+
+
+@pytest.mark.parametrize("op", [o for o in ALL_OPS if o != "orand"])
+def test_float16_runs_on_the_f32_instance_rounded_once(cuda, op):
+  """float16: one launch of the f32 instance on the widened operands; the
+  min/max rings round once to float16 (bit-exact), mma and addnorm return
+  f32 within their tolerance."""
+  a, b, c = _operands(op, (64, 200, 96), cuda, batch=2, seed=14)
+  a, b = a.half(), b.half()
+  c = c.to(sm.out_dtype(op, torch.float16))
+  before = sm.semiring_mmo.launches
+  got = sm.semiring_mmo(a, b, c, op=op)
+  assert sm.semiring_mmo.launches == before + 1
+  want = sm.semiring_mmo_plain(a, b, c, op=op)
+  assert got.dtype == want.dtype == sm.out_dtype(op, torch.float16)
+  if op in EXACT:
+    assert torch.equal(got, want)
+  else:
+    assert_parity(got, want, op)

@@ -187,3 +187,75 @@ def test_fused_arm_is_the_dispatch_path_on_both_tile_instances(cuda, op):
   assert torch.equal(torch.isnan(got), torch.isnan(want))
   assert torch.equal(torch.nan_to_num(got.float()),
                      torch.nan_to_num(want.float()))
+
+
+def int_stack(op, n, r, seed=0):
+  """(R, n, n) int32 iterates: small weights, the ring's self value on the
+  diagonal, and a tenth of the entries at the ⊕-identity (INT32_MAX or
+  INT32_MIN), whose ⊗ with a weight wraps in two's complement."""
+  g = torch.Generator().manual_seed(seed)
+  lo, hi = (1, 4) if op in ("minmul", "maxmul") else (-50, 51)
+  x = torch.randint(lo, hi, (r, n, n), generator=g, dtype=torch.int32)
+  info = torch.iinfo(torch.int32)
+  top = info.max if op.startswith("min") else info.min
+  x[torch.rand((r, n, n), generator=g) < 0.1] = top
+  if op in ("minplus", "maxplus", "minmul", "maxmul"):
+    x.diagonal(dim1=1, dim2=2).fill_(0 if op.endswith("plus") else 1)
+  return x
+
+
+def _typed_chunk_operands(op, n, device, dtype, seed):
+  c, kv, act, it, glim = _chunk_operands(op, n, device, seed=seed)
+  if dtype == torch.int32:
+    c = int_stack(op, n, 4, seed=seed).to(device)
+  else:
+    c = c.to(dtype)
+  return c, kv, act, it, glim
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float16],
+                         ids=["int32", "float16"])
+@pytest.mark.parametrize("n", [12, 64, 200])
+@pytest.mark.parametrize("algorithm", ["leyzorek", "bellman_ford"])
+@pytest.mark.parametrize("op", EXACT[:-1])
+def test_chunk_int32_and_float16_bit_exact(cuda, op, algorithm, n, dtype):
+  """K2's int32 and float16 instances: the iterate stays in its dtype
+  (float16 rounded at each step's store), bit-exact with the plain
+  version, counters and flags included."""
+  c, kv, act, it, glim = _typed_chunk_operands(op, n, cuda, dtype, seed=n)
+  adj = c if algorithm == "bellman_ford" else None
+  got = mk.fixpoint_chunk(c, adj, kv, act, it, glim, op=op, g_steps=4)
+  want = mk.fixpoint_chunk_plain(c, adj, kv, act, it, glim, op=op,
+                                 g_steps=4)
+  assert got[0].dtype == dtype
+  assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+  assert bool(torch.all((got[0] == want[0])
+                        | (got[0].isnan() & want[0].isnan())))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float16],
+                         ids=["int32", "float16"])
+@pytest.mark.parametrize("algorithm", ["leyzorek", "bellman_ford"])
+@pytest.mark.parametrize("op", RINGS[:-1])
+def test_fused_arm_is_the_k1_dispatch_path_on_int32_and_float16(
+    cuda, op, algorithm, dtype):
+  """The fused arm against per-iteration K1 at both new dtypes: mma
+  iterates in f32 on both arms, the min/max rings in their own dtype."""
+  if dtype == torch.int32 and op == "mma":  # nilpotent: stays finite
+    g = torch.Generator().manual_seed(7)
+    adj = torch.randint(0, 2, (3, 96, 96), generator=g, dtype=torch.int32)
+    adj = torch.triu(adj, diagonal=1).to(cuda)
+  elif dtype == torch.int32:
+    adj = int_stack(op, 96, 3, seed=7).to(cuda)
+  else:
+    adj = rand_stack(op, 96, 3, seed=7).to(cuda, dtype)
+  valid = torch.tensor([96, 70, 33], dtype=torch.int32, device=cuda)
+  want, want_it = SOLVERS[algorithm](adj, op=op, backend="pallas",
+                                     valid_n=valid)
+  k2_before = mk.fixpoint_chunk.launches
+  got, it = SOLVERS[algorithm](adj, op=op, fixpoint_backend="megakernel",
+                               megakernel_g=3, valid_n=valid)
+  assert mk.fixpoint_chunk.launches > k2_before
+  assert torch.equal(it, want_it)
+  assert got.dtype == want.dtype
+  assert bool(torch.all((got == want) | (got.isnan() & want.isnan())))

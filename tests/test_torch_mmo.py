@@ -149,3 +149,23 @@ def test_mmo_batched_request_axis_checks(a_shape, b_shape, c_shape):
   with pytest.raises(ValueError):
     tmmo.mmo_batched(torch.zeros(a_shape), torch.zeros(b_shape), c,
                      op="mma", backend="vector")
+
+
+@pytest.mark.parametrize("j", [0, 3])
+@pytest.mark.parametrize("bad", [np.inf, -np.inf, np.nan])
+def test_xla_addnorm_keeps_a_non_finite_coordinate_in_its_column(bad, j):
+  """The 'xla' arm translates by B's first point; a non-finite coordinate
+  there (j = 0) or elsewhere must reach only its own column of the result,
+  and the other columns stay within addnorm's tolerance of the 'vector'
+  arm, which computes Σ(a−b)² directly."""
+  rng = np.random.default_rng(6)
+  a = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+  b = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+  b[1, j] = float(bad)
+  got = tmmo.mmo(a, b, op="addnorm", backend="xla")
+  want = tmmo.mmo(a, b, op="addnorm", backend="vector")
+  others = [col for col in range(5) if col != j]
+  assert bool(torch.isfinite(got[:, others]).all())
+  np.testing.assert_allclose(got[:, others].numpy(), want[:, others].numpy(),
+                             rtol=1e-5, atol=1e-4)
+  assert not bool(torch.isfinite(got[:, j]).any())

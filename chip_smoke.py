@@ -133,13 +133,41 @@ Phases (any failure exits non-zero):
      output, and ``csr_spmm`` at densities 0.01 and 0.1 against dense K1;
      (e) int32 and float16 minplus mmo and closure requests through
      ``MMOEngine`` on 'pallas' and on the fused arm.  Each step prints its
-     host seconds and K1/K2 launches.
+     host seconds and K1/K2 launches;
+  9. sharded serving on a virtual mesh — ``make_host_mesh(devices=
+     ["cuda:0"] * 4)``, 2 × 2 shards of the one card (its collectives are
+     on-card copies and its shards run one after another: no interconnect
+     time is claimed from it). (a) ``mmo_sharded_batched`` on each schedule
+     at the raw 4096³ minplus and mma points (dp with 4 requests) and
+     maxmin and orand at 1024³, minplus/maxmin/orand bit-identical to local
+     K1, mma within rtol 1e-5 / atol 1e-4 of the float64 product, and KNN
+     (4096 × 16384 × 16) on kspan against ``addnorm_ref`` in float64, each
+     with its CUDA-event ms beside local K1's and its K1 launches per call
+     (4 for dp and SUMMA, 2 for kspan and 4 for ring: kspan and ring run
+     the one line of 2 shards along their axis); dp's host cost per sharded
+     call
+     (``cost_table.DP_OVERHEAD_S``); (b) a ragged 8 × 256³ batch (k_valid
+     1–256) on kspan and ring, every ring, mma on the tensor-core route
+     included, so shards get k_valid = 0, against local K1; (c)
+     ``sharded_closure_batched`` — APSP 4096 on summa, GTC 1024 on ring,
+     the ragged bucket on dp — equal to phase 4's results and iteration
+     counts bit for bit, then ``distributed_leyzorek`` on APSP 1024 against
+     the local closure; (d) ``tune_mesh`` over the stream's points (each
+     row beside ``sharded_prior_seconds``), then ``MMOEngine(mesh=…)``
+     serves the stream on ``schedule="auto"`` (the mesh rows), then a batch
+     of 4 APSP 4096 and 4 raw mmo requests that the auto router must run on
+     the mesh, then the stream pinned to summa, kspan and dp, and APSP 4096
+     on ``backend="megakernel"`` routed to summa (its shards on K1, K2
+     never); every result equals phase 4's, and each engine's routing,
+     where each batch ran (the placements of the executables that ran) and
+     its K1/K2 launches are printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import importlib
 import json
@@ -2137,6 +2165,304 @@ def phase_ssd_timing(ssd, torch, err: float, launches: int) -> dict:
   return row
 
 
+# Phase 9: sharded serving on a virtual mesh of 2 × 2 shards of cuda:0.
+# The shards share one card, so their collectives are on-card copies and
+# their work runs one shard after another: no interconnect time and no
+# multi-card speed-up is claimed from it.
+MESH_DIMS = (2, 2)
+# Engine thresholds (per-request contraction flops, 2·m·k·n): APSP 4096 and
+# the raw 4096³ mmo are 1.37e11; KNN (4096 × 16 × 16384) and GTC 1024 are
+# both 2³¹ = 2.15e9, so no threshold separates them; the ragged bucket is
+# 3.4e7.
+SHARD_ALL_BIG = float(2 ** 31)   # APSP, mmo, KNN and GTC are candidates
+SHARD_4096 = 1e10                # only APSP 4096 and the raw mmo
+
+
+def mesh_result_ok(kind: str, got, want) -> bool:
+  """A mesh engine's result against phase 4's: closures and the minplus
+  mmo bit for bit (iterations too), KNN by result_equal."""
+  return (result_equal(kind, got, want) if kind == "knn"
+          else same_result(got, want) if kind == "closure"
+          else result_equal(kind, got, want))
+
+
+def addnorm_f64(torch, q, ref_t, rows: int = 1024):
+  """Σ_k (q[i,k] − ref_t[k,j])² in float64, ``rows`` queries at a time."""
+  from repro_torch.kernels.ref import addnorm_ref
+  return torch.cat([addnorm_ref(q[i:i + rows].double(), ref_t.double())
+                    for i in range(0, q.shape[0], rows)])
+
+
+def phase_mesh(sm, mk, torch, np, graphs, reqs, results, a_t, b_t, q_t,
+               r_t) -> dict:
+  """(a) each schedule against local K1 at the stream's widths; (b) the
+  k_valid = 0 edge on kspan and ring, every ring; (c) the sharded closures
+  against phase 4; (d) tune_mesh, then MMOEngine on the mesh (auto, summa,
+  kspan, dp, and the fused arm's shards on K1) against phase 4."""
+  from repro_torch.core import closure as cl
+  from repro_torch.core import distributed as dist
+  from repro_torch.core import semiring as sr_mod
+  from repro_torch.core.mmo import mmo_batched
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.serve_mmo import MMOEngine, batching, bucket_label
+  from repro_torch.serve_mmo.scheduler import contract_shape, request_bucket
+  from repro_torch.tuning import (CostTable, sharded_prior_seconds,
+                                  tune_mesh)
+  from repro_torch.tuning import cost_table as ct
+  t_phase = time.perf_counter()
+  mesh = make_host_mesh(4, model=MESH_DIMS[1], devices=["cuda:0"] * 4)
+  log(f"[mesh] virtual mesh {MESH_DIMS[0]} x {MESH_DIMS[1]} of "
+      f"{[str(d) for d in mesh.flat]}: four shards of one card, so its "
+      f"collectives are on-card copies (not NVLink) and its shards run one "
+      f"after another; no interconnect time is claimed from it")
+  out = {"k1": 0, "k2": 0, "rows": []}
+
+  def launches(fn):
+    """fn()'s result, its K1 and K2 launches, and its host seconds."""
+    k1, k2 = sm.semiring_mmo.launches, mk.fixpoint_chunk.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, sm.semiring_mmo.launches - k1,
+            mk.fixpoint_chunk.launches - k2, time.perf_counter() - t0)
+
+  # -- (a) schedules against local K1 ---------------------------------------
+  # K1 launches per call: kspan and ring run one line of shards along
+  # their axis (its replicas would compute the same product), ring p steps
+  cols = MESH_DIMS[1]
+  want_k1 = {"dp": mesh.size, "summa": mesh.size, "kspan": cols,
+             "ring": cols * cols}
+  g = torch.Generator(device="cuda").manual_seed(9)
+  maxmin_a = torch.rand(1, 1024, 1024, device="cuda", generator=g)
+  maxmin_b = torch.rand(1, 1024, 1024, device="cuda", generator=g)
+  orand_a = torch.rand(1, 1024, 1024, device="cuda", generator=g) < 0.01
+  orand_b = torch.rand(1, 1024, 1024, device="cuda", generator=g) < 0.01
+  mma_ref = sm.semiring_mmo_plain(a_t[None], b_t[None], op="mma")  # f64 sum
+  quad_a = torch.stack([a_t, b_t, a_t.T, b_t.T]).contiguous()
+  quad_b = torch.stack([b_t, a_t, b_t.T, a_t.T]).contiguous()
+  cases = [("minplus", "raw mmo 4096³", a_t[None], b_t[None], quad_a,
+            quad_b),
+           ("mma", "mma 4096³", a_t[None], b_t[None],
+            a_t[None].expand(4, -1, -1).contiguous(),
+            b_t[None].expand(4, -1, -1).contiguous()),
+           ("maxmin", "maxmin 1024³", maxmin_a, maxmin_b,
+            maxmin_a.expand(4, -1, -1).contiguous(),
+            maxmin_b.expand(4, -1, -1).contiguous()),
+           ("orand", "orand 1024³", orand_a, orand_b,
+            orand_a.expand(4, -1, -1).contiguous(),
+            orand_b.expand(4, -1, -1).contiguous())]
+  for op, label, a1, b1, a4, b4 in cases:
+    local1 = sm.semiring_mmo(a1, b1, op=op)
+    local4 = sm.semiring_mmo(a4, b4, op=op)
+    local_ms = cuda_time_ms(lambda: sm.semiring_mmo(a1, b1, op=op), 3)
+    row = {"case": label, "op": op, "local_k1_ms": local_ms}
+    for sched in dist.SCHEDULES:
+      a, b, want = (a4, b4, local4) if sched == "dp" else (a1, b1, local1)
+      fn = (lambda: dist.mmo_sharded_batched(a, b, op=op, schedule=sched,
+                                             mesh=mesh, backend="pallas"))
+      got, k1, _, _ = launches(fn)
+      if k1 != want_k1[sched]:
+        raise AssertionError(f"{label} {sched}: {k1} K1 launches, expected "
+                             f"{want_k1[sched]}")
+      if op == "mma":  # every request against the float64 product
+        err = max(check(f"mesh {label} {sched} vs float64", got[i:i + 1],
+                        mma_ref.to(got.dtype), op)
+                  for i in range(got.shape[0]))
+      else:  # bit for bit against local K1
+        err = check(f"mesh {label} {sched} vs local K1", got, want, op)
+      ms = cuda_time_ms(fn, 3)
+      row[sched] = {"ms": ms, "k1_launches": k1, "requests": a.shape[0],
+                    "max_abs_err": err}
+    log(f"[mesh] {json.dumps(row)}")
+    out["rows"].append(row)
+  del mma_ref, quad_a, quad_b
+  # KNN addnorm on kspan (K = 16 split in two chunks of 8)
+  knn_fn = (lambda: dist.mmo_sharded_batched(
+      q_t[None], r_t.T[None].contiguous(), op="addnorm", schedule="kspan",
+      mesh=mesh, backend="pallas"))
+  got, k1, _, _ = launches(knn_fn)
+  want = addnorm_f64(torch, q_t, r_t.T).float()
+  err = check("mesh KNN 4096 x 16384 x 16 kspan vs addnorm_ref (float64)",
+              got[0], want, "addnorm")
+  del want
+  knn_local = cuda_time_ms(lambda: sm.semiring_mmo(
+      q_t[None], r_t.T[None].contiguous(), op="addnorm"), 3)
+  row = {"case": "KNN 4096q x 16384 x 16", "op": "addnorm",
+         "local_k1_ms": knn_local,
+         "kspan": {"ms": cuda_time_ms(knn_fn, 3), "k1_launches": k1,
+                   "max_abs_err": err}}
+  log(f"[mesh] {json.dumps(row)}")
+  out["rows"].append(row)
+  # the host cost of one sharded call beyond its kernels (DP_OVERHEAD_S):
+  # dp over the mesh against one local launch on a 4 × 8³ minplus batch
+  ta = torch.rand(4, 8, 8, device="cuda")
+  tb = torch.rand(4, 8, 8, device="cuda")
+  dp_tiny = cuda_time_ms(lambda: dist.mmo_dp_batched(
+      ta, tb, op="minplus", mesh=mesh, backend="pallas"), 500)
+  local_tiny = cuda_time_ms(lambda: sm.semiring_mmo(ta, tb, op="minplus"),
+                            500)
+  out["dp_overhead_ms"] = dp_tiny - local_tiny
+  log(f"[mesh] dp overhead per sharded call: dp {dp_tiny:.4f} ms - local "
+      f"{local_tiny:.4f} ms = {dp_tiny - local_tiny:.4f} ms "
+      f"(cost_table.DP_OVERHEAD_S = {ct.DP_OVERHEAD_S * 1e3:.4f} ms)")
+
+  # -- (b) the k_valid = 0 edge: ragged K on kspan and ring, every ring ------
+  r, m, k, n = 8, 256, 256, 256
+  kv = torch.tensor([1, 40, 128, 129, 200, 256, 17, 96], dtype=torch.int32,
+                    device="cuda")
+  live = torch.arange(k, device="cuda")[None, :] < kv[:, None]
+  for op in sr_mod.ALL_OPS:
+    sr = sr_mod.get(op)
+    a = torch.randn(r, m, k, device="cuda", generator=g)
+    b = torch.randn(r, k, n, device="cuda", generator=g)
+    c = torch.randn(r, m, n, device="cuda", generator=g)
+    if op in ("minmul", "maxmul"):
+      a, b = a.tanh().abs(), b.tanh().abs()
+    if sr.boolean:
+      a, b, c = a > 0.5, b > 0.5, c > 1.0
+      pa = pb = False
+    else:
+      pa, pb = sr_mod.contraction_pads(op, torch.float32)
+    a = torch.where(live[:, None, :], a, pa)
+    b = torch.where(live[:, :, None], b, pb)
+    want = mmo_batched(a, b, c, op=op, backend="pallas", k_valid=kv)
+    for sched in ("kspan", "ring"):
+      got, k1, _, _ = launches(lambda: dist.mmo_sharded_batched(
+          a, b, c, op=op, schedule=sched, mesh=mesh, backend="pallas",
+          k_valid=kv))
+      check(f"mesh ragged 8 x 256³ {op} {sched} (kv 1-256, k_valid = 0 on "
+            f"the second K-chunk of 4 requests) vs local K1", got, want, op)
+
+  # -- (c) sharded closures against phase 4 -----------------------------------
+  def closure_case(idx, sched, label):
+    rs = [reqs[i] for i in idx]
+    key = request_bucket(rs[0])
+    adj, valid = batching.to_device(batching.stack_batch(key, rs), "cuda")
+    (closed, iters), k1, k2, secs = launches(
+        lambda: dist.sharded_closure_batched(adj, op=key.op, mesh=mesh,
+                                             schedule=sched,
+                                             backend="pallas",
+                                             valid_n=valid))
+    out["k1"] += k1
+    out["k2"] += k2
+    closed, iters = closed.cpu().numpy(), iters.cpu().numpy()
+    for j, i in enumerate(idx):
+      nn = rs[j].shape[0]
+      if not (np.array_equal(closed[j, :nn, :nn], results[i].value)
+              and int(iters[j]) == results[i].extras["iterations"]):
+        raise AssertionError(f"{label} on {sched}: request {i} differs "
+                             f"from phase 4")
+    log(f"[mesh] closure {label} on {sched}: equal to phase 4 (values and "
+        f"iterations {iters.tolist()}), K1 launches {k1}, K2 {k2}, "
+        f"{secs:.3f}s")
+  closure_case([0], "summa", "APSP 4096 (density 0.05)")
+  closure_case([1], "ring", "GTC 1024 orand")
+  closure_case(list(range(4, 12)), "dp", "ragged bucket 8 x n 200-256")
+  w1k = graphs.weighted_digraph(1024, 0.05, seed=31)
+  adj1k = cl.prepare_adjacency(torch.from_numpy(w1k).cuda(), op="minplus")
+  local1k, it1k = cl.batched_leyzorek_closure(adj1k[None].contiguous(),
+                                              op="minplus", backend="pallas")
+  ley, k1, k2, secs = launches(lambda: dist.distributed_leyzorek(
+      adj1k, op="minplus", mesh=mesh, backend="pallas"))
+  out["k1"] += k1
+  if not torch.equal(ley, local1k[0]):
+    raise AssertionError("distributed_leyzorek APSP 1024 differs from the "
+                         "local closure")
+  log(f"[mesh] distributed_leyzorek APSP 1024: equal to the local closure "
+      f"(which converged in {int(it1k[0])} iterations; the distributed one "
+      f"runs all 10), K1 launches {k1}, {secs:.3f}s")
+
+  # -- (d) the engine on the mesh ---------------------------------------------
+  t0 = time.perf_counter()
+  points = {}
+  for rq in reqs:
+    key = request_bucket(rq)
+    points.setdefault((key.op, contract_shape(key), key.dtypes[0]), None)
+  table = CostTable(device=torch.cuda.get_device_name(0))
+  for op, shape, dtype in points:
+    tune_mesh(dims=MESH_DIMS, mesh=mesh, ops=(op,), shapes=(shape,),
+              dtypes=(dtype,), table=table, warmup=1, iters=3)
+  log(f"[mesh] tune_mesh: {len(table)} mesh rows {table.counts()} in "
+      f"{time.perf_counter() - t0:.1f}s (seconds per request, each shard "
+      f"on K1)")
+  for sig, entry in sorted(table.entries.items()):
+    if entry.source != "measured":
+      continue
+    op, shape, dtype, sched, _ = sig.split("|")
+    prior = sharded_prior_seconds(op, tuple(int(x) for x in shape.split("x")),
+                                  dtype, sched, MESH_DIMS, backend="pallas")
+    log(f"[mesh] row {sig}: measured {entry.seconds * 1e3:.4f} ms, prior "
+        f"{prior * 1e3:.4f} ms (measured/prior {entry.seconds / prior:.2f})")
+
+  def serve_mesh(label, engine, rqs, idx):
+    built = engine.prewarm(rqs)
+    (res, k1, k2, secs) = launches(lambda: serve_all(engine, rqs))
+    out["k1"] += k1
+    out["k2"] += k2
+    # the router's schedule per bucket, and where its batches ran (the
+    # placements of the executables that ran): dp falls back to local for a
+    # batch that does not divide over the shards
+    routed = {bucket_label(key): sched
+              for key, sched in engine._schedules.items()}
+    with engine.cache._lock:
+      ran = [k for k, e in engine.cache._entries.items() if e.ran]
+    placed = {}
+    for exec_key in ran:
+      placed.setdefault(bucket_label(exec_key[0]), set()).add(exec_key[4])
+    placed = {lb: sorted(v) for lb, v in placed.items()}
+    for j, i in enumerate(idx):
+      if not mesh_result_ok(reqs[i].kind, res[j], results[i]):
+        raise AssertionError(f"mesh engine {label}: request {i} differs "
+                             f"from phase 4")
+    if engine.cache.misses != built:
+      raise AssertionError(f"{label}: built during serving")
+    log(f"[mesh] engine {label}: {len(rqs)} requests in {secs:.3f}s, every "
+        f"result equal to phase 4; K1 launches {k1}, K2 {k2}; routed "
+        f"{json.dumps(routed)}; ran {json.dumps(placed)}")
+    return placed, k1, k2
+
+  all_idx = list(range(len(reqs)))
+  placed, _, _ = serve_mesh(
+      "auto (mesh rows only)",
+      MMOEngine(backend="pallas", mesh=mesh, schedule="auto",
+                shard_flops=SHARD_ALL_BIG, cost_table=table, device="cuda"),
+      reqs, all_idx)
+  out["auto"] = placed
+  # batches of 4 that the auto router's mesh rows send to the mesh
+  quad = [0] * 4 + [3] * 4
+  placed, _, _ = serve_mesh(
+      "auto, 4 x APSP 4096 and 4 x raw mmo",
+      MMOEngine(backend="pallas", mesh=mesh, schedule="auto",
+                shard_flops=SHARD_ALL_BIG, cost_table=table, device="cuda"),
+      [copy.copy(reqs[i]) for i in quad], quad)
+  if not any(s != "local" for v in placed.values() for s in v):
+    raise AssertionError(f"the auto engine ran no batch of 4 on the mesh: "
+                         f"{placed}")
+  out["auto_quad"] = placed
+  serve_mesh("summa", MMOEngine(backend="pallas", mesh=mesh,
+                                schedule="summa", shard_flops=SHARD_4096,
+                                device="cuda"), reqs, all_idx)
+  serve_mesh("kspan", MMOEngine(backend="pallas", mesh=mesh,
+                                schedule="kspan", shard_flops=SHARD_ALL_BIG,
+                                device="cuda"), reqs, all_idx)
+  placed, _, _ = serve_mesh(
+      "dp", MMOEngine(backend="pallas", mesh=mesh, schedule="dp",
+                      shard_flops=0.0, device="cuda"), reqs, all_idx)
+  if not any("dp" in v for v in placed.values()):
+    raise AssertionError("the dp engine sharded no bucket")
+  placed, k1, k2 = serve_mesh(
+      "megakernel, APSP 4096 on summa",
+      MMOEngine(backend="megakernel", mesh=mesh, schedule="summa",
+                shard_flops=SHARD_4096, device="cuda"), [reqs[0]], [0])
+  if k2 != 0 or k1 <= 0:
+    raise AssertionError(f"a mesh-routed closure bucket on 'megakernel' "
+                         f"launched K2 {k2} times and K1 {k1}")
+  log(f"[mesh] phase 9 in {time.perf_counter() - t_phase:.1f}s; K1 "
+      f"launches on its main paths (c, d) {out['k1']}, K2 {out['k2']}")
+  return out
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -2606,13 +2932,20 @@ def main() -> int:
   torch.cuda.empty_cache()
   apps = phase_apps(sm, mk, torch, np)
 
+  # -- phase 9: sharded serving on a virtual mesh of one card -----------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  mesh = phase_mesh(sm, mk, torch, np, graphs, reqs, results, a_t, b_t, q_t,
+                    r_t)
+
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
       "name": "semiring_mmo", "design": K1_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
-      "launches": launches + qos["k1"] + ops["k1"] + apps["k1"],
+      "launches": launches + qos["k1"] + ops["k1"] + apps["k1"]
+                  + mesh["k1"],
       "max_abs_err": big_err,
       "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -2621,7 +2954,8 @@ def main() -> int:
       "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",
-      "launches": k2_batch + k2_arena + qos["k2"] + ops["k2"] + apps["k2"],
+      "launches": (k2_batch + k2_arena + qos["k2"] + ops["k2"] + apps["k2"]
+                   + mesh["k2"]),
       "max_abs_err": k2_err,
       "ms": k2["ms"], "plain_ms": k2["plain_ms"],
       "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

@@ -1,4 +1,5 @@
-"""SIMD² core: semiring registry, mmo API, closure solvers.
+"""SIMD² core: semiring registry, mmo API, closure solvers, distribution
+(``repro_torch.core.distributed``: the mesh schedules).
 
 As in the reference, the package name ``mmo`` is the function and shadows
 the module of the same name; reach the module with

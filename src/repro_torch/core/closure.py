@@ -123,28 +123,57 @@ def _batched_changed(new: Tensor, old: Tensor) -> Tensor:
   return ~_same(new, old).reshape(r, -1).all(dim=1)
 
 
-def _batched_fixpoint(adj: Tensor, step_fn, max_iters: int,
-                      valid_n=None):
-  """Iterate ``c ← step_fn(c, k_valid)`` per-request-masked to convergence."""
+def _fixpoint_state(adj: Tensor, valid_n=None) -> tuple:
+  """(iterate, active, iterations, valid_n) before a batched fixpoint's
+  first step."""
   r = adj.shape[0]
   dev = adj.device
   if valid_n is not None:
     valid_n = torch.as_tensor(valid_n, dtype=torch.int32, device=dev)
-  c = adj
   active = torch.ones((r,), dtype=torch.bool, device=dev)
   iters = torch.zeros((r,), dtype=torch.int32, device=dev)
+  return adj, active, iters, valid_n
+
+
+def _fixpoint_step(state: tuple, step_fn) -> tuple:
+  """One per-request-masked step ``c ← step_fn(c, k_valid)`` of a batched
+  fixpoint, with no host sync: converged requests are handed k_valid=0 and
+  frozen, and their counters stop."""
+  c, active, iters, valid_n = state
+  kv = None if valid_n is None else torch.where(
+      active, valid_n, torch.zeros_like(valid_n))
+  new = step_fn(c, kv)
+  new = torch.where(active[:, None, None], new, c)
+  changed = _batched_changed(new, c)
+  return new, active & changed, iters + active.to(torch.int32), valid_n
+
+
+def _batched_fixpoint(adj: Tensor, step_fn, max_iters: int,
+                      valid_n=None):
+  """Iterate ``c ← step_fn(c, k_valid)`` per-request-masked to convergence."""
+  state = _fixpoint_state(adj, valid_n)
   i = 0
-  while i < max_iters and bool(active.any()):
-    kv = None if valid_n is None else torch.where(
-        active, valid_n, torch.zeros_like(valid_n))
-    new = step_fn(c, kv)
-    # freeze converged requests so their results (and counters) stop moving
-    new = torch.where(active[:, None, None], new, c)
-    changed = _batched_changed(new, c)
-    iters = iters + active.to(torch.int32)
-    active = active & changed
-    c, i = new, i + 1
-  return c, iters
+  while i < max_iters and bool(state[1].any()):
+    state = _fixpoint_step(state, step_fn)
+    i += 1
+  return state[0], state[2]
+
+
+def _dispatch_fixpoint(adj: Tensor, *, op: str, algorithm: str,
+                       max_iters: Optional[int], backend: str,
+                       mmo_fn: Optional[Callable]) -> tuple:
+  """(first iterate, step function, iteration budget) of the batched
+  dispatch arm of ``algorithm`` ('leyzorek' or 'bellman_ford')."""
+  f = mmo_fn or _default_mmo
+  if algorithm == "leyzorek":
+    iters = _iters_leyzorek(adj.shape[-1], max_iters)
+    return (_iterate(adj, op),
+            lambda c, kv: f(c, c, c, op, backend, kv), iters)
+  if algorithm != "bellman_ford":
+    raise ValueError(f"unknown closure algorithm {algorithm!r}")
+  iters = max_iters if max_iters is not None else adj.shape[-1]
+  a = _iterate(adj, op)
+  return a, (lambda d, kv: f(d, a, d, op, backend, kv)), iters
 
 
 def _fused_arm(adj: Tensor, fixpoint_backend: str, backend: str) -> bool:
@@ -201,15 +230,15 @@ def batched_leyzorek_closure(adj: Tensor,
   iterations (kernels/closure_megakernel.py): the same outputs and
   iteration counts, bit for bit, with one host sync per chunk.
   """
-  iters = _iters_leyzorek(adj.shape[-1], max_iters)
   if _fused_arm(adj, fixpoint_backend, backend):
-    return _megakernel_fixpoint(adj, op=op, algorithm="leyzorek",
-                                max_iters=iters, valid_n=valid_n,
-                                megakernel_g=megakernel_g)
-  f = mmo_fn or _default_mmo
-  return _batched_fixpoint(_iterate(adj, op),
-                           lambda c, kv: f(c, c, c, op, backend, kv),
-                           iters, valid_n=valid_n)
+    return _megakernel_fixpoint(
+        adj, op=op, algorithm="leyzorek",
+        max_iters=_iters_leyzorek(adj.shape[-1], max_iters),
+        valid_n=valid_n, megakernel_g=megakernel_g)
+  c0, step, iters = _dispatch_fixpoint(adj, op=op, algorithm="leyzorek",
+                                       max_iters=max_iters, backend=backend,
+                                       mmo_fn=mmo_fn)
+  return _batched_fixpoint(c0, step, iters, valid_n=valid_n)
 
 
 def batched_bellman_ford_closure(adj: Tensor,
@@ -223,15 +252,15 @@ def batched_bellman_ford_closure(adj: Tensor,
                                  megakernel_g: int = 8):
   """All-pairs Bellman-Ford D ← D ⊕ (D ⊗ A) over a (R, n, n) request stack
   (see ``batched_leyzorek_closure``)."""
-  iters = max_iters if max_iters is not None else adj.shape[-1]
   if _fused_arm(adj, fixpoint_backend, backend):
-    return _megakernel_fixpoint(adj, op=op, algorithm="bellman_ford",
-                                max_iters=iters, valid_n=valid_n,
-                                megakernel_g=megakernel_g)
-  f = mmo_fn or _default_mmo
-  adj = _iterate(adj, op)
-  return _batched_fixpoint(adj, lambda d, kv: f(d, adj, d, op, backend, kv),
-                           iters, valid_n=valid_n)
+    return _megakernel_fixpoint(
+        adj, op=op, algorithm="bellman_ford",
+        max_iters=max_iters if max_iters is not None else adj.shape[-1],
+        valid_n=valid_n, megakernel_g=megakernel_g)
+  c0, step, iters = _dispatch_fixpoint(adj, op=op, algorithm="bellman_ford",
+                                       max_iters=max_iters, backend=backend,
+                                       mmo_fn=mmo_fn)
+  return _batched_fixpoint(c0, step, iters, valid_n=valid_n)
 
 
 def floyd_warshall(adj: Tensor, *, op: str) -> Tensor:

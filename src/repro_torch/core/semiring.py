@@ -5,8 +5,7 @@ where ⊕ is an addition-like reduction and ⊗ a multiplication-like element
 op contracted over the inner (k) dimension.  Nine (⊕, ⊗) pairs are exposed
 as SIMD² instructions (paper Table 2); this module registers them as torch
 ops with their identities, dtype rules and contraction pads.  Counterpart of
-``repro/core/semiring.py``; ``oplus_allreduce`` comes with the distributed
-slice (ROADMAP Queue 1 item 11).
+``repro/core/semiring.py``.
 """
 from __future__ import annotations
 
@@ -134,6 +133,48 @@ def get(name_or_sr) -> Semiring:
     raise ValueError(
         f"unknown SIMD² op {name_or_sr!r}; available: {sorted(_REGISTRY)}"
     ) from None
+
+
+# ---------------------------------------------------------------------------
+# ⊕ as a cross-shard collective.  Every SIMD² ⊕ is +, min, max or or, so a
+# K-sharded contraction needs only one generalized all-reduce
+# (core/distributed.py).
+# ---------------------------------------------------------------------------
+
+
+def oplus_reduce_parts(sr, parts) -> Tensor:
+  """The ⊕ of one tensor per shard, on the first part's device: a reduce
+  to shard 0.  The parts are reduced in shard order (peer copies of the
+  others).  + sums in the parts' dtype, as ``oplus_reduce`` does; or is a
+  logical or."""
+  sr = get(sr)
+  parts = list(parts)
+  if not parts:
+    raise ValueError("oplus_reduce_parts needs at least one part")
+  home = parts[0].device
+  total = parts[0]
+  for p in parts[1:]:
+    p = p.to(home, non_blocking=True)
+    if sr.boolean:
+      total = torch.logical_or(total, p)
+    elif sr.oplus is torch.add:
+      total = torch.add(total, p)
+    elif sr.oplus in (torch.minimum, torch.maximum):
+      total = sr.oplus(total, p)
+    else:
+      raise NotImplementedError(sr.name)
+  return total
+
+
+def oplus_allreduce(sr, parts) -> list:
+  """The ⊕ of one tensor per shard, returned on each shard's own device:
+  ``oplus_reduce_parts`` on the first part's device, then copied back to
+  every part's device."""
+  parts = list(parts)
+  if not parts:
+    raise ValueError("oplus_allreduce needs at least one part")
+  total = oplus_reduce_parts(sr, parts)
+  return [total.to(p.device, non_blocking=True) for p in parts]
 
 
 def oplus_reduce(sr, x: Tensor, dim: int) -> Tensor:

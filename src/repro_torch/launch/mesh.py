@@ -1,0 +1,107 @@
+"""Device meshes for the single-controller distributed schedules.
+
+Counterpart of ``repro/launch/mesh.py``'s ``make_host_mesh``.  The
+reference's mesh is a ``jax.sharding.Mesh`` that one process
+``shard_map``s over; the port keeps that single-controller design: one
+Python process issues every shard's work onto the devices of a ``Mesh``,
+and its collectives are peer copies (``Tensor.to(device)``) and
+⊕-reductions (``core/distributed.py``).  The same code then runs on 8 CPU
+shards in the tests, on shards of one card and on several cards joined by
+NVLink.
+
+A mesh whose shards share a device is built only from an explicit
+``devices=`` list: nothing picks one on its own.  ``make_production_mesh``
+and ``make_parallelism`` (the LM's TPU-pod layout) come with the LM
+sharding, ROADMAP Queue 1 item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+AXIS_NAMES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+  """An immutable (rows, cols) grid of ``torch.device``s with axis names.
+
+  ``shape`` maps each axis name to its size, as ``jax.sharding.Mesh.shape``
+  does; ``size`` is the number of shards.  Hashable, so a mesh can key the
+  serving engine's executable cache.  Shard (i, j) is ``devices[i][j]``;
+  ``flat`` lists them row by row.
+  """
+
+  devices: tuple
+  axis_names: tuple = AXIS_NAMES
+
+  def __post_init__(self):
+    grid = tuple(tuple(torch.device(d) for d in row) for row in self.devices)
+    names = tuple(str(a) for a in self.axis_names)
+    if len(names) != 2 or len(set(names)) != 2:
+      raise ValueError(f"a mesh has two distinct axis names, got {names}")
+    if not grid or not grid[0] or len({len(row) for row in grid}) != 1:
+      raise ValueError("mesh devices must form a non-empty (rows, cols) grid")
+    kinds = {d.type for row in grid for d in row}
+    if len(kinds) != 1:
+      raise ValueError(f"a mesh holds devices of one type, got {sorted(kinds)}")
+    object.__setattr__(self, "devices", grid)
+    object.__setattr__(self, "axis_names", names)
+
+  @property
+  def shape(self) -> dict:
+    return {self.axis_names[0]: len(self.devices),
+            self.axis_names[1]: len(self.devices[0])}
+
+  @property
+  def size(self) -> int:
+    return len(self.devices) * len(self.devices[0])
+
+  @property
+  def flat(self) -> tuple:
+    return tuple(d for row in self.devices for d in row)
+
+  @property
+  def device_type(self) -> str:
+    return self.devices[0][0].type
+
+
+def available_devices(device: str) -> list:
+  """Every device of ``device``'s type this process can use: the cards
+  present, or the one CPU."""
+  kind = torch.device(device).type
+  if kind == "cuda":
+    if not torch.cuda.is_available():
+      raise RuntimeError("a CUDA mesh was requested but "
+                         "torch.cuda.is_available() is false")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+  if kind == "cpu":
+    return [torch.device("cpu")]
+  raise ValueError(f"no mesh over devices of type {kind!r}")
+
+
+def make_host_mesh(n_devices: int = 0, model: int = 2, *,
+                   device: str = "cuda",
+                   devices: Sequence | None = None) -> Mesh:
+  """A (n // model, model) mesh over ``n_devices`` devices (0: all).
+
+  Without ``devices`` it takes the devices of ``device``'s type that exist
+  (``cuda``: the cards present) and raises when fewer exist than asked
+  for.  ``devices`` names the shards outright, repeats allowed: e.g.
+  ``["cpu"] * 8`` in the tests, or ``["cuda:0"] * 4`` for a virtual mesh
+  of four shards of one card.
+  """
+  pool = (available_devices(device) if devices is None
+          else [torch.device(d) for d in devices])
+  n = n_devices or len(pool)
+  if n > len(pool):
+    raise ValueError(f"a mesh of {n} devices was asked for, but only "
+                     f"{len(pool)} exist")
+  model = min(model, n)
+  if model < 1 or n % model:
+    raise ValueError(f"{n} devices do not split into rows of {model}")
+  pool = pool[:n]
+  return Mesh(tuple(tuple(pool[r * model:(r + 1) * model])
+                    for r in range(n // model)))

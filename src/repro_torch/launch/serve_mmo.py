@@ -26,9 +26,13 @@
     # break K1 persistently: its breakers open and traffic moves to 'xla'
     PYTHONPATH=src python -m repro_torch.launch.serve_mmo \
         --inject-faults "execute:persistent:backend=pallas" --watchdog-s 5
+    # sharded serving over a 2 x 2 mesh of the cards present: buckets of
+    # at least 1e8 flops per request go to SUMMA, the rest stay local
+    PYTHONPATH=src python -m repro_torch.launch.serve_mmo --mesh 2,2 \
+        --schedule summa --shard-flops 1e8
 
-Counterpart of ``repro/launch/serve_mmo.py`` (without the mesh options,
-which come with ROADMAP Queue 1 item 11).  Generates a Poisson arrival stream of mixed SIMD² problems (APSP,
+Counterpart of ``repro/launch/serve_mmo.py``.  Generates a Poisson arrival
+stream of mixed SIMD² problems (APSP,
 KNN, reachability, raw minplus mmo at several sizes), submits each request
 at its arrival time against the engine's background serving loop, and
 reports throughput (problems/s), latency percentiles and executable-cache
@@ -106,6 +110,18 @@ def main(argv=None):
   ap.add_argument("--device", default="cuda",
                   help="torch device to serve on (default cuda; fails "
                        "without a card)")
+  ap.add_argument("--mesh", default=None, metavar="DP,MP",
+                  help="device mesh axis sizes, e.g. '2,2' (data=2, "
+                       "model=2), over the devices of --device's type that "
+                       "exist; enables the sharded bucket path")
+  ap.add_argument("--schedule", default="auto",
+                  choices=("auto", "dp", "summa", "kspan", "ring", "local"),
+                  help="distributed schedule for over-threshold buckets "
+                       "(auto: cost-table mesh rows / sharded prior; dp: "
+                       "requests sharded over all devices)")
+  ap.add_argument("--shard-flops", type=float, default=1e8,
+                  help="per-request contraction FLOP cutoff above which a "
+                       "bucket routes to the mesh")
   ap.add_argument("--cost-table", default=None, metavar="PATH",
                   help="JSON cost table for --backend auto (see "
                        "repro_torch.tuning.autotune); defaults to "
@@ -199,6 +215,26 @@ def main(argv=None):
              f"{args.sizes!r}")
   rng = np.random.default_rng(args.seed)
 
+  mesh = None
+  if args.mesh:
+    from repro_torch.launch.mesh import available_devices, make_host_mesh
+    try:
+      dims = tuple(int(x) for x in args.mesh.split(","))
+      if not 1 <= len(dims) <= 2 or any(d <= 0 for d in dims):
+        raise ValueError
+    except ValueError:
+      ap.error(f"--mesh must be 'dp,mp' positive ints, got {args.mesh!r}")
+    if len(dims) == 1:
+      dims = (1, dims[0])
+    need, have = dims[0] * dims[1], len(available_devices(args.device))
+    if need > have:
+      ap.error(f"--mesh {args.mesh} needs {need} devices, host has {have}")
+    mesh = make_host_mesh(need, model=dims[1], device=args.device)
+    print(f"[serve_mmo] mesh data={dims[0]} × model={dims[1]} "
+          f"schedule={args.schedule} shard_flops={args.shard_flops:g}")
+  elif args.schedule != "auto":
+    ap.error(f"--schedule {args.schedule} requires --mesh")
+
   cost_table = None
   if args.backend == "auto":
     cost_table = _auto_table(ap, args, sizes)
@@ -214,7 +250,9 @@ def main(argv=None):
 
   engine = MMOEngine(backend=args.backend, max_batch=args.max_batch,
                      min_bucket=args.min_bucket, device=args.device,
-                     cost_table=cost_table, policy=args.policy,
+                     cost_table=cost_table, mesh=mesh,
+                     schedule=args.schedule if mesh else "auto",
+                     shard_flops=args.shard_flops, policy=args.policy,
                      max_queue=args.max_queue,
                      tenant_quota=args.tenant_quota,
                      max_backlog_s=args.max_backlog_s,
@@ -327,6 +365,11 @@ def main(argv=None):
           f"open_now={open_now}")
     if injector is not None:
       print(f"[serve_mmo] injector: {injector.stats()}")
+  if mesh is not None:
+    placed: dict = {}
+    for sched in engine._schedules.values():
+      placed[sched] = placed.get(sched, 0) + 1
+    print(f"[serve_mmo] mesh placement (buckets per schedule): {placed}")
   if args.backend == "auto":
     arms: dict = {}
     for backend, _ in engine._decisions.values():

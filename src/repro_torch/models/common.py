@@ -4,8 +4,8 @@ the primitives every block uses.
 Counterpart of ``repro/models/common.py``.  Parameters are plain tensors in
 ``param_dtype`` (f32) and are cast to ``cfg.dtype`` (bf16) at each use, as
 the reference casts them inside its jitted step.  The mesh and sharding
-helpers (``Parallelism``, ``spec_for``, ``constrain_acts``) belong to the
-distributed slice (ROADMAP item 11) and are not here.
+helpers (``Parallelism``, ``spec_for``, ``constrain_acts``) come with the
+LM sharding, ROADMAP Queue 1 item 13, and are not here.
 """
 from __future__ import annotations
 

@@ -15,6 +15,12 @@ from __future__ import annotations
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "bool": 1979e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES_S = 3.35e12
+# NVLink 4 between the cards of one host: 900 GB/s per card in total,
+# 450 GB/s each way (NVIDIA H100 SXM5 data sheet).  The collective model
+# (``tuning/cost_table.sharded_prior_seconds``) charges a shard's ring
+# traffic at the one-way rate.  The TPU model's ICI_BW_PER_LINK has no
+# counterpart here.
+NVLINK_BYTES_S = 450e9
 
 # CUDA-core instruction issue: 132 SMs × 128 lanes, one instruction per lane
 # per clock at the SM clock.  A min/max ring term is two instructions (an

@@ -21,17 +21,20 @@ recovery and telemetry layers:
                   feasibility, backlog admission and the batch cap
                   (``adaptive=True``),
   batching.py   — pad-and-stack micro-batcher: one batch function per bucket
-                  executes a whole request batch on the device (per-request
+                  executes a whole request batch on the device, or sharded
+                  over a mesh by a distributed schedule (per-request
                   convergence masks for closures),
   arena.py      — device-resident slot buffer for closure buckets: admit
                   between fused K2 ticks, evict on convergence,
-  cache.py      — executable cache keyed by (bucket, batch, backend),
+  cache.py      — executable cache keyed by (bucket, batch, backend,
+                  block, schedule, mesh),
   engine.py     — submit()/futures, synchronous step() or a background
                   serving loop, per-request latency stats, and the recovery
                   driver (bounded retries, bisection, watchdog, NaN
                   validation); ``backend="auto"`` dispatches each bucket
-                  from the cost table; ``mode="arena"`` serves closures
-                  from arenas,
+                  from the cost table; ``mesh=`` routes big buckets to a
+                  distributed schedule (``schedule``, ``shard_flops``);
+                  ``mode="arena"`` serves closures from arenas,
   faults.py     — deterministic, seedable fault injection (compile /
                   execute / nonfinite / slow points; persistent, transient
                   and seeded-rate schedules) threaded through engine hooks,

@@ -146,25 +146,46 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
   through the fused fixpoint K2, with the chunk length G taken from
   ``block[0]`` (default 8); ``mmo`` refuses it for single contractions.
   Building for a kernel arm on a card also loads (building if needed) the
-  kernel's library, so the first batch pays no build.  Only the
-  single-device ``schedule="local"`` is ported; mesh schedules wait for
-  ROADMAP Queue 1 item 11.
+  kernel's library, so the first batch pays no build.
+
+  ``schedule`` places the bucket: ``"local"`` runs the single-device
+  entry points on ``device``; a name from ``core.distributed.SCHEDULES``
+  runs the same work over ``mesh`` (kspan, SUMMA and ring shard the
+  problem axes, ``"dp"`` the request axis: for closures, one independent
+  fixpoint per shard), with ``backend`` as each shard's contraction and the
+  ragged ``k_valid``/``valid_n`` masks carried through.  A ``'megakernel'``
+  decision on a mesh-routed closure bucket runs its shards on ``'pallas'``
+  (K1): the fused arm is a single-device program.  (The reference's
+  shards fall back to ``'xla'`` there; the port's ``'xla'`` arm for the
+  min/max rings is plain tensor code, which would hide the kernel.)
   """
-  if mesh is not None or schedule != "local":
-    raise NotImplementedError(
-        "sharded bucket schedules are not ported yet (ROADMAP Queue 1 item "
-        "11, distributed schedules)")
+  sharded = schedule != "local"
+  if sharded and mesh is None:
+    raise ValueError(f"schedule {schedule!r} needs a mesh")
+  local_bk = backend
+  if sharded and backend == "megakernel":
+    # K2's chunk length G is no block config of K1's: the shards take none
+    local_bk, block = "pallas", ()
   if torch.device(device).type == "cuda":
-    if backend == "pallas":
+    if local_bk == "pallas":
       from repro_torch.kernels.semiring_mmo import load
       load()
-    elif backend == "megakernel":
+    elif local_bk == "megakernel":
       from repro_torch.kernels import closure_megakernel as _mk
       _mk.load()
 
-  def contract(a, b, c, op, kv):
-    return mmo_batched(a, b, c, op=op, backend=backend, block=block,
-                       k_valid=kv)
+  if sharded:
+    from repro_torch.core import distributed as dist
+
+    def contract(a, b, c, op, kv):
+      return dist.mmo_sharded_batched(a, b, c, op=op, schedule=schedule,
+                                      mesh=mesh, backend=local_bk,
+                                      block=block, k_valid=kv)
+  else:
+
+    def contract(a, b, c, op, kv):
+      return mmo_batched(a, b, c, op=op, backend=backend, block=block,
+                         k_valid=kv)
 
   if key.kind == "mmo":
     (has_c,) = key.params
@@ -179,6 +200,17 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
 
   if key.kind == "closure":
     (algorithm,) = key.params
+    if sharded:
+
+      def fn(adj, valid):
+        return dist.sharded_closure_batched(adj, op=key.op,
+                                            algorithm=algorithm, mesh=mesh,
+                                            schedule=schedule,
+                                            backend=local_bk, block=block,
+                                            valid_n=valid)
+
+      return fn
+
     solver = (cl_mod.batched_leyzorek_closure if algorithm == "leyzorek"
               else cl_mod.batched_bellman_ford_closure)
 

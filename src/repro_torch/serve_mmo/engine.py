@@ -14,7 +14,8 @@ estimator (serve_mmo/estimator.py), a flight recorder
 (serve_mmo/observability.py), per-arm circuit breakers
 (serve_mmo/resilience.py), an executable cache and the request
 bookkeeping; it runs on one device (``device="cuda"`` by default, which
-raises without a card).  Two ways to run it:
+raises without a card), or with a ``mesh`` shards big buckets over it.
+Two ways to run it:
 
   * synchronous — ``submit()`` then ``step()`` / ``run_until_idle()`` (or
     just ``future.result()``, which drives steps lazily);
@@ -45,9 +46,16 @@ bucket's trip count, or with ``adaptive=True`` the estimator's live EWMA
 of measured service.  The first run of each batch function is kept out of
 that EWMA (on a card it pays CUDA's lazy module load).
 
-The reference engine's mesh knobs belong to ROADMAP Queue 1 item 11.  Each
-is accepted by name and raises ``NotImplementedError`` naming that item
-when set to anything but its inert value; none is silently ignored.
+With a ``mesh`` (``launch.mesh.Mesh``), a second routing layer places each
+bucket: a bucket whose per-request contraction reaches ``shard_flops``
+runs as a batched distributed schedule over the mesh
+(``core.distributed``: dp, kspan, SUMMA or ring, each shard's contraction
+on the bucket's backend), smaller ones stay on ``device``.
+``schedule="auto"`` picks the schedule from the cost table's mesh rows (the
+sharded prior where they are unmeasured); a schedule name pins it.  The
+(schedule, mesh) placement is part of the executable-cache key and of the
+arm that breakers, the estimator, the flight recorder and the Prometheus
+labels name.
 """
 from __future__ import annotations
 
@@ -83,37 +91,16 @@ from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
                                              bucket_dim, contract_shape,
                                              request_bucket)
 
-_ITEM11 = "Queue 1 item 11 (distributed schedules)"
-
-# reference knob → (values that ask for nothing, ROADMAP.md item porting it)
-_UNPORTED_KNOBS = {
-    "mesh": ((None,), _ITEM11),
-    "schedule": (("auto", "local"), _ITEM11),
-    "shard_flops": ((None,), _ITEM11),
-}
 # the engine-wide backends: the per-contraction arms, the fused fixpoint
 # arm, which serves closure buckets (others take 'pallas'), and 'auto'
 ENGINE_BACKENDS = BACKENDS + ("megakernel", "auto")
 MODES = ("batch", "arena")
-# every bucket runs on the one device: the arms' schedule
+# the schedule of a bucket that runs on the engine's own device
 _LOCAL = "local"
 # the arena's arm for breaker and estimator accounting: one per closure
 # bucket, never re-dispatched (per-slot state isolates a poisoned request)
 _ARENA = "arena"
 _ARENA_ARM = (_ARENA, (), _LOCAL)
-
-
-def _check_knobs(knobs: dict) -> None:
-  for name, value in knobs.items():
-    if name not in _UNPORTED_KNOBS:
-      raise TypeError(f"MMOEngine() got an unexpected keyword argument "
-                      f"{name!r}")
-    inert, item = _UNPORTED_KNOBS[name]
-    if not any(value is v or (type(value) is type(v) and value == v)
-               for v in inert):
-      raise NotImplementedError(
-          f"MMOEngine({name}={value!r}) is not ported yet: see ROADMAP.md "
-          f"{item}")
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -186,6 +173,12 @@ class MMOEngine:
   traffic is active (``deadline_lookback_s`` after the last one).
   ``metrics_window`` sizes the rolling latency windows.
 
+  ``mesh`` (a ``launch.mesh.Mesh`` of the engine's device type),
+  ``schedule`` ('auto', 'local' or one of ``core.distributed.SCHEDULES``)
+  and ``shard_flops`` (the per-request contraction FLOPs from which a
+  bucket may go to the mesh) configure sharded serving; see the module
+  docstring.  A pinned schedule needs a mesh.
+
   ``mode="arena"`` serves closure buckets from one ``RequestArena`` each
   (``arena_capacity`` slots, ``arena_g`` fused iterations per tick): queued
   closure requests enter free slots the moment they reach the queue head,
@@ -212,7 +205,8 @@ class MMOEngine:
 
   def __init__(self, *, backend: str = "pallas", max_batch: int = 8,
                min_bucket: int = MIN_BUCKET, device=DEFAULT_DEVICE,
-               cost_table=None, policy="fifo",
+               cost_table=None, mesh=None, schedule: str = "auto",
+               shard_flops: float = 1e8, policy="fifo",
                max_queue: Optional[int] = None, tenant_quota=None,
                max_backlog_s: Optional[float] = None,
                admission: Optional[AdmissionController] = None,
@@ -233,8 +227,14 @@ class MMOEngine:
                fallback_backends=None,
                resilience: Optional[ResilienceManager] = None,
                mode: str = "batch", arena_capacity: int = DEFAULT_CAPACITY,
-               arena_g: int = DEFAULT_ARENA_G, **knobs):
-    _check_knobs(knobs)
+               arena_g: int = DEFAULT_ARENA_G):
+    from repro_torch.core import distributed as dist
+    valid_schedules = ("auto", _LOCAL) + dist.SCHEDULES
+    if schedule not in valid_schedules:
+      raise ValueError(f"unknown schedule {schedule!r}; one of "
+                       f"{valid_schedules}")
+    if mesh is None and schedule not in ("auto", _LOCAL):
+      raise ValueError(f"schedule {schedule!r} needs a mesh")
     if mode not in MODES:
       raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if backend not in ENGINE_BACKENDS:
@@ -244,6 +244,15 @@ class MMOEngine:
       raise ValueError(f"arena_capacity and arena_g must be >= 1, got "
                        f"{arena_capacity} and {arena_g}")
     self.device = resolve_device(device)
+    if mesh is not None and mesh.device_type != self.device.type:
+      raise ValueError(f"a mesh of {mesh.device_type} devices cannot serve "
+                       f"an engine on {self.device}")
+    self.mesh = mesh
+    self.schedule = schedule
+    self.shard_flops = float(shard_flops)
+    self._mesh_sig = None if mesh is None else tuple(
+        (a, int(mesh.shape[a])) for a in mesh.axis_names)
+    self._schedules: dict = {}  # BucketKey → 'local' | a mesh schedule
     self.backend = backend
     self.cost_table = cost_table
     self.mode = mode
@@ -360,8 +369,11 @@ class MMOEngine:
     if self.mode == "arena" and key.kind == "closure":
       return self.estimator.predict(key, _ARENA, _LOCAL, contraction_s,
                                     trips)
-    backend, _ = self.resolve_backend(key)
-    return self.estimator.predict(key, backend, _LOCAL, contraction_s, trips)
+    with self._lock:
+      backend, _ = self.resolve_backend(key)
+      schedule = self.resolve_schedule(key)
+    return self.estimator.predict(key, backend, schedule, contraction_s,
+                                  trips)
 
   def predict_request_seconds(self, key) -> float:
     """``predict_request`` without the provenance: the scheduler hook."""
@@ -455,17 +467,64 @@ class MMOEngine:
         self._decisions[key] = dec
       return dec
 
+  def resolve_schedule(self, key) -> str:
+    """Mesh placement for one bucket: 'local' or a schedule name.
+    Memoized under the engine lock like ``resolve_backend`` (stable cache
+    keys); without a mesh every bucket is 'local'."""
+    with self._lock:
+      sched = self._schedules.get(key)
+      if sched is None:
+        sched = self._route(key)
+        self._schedules[key] = sched
+      return sched
+
+  def _route(self, key) -> str:
+    """The size-threshold router: a bucket whose per-request contraction is
+    below ``shard_flops`` stays local.  Above it, a pinned ``schedule``
+    runs where it divides onto the mesh; ``"auto"`` asks the cost table's
+    mesh rows (the sharded prior where unmeasured) whether a schedule beats
+    the local arm.  Closure buckets consider only dp (one independent
+    fixpoint per shard) and SUMMA (the contraction schedule whose iterate
+    stays sharded in place)."""
+    if self.mesh is None or self.schedule == _LOCAL:
+      return _LOCAL
+    m, k, n = contract_shape(key)
+    if 2.0 * m * k * n < self.shard_flops:
+      return _LOCAL
+    from repro_torch.core import distributed as dist
+    fits = [s for s in dist.SCHEDULES
+            if dist.schedule_fits(s, m, k, n, self.mesh)]
+    if key.kind == "closure":
+      fits = [s for s in fits if s in ("dp", "summa")]
+    if self.schedule != "auto":
+      return self.schedule if self.schedule in fits else _LOCAL
+    if not fits:
+      return _LOCAL
+    from repro_torch.tuning import dispatch as _dispatch
+    mesh_dims = tuple(s for _, s in self._mesh_sig)
+    d = _dispatch.resolve(key.op, m, k, n, key.dtypes[0],
+                          table=self.cost_table, mesh_shape=mesh_dims,
+                          schedules=tuple(fits))
+    return d.backend if d.backend in fits else _LOCAL
+
+  def resolve_placement(self, key, rb: Optional[int] = None) -> tuple:
+    """(backend, block cfg, schedule): the bucket's primary arm.  The
+    backend doubles as each shard's contraction when the bucket goes to the
+    mesh.  With ``rb`` (the padded batch size), dp falls back to 'local'
+    for a batch that does not divide over the mesh's shards; rb is part of
+    the executable-cache key, so the refinement is deterministic."""
+    backend, block = self.resolve_backend(key)
+    schedule = self.resolve_schedule(key)
+    if schedule == "dp" and rb is not None and rb % self.mesh.size:
+      schedule = _LOCAL
+    return backend, block, schedule
+
   def _exec_key(self, key, rb: int, backend: str, block: tuple,
                 schedule: str) -> tuple:
-    """Executable-cache key, laid out as the reference's (placement
-    included; the mesh slot stays None until sharding is ported)."""
-    return (key, rb, backend, block, schedule, None)
-
-  def resolve_placement(self, key) -> tuple:
-    """(backend, block cfg, schedule): the bucket's primary arm.  Every
-    bucket runs on the one device, so the schedule is 'local'."""
-    backend, block = self.resolve_backend(key)
-    return backend, block, _LOCAL
+    """Executable-cache key: the placement is in it, so a bucket's sharded
+    and local functions (or those of two meshes) never collide."""
+    return (key, rb, backend, block, schedule,
+            None if schedule == _LOCAL else self._mesh_sig)
 
   def _expire_locked(self, reqs) -> None:
     """Fail requests whose deadline passed while queued, or that the policy
@@ -629,7 +688,7 @@ class MMOEngine:
     label = bucket_label(key)
     rids = [r.request_id for r in reqs]
     rb = self._batch_bucket(len(reqs))
-    arm, probe = self.resilience.pick(key, self.resolve_placement(key),
+    arm, probe = self.resilience.pick(key, self.resolve_placement(key, rb),
                                       lambda: self._fallback_arms(key))
     backend, block, schedule = arm
     if self.tracer.enabled and probe:
@@ -657,7 +716,8 @@ class MMOEngine:
       compiled = self.cache.get_or_compile(
           exec_key,
           lambda: batching.make_batch_fn(key, backend=backend, block=block,
-                                         device=self.device),
+                                         device=self.device, mesh=self.mesh,
+                                         schedule=schedule),
           stacked)
       cache_hit = self.cache.misses == misses_before
       # service observations start after the build, as the reference's
@@ -828,16 +888,21 @@ class MMOEngine:
   def _fallback_arms(self, key) -> tuple:
     """Sibling arms for breaker re-dispatch, best first: every arm computes
     the same result for this bucket (the SIMD² property), so traffic can
-    move between them.  'xla' and 'pallas' (minus the primary) are ranked
-    by the cost table's seconds, then 'vector' — the blocked plain arm —
-    comes last.  ``fallback_backends`` overrides the order outright
+    move between them.  A mesh-routed bucket's first sibling is its own
+    backend on the local path (the same kernel without the mesh); then
+    'xla' and 'pallas' (minus the primary) ranked by the cost table's
+    seconds, then 'vector' — the blocked plain arm — last, all local.
+    ``fallback_backends`` overrides the backend order outright
     ('megakernel' only for closure buckets, which alone can run it).
     Memoized per bucket: stable executable-cache keys."""
     with self._lock:
       memo = self._fallback_arms_memo.get(key)
       if memo is not None:
         return memo
-      primary, _ = self.resolve_backend(key)
+      primary, block = self.resolve_backend(key)
+      arms = []
+      if self.resolve_schedule(key) != _LOCAL:
+        arms.append((primary, block, _LOCAL))
       if self.fallback_backends is not None:
         order = [b for b in self.fallback_backends
                  if b != primary and (b != "megakernel"
@@ -860,7 +925,8 @@ class MMOEngine:
         order = [b for _, b in ranked]
         if primary != "vector":
           order.append("vector")
-      memo = tuple((b, (), _LOCAL) for b in order)
+      arms.extend((b, (), _LOCAL) for b in order)
+      memo = tuple(arms)
       self._fallback_arms_memo[key] = memo
       return memo
 
@@ -1123,11 +1189,12 @@ class MMOEngine:
         continue
       rb = 1
       while True:
-        backend, block, schedule = self.resolve_placement(key)
+        backend, block, schedule = self.resolve_placement(key, rb)
         self.cache.get_or_compile(
             self._exec_key(key, rb, backend, block, schedule),
             lambda: batching.make_batch_fn(key, backend=backend, block=block,
-                                           device=self.device),
+                                           device=self.device,
+                                           mesh=self.mesh, schedule=schedule),
             batching.abstract_batch(key, rb))
         if rb >= max_batch:
           break

@@ -4,15 +4,20 @@
     PYTHONPATH=src python -m repro_torch.tuning.autotune --dry-prior \
         --out t.json
 
-Counterpart of ``repro/tuning/autotune.py`` for one device (the mesh sweep,
-``tune_mesh`` / ``measure_sharded_point``, waits for ROADMAP Queue 1 item
-11).  Every point is first seeded with the analytic prior, then (unless
+    # the distributed schedules on a 2 x 2 mesh of the cards present
+    PYTHONPATH=src python -m repro_torch.tuning.autotune --mesh 2,2 \
+        --schedules dp,summa --out t.json
+
+Counterpart of ``repro/tuning/autotune.py``.  Every point is first seeded
+with the analytic prior, then (unless
 ``--dry-prior``) measured on the device: on a card with ``torch.cuda.Event``
 pairs around each call, after ``warmup`` calls that also pay CUDA's lazy
 module load; on the CPU with ``time.perf_counter``.  The best of ``iters``
 calls is recorded.  Measured beats prior in the table, so re-running the
 tuner only sharpens it.  ``--dry-prior`` runs the whole sweep → record →
-serialize path with no device at all.
+serialize path with no device at all.  ``tune_mesh`` (``--mesh``) does the
+same for the distributed schedule arms on a device mesh: one mesh row per
+(point, schedule), in seconds per request.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ import torch
 from repro_torch.core import semiring as sr_mod
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.tuning.cost_table import (CostTable, DEFAULT_CONFIGS,
-                                           bucket_shape, prior_seconds)
+                                           SCHEDULE_ARMS, bucket_shape,
+                                           prior_seconds,
+                                           sharded_prior_seconds)
 
 DEFAULT_OPS = ("mma", "minplus", "maxmin", "maxmul", "orand", "addnorm")
 DEFAULT_SHAPES = ((64, 64, 64), (128, 128, 128), (64, 256, 64))
@@ -201,6 +208,88 @@ def tune(*,
   return table
 
 
+def measure_sharded_point(op: str, shape, dtype, schedule: str, mesh, *,
+                          requests: Optional[int] = None, iters: int = 3,
+                          warmup: int = 1) -> float:
+  """Best-of seconds *per request* for one distributed-schedule arm: one
+  batched sharded contraction over ``requests`` (default: one per shard,
+  the smallest batch every schedule can shard) with each shard's
+  contraction on 'pallas' (K1 on a card), divided by the request count.  Timed with
+  CUDA events on the mesh's first card (every shard's work is on the
+  streams by then, since the call ends in a copy back to that card), the
+  host clock on the CPU."""
+  from repro_torch.core.distributed import mmo_sharded_batched
+  r = requests if requests is not None else mesh.size
+  dev = mesh.devices[0][0]
+  ops = [_operands(op, shape, dtype, seed=i) for i in range(r)]
+  a = torch.from_numpy(np.stack([o[0] for o in ops])).to(dev)
+  b = torch.from_numpy(np.stack([o[1] for o in ops])).to(dev)
+
+  def run():
+    return mmo_sharded_batched(a, b, op=op, schedule=schedule, mesh=mesh,
+                               backend="pallas")
+
+  return _best_of(run, dev, iters, warmup) / r
+
+
+def tune_mesh(*,
+              dims: Sequence[int],
+              mesh=None,
+              ops: Sequence[str] = DEFAULT_OPS,
+              shapes: Sequence[tuple] = DEFAULT_SHAPES,
+              dtypes: Sequence[str] = ("float32",),
+              schedules: Sequence[str] = SCHEDULE_ARMS,
+              table: Optional[CostTable] = None,
+              device=DEFAULT_DEVICE,
+              iters: int = 3,
+              warmup: int = 1,
+              dry_prior: bool = False,
+              verbose: bool = False) -> CostTable:
+  """Sweep the distributed-schedule arms on a (rows, cols) mesh: the
+  sharded prior for every point, and a measurement on ``mesh`` (by default
+  one built over the devices of ``device``'s type that exist) unless
+  ``dry_prior``, which needs no device.  Points a schedule cannot shard
+  (``core.distributed.schedule_fits``) keep their prior only.  Updates and
+  returns ``table``."""
+  dims = tuple(int(d) for d in dims)
+  if table is None:
+    table = CostTable(device="prior-only" if dry_prior
+                      else _device_label(device if mesh is None
+                                         else mesh.devices[0][0]))
+  if not dry_prior:
+    from repro_torch.core.distributed import schedule_fits
+    if mesh is None:
+      from repro_torch.launch.mesh import make_host_mesh
+      mesh = make_host_mesh(dims[0] * dims[-1], model=dims[-1],
+                            device=device)
+    if (mesh.shape[mesh.axis_names[0]], mesh.shape[mesh.axis_names[-1]]) \
+        != (dims[0], dims[-1]):
+      raise ValueError(f"mesh shape {mesh.shape} is not {dims}")
+  for op in ops:
+    op_dtypes = ("bool",) if sr_mod.get(op).boolean else dtypes
+    for shape in shapes:
+      m, k, n = bucket_shape(shape)
+      for dtype in op_dtypes:
+        for sched in schedules:
+          if sched not in SCHEDULE_ARMS:
+            raise ValueError(f"unknown schedule {sched!r}; one of "
+                             f"{SCHEDULE_ARMS}")
+          table.record(op, shape, dtype, sched, dims,
+                       sharded_prior_seconds(op, (m, k, n), dtype, sched,
+                                             dims, backend="pallas"),
+                       source="prior")
+          if dry_prior or not schedule_fits(sched, m, k, n, mesh):
+            continue
+          seconds = measure_sharded_point(op, shape, dtype, sched, mesh,
+                                          iters=iters, warmup=warmup)
+          table.record(op, shape, dtype, sched, dims, seconds,
+                       source="measured")
+          if verbose:
+            print(f"[autotune] {op} {shape} {dtype} {sched}@{dims}: "
+                  f"{seconds * 1e6:.1f}us", file=sys.stderr)
+  return table
+
+
 def tune_for_requests(reqs, **kw) -> CostTable:
   """Tune exactly the (op, contraction shape, dtype) points a sample of
   serving requests exercises: the engine-warmup entry point."""
@@ -242,6 +331,14 @@ def main(argv=None) -> int:
   ap.add_argument("--device", default=DEFAULT_DEVICE,
                   help="torch device to measure on (default cuda; fails "
                        "without a card)")
+  ap.add_argument("--mesh", default=None, metavar="ROWS,COLS",
+                  help="also sweep the distributed-schedule arms "
+                       f"({','.join(SCHEDULE_ARMS)}) on a mesh of this shape "
+                       "over the devices present, recording the mesh rows "
+                       "the sharded serving path dispatches from "
+                       "(--dry-prior needs no devices)")
+  ap.add_argument("--schedules", default=",".join(SCHEDULE_ARMS),
+                  help="comma-separated schedule arms for --mesh")
   ap.add_argument("-v", "--verbose", action="store_true")
   args = ap.parse_args(argv)
 
@@ -254,6 +351,20 @@ def main(argv=None) -> int:
     ap.error(f"--shapes must be comma-separated MxKxN triples, got "
              f"{args.shapes!r}")
 
+  dims = None
+  if args.mesh:
+    try:
+      dims = tuple(int(x) for x in args.mesh.split(","))
+      if len(dims) != 2 or any(d <= 0 for d in dims):
+        raise ValueError
+    except ValueError:
+      ap.error(f"--mesh must be 'rows,cols' positive ints, got {args.mesh!r}")
+    if not args.dry_prior:
+      from repro_torch.launch.mesh import available_devices
+      need, have = dims[0] * dims[1], len(available_devices(args.device))
+      if need > have:
+        ap.error(f"--mesh {args.mesh} needs {need} devices, host has {have}")
+
   table = CostTable.load(args.out) if args.update else None
   backends = tuple(args.backends.split(",")) if args.backends else None
   table = tune(ops=tuple(args.ops.split(",")), shapes=shapes,
@@ -261,6 +372,13 @@ def main(argv=None) -> int:
                backends=backends, table=table, device=args.device,
                iters=args.iters, warmup=args.warmup,
                dry_prior=args.dry_prior, verbose=args.verbose)
+  if dims is not None:
+    table = tune_mesh(dims=dims, ops=tuple(args.ops.split(",")),
+                      shapes=shapes, dtypes=tuple(args.dtypes.split(",")),
+                      schedules=tuple(args.schedules.split(",")),
+                      table=table, device=args.device, iters=args.iters,
+                      warmup=args.warmup, dry_prior=args.dry_prior,
+                      verbose=args.verbose)
   table.save(args.out)
   counts = table.counts()
   print(f"[autotune] wrote {args.out}: {len(table)} entries "

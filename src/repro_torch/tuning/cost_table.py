@@ -1,10 +1,9 @@
 """Versioned JSON cost table with an analytic roofline prior for the H100.
 
-Counterpart of ``repro/tuning/cost_table.py``, minus the distributed
-schedule rows (``SCHEDULE_ARMS``, ``sharded_prior_seconds``: ROADMAP Queue 1
-item 11).  One entry per *point* — (op, contraction shape bucket, dtype,
-backend, block config) — holding the best-of seconds measured on the live
-device, or a roofline estimate for points nobody has measured yet.  A
+Counterpart of ``repro/tuning/cost_table.py``.  One entry per *point* —
+(op, contraction shape bucket, dtype, backend, block config) — holding the
+best-of seconds measured on the live device, or a roofline estimate for
+points nobody has measured yet.  A
 measured entry always beats a prior at the same point (``record`` enforces
 the precedence); across points, ``best`` is a plain argmin over seconds.
 
@@ -32,6 +31,13 @@ moves at ``hw.PEAK_BYTES_S`` and its compute term (``roofline/hw.py``):
               term, and bytes that include writing and reading the
               (m, bk, n) ⊗ intermediate of every K block and the running
               ⊕ of each block.
+
+Mesh rows (``SCHEDULE_ARMS``) hold one distributed schedule's seconds per
+request on a (rows, cols) mesh: the backend column is the schedule and the
+cfg column the mesh shape (``...|summa|2x2``), as in the reference's
+tables.  Their prior (``sharded_prior_seconds``) is the per-shard local
+prior above plus the ring-model traffic (``roofline/collectives.py``) at
+the NVLink rate, plus ``DP_OVERHEAD_S``.
 """
 from __future__ import annotations
 
@@ -47,9 +53,10 @@ from repro_torch.core import semiring as sr_mod
 from repro_torch.roofline import hw
 
 __all__ = ["SCHEMA_VERSION", "MIN_BUCKET", "DEFAULT_CONFIGS",
-           "CLOSURE_BACKENDS", "Decision", "CostEntry", "CostTable",
-           "bucket_dim", "bucket_shape", "dtype_name", "signature",
-           "prior_seconds"]
+           "CLOSURE_BACKENDS", "SCHEDULE_ARMS", "DP_OVERHEAD_S", "Decision",
+           "CostEntry", "CostTable", "bucket_dim", "bucket_shape",
+           "dtype_name", "signature", "prior_seconds",
+           "sharded_prior_seconds"]
 
 SCHEMA_VERSION = 1
 
@@ -130,13 +137,26 @@ def _itemsize(dtype) -> int:
   return getattr(torch, dtype_name(dtype)).itemsize
 
 
-def prior_seconds(op: str, shape: Sequence[int], dtype, backend: str,
-                  cfg: tuple = ()) -> float:
-  """Analytic roofline prior for one point on the H100 (seconds); see the
-  module docstring for the model of each arm."""
-  sr = sr_mod.get(op)
-  m, k, n = bucket_shape(tuple(shape))
-  name = dtype_name(dtype)
+# Distributed-schedule arms the table can hold rows for
+# (core.distributed's batched schedules); their cfg column is the mesh shape.
+SCHEDULE_ARMS = ("dp", "kspan", "summa", "ring")
+
+# Host seconds one sharded call costs beyond the shards' own kernels: the
+# controller issues every shard's launches and peer copies, one after
+# another.  Charged to every schedule arm (dp moves no bytes, so without it
+# the model would shard contractions too small to pay for their launches).
+# Measured by chip_smoke.py (phase 9a: a 4 × 8³ minplus batch on dp over a
+# 2 × 2 mesh of one card's shards, 0.2119 ms per call, against one local
+# K1 launch on it, 0.0248 ms; 500 calls each between two CUDA events) on an
+# NVIDIA H100 80GB HBM3 at 700 W: 0.1872 ms.
+DP_OVERHEAD_S = 1.872e-4
+
+
+def _local_point_seconds(sr, m: int, k: int, n: int, name: str,
+                         backend: str, cfg: tuple) -> float:
+  """The prior of one (m, k, n) contraction on one device, unbucketed:
+  ``prior_seconds``' model, and the per-shard term of
+  ``sharded_prior_seconds``."""
   terms = float(m) * k * n
   t_mem = (_itemsize(name) * (m * k + k * n) + 4 * m * n) / hw.PEAK_BYTES_S
   if backend in ("pallas", "megakernel", "arena"):
@@ -156,6 +176,56 @@ def prior_seconds(op: str, shape: Sequence[int], dtype, backend: str,
   # ⊕ into the running result reads two (m, n) tiles and writes one
   t_mem += (2 * 4 * terms + 3 * 4 * m * n * blocks) / hw.PEAK_BYTES_S
   return max(hw.cuda_core_seconds(terms), t_mem)
+
+
+def prior_seconds(op: str, shape: Sequence[int], dtype, backend: str,
+                  cfg: tuple = ()) -> float:
+  """Analytic roofline prior for one point on the H100 (seconds); see the
+  module docstring for the model of each arm."""
+  m, k, n = bucket_shape(tuple(shape))
+  return _local_point_seconds(sr_mod.get(op), m, k, n, dtype_name(dtype),
+                              backend, cfg)
+
+
+def sharded_prior_seconds(op: str, shape: Sequence[int], dtype,
+                          schedule: str, mesh_shape: Sequence[int], *,
+                          backend: str = "xla") -> float:
+  """Analytic prior for one distributed schedule on a (rows, cols) mesh,
+  seconds per request: the per-shard local prior on ``backend`` plus the
+  ring-model traffic of its collectives at ``hw.NVLINK_BYTES_S``, plus
+  ``DP_OVERHEAD_S``.  The model ``dispatch.resolve`` compares against the
+  local prior when the table holds no measured mesh row."""
+  from repro_torch.roofline.collectives import ring_traffic_bytes
+  sr = sr_mod.get(op)
+  m, k, n = bucket_shape(tuple(shape))
+  dims = tuple(int(d) for d in mesh_shape)
+  rows, cols = max(dims[0], 1), max(dims[-1], 1)
+  name = dtype_name(dtype)
+  itemsize = _itemsize(name)
+
+  def local(mm, kk, nn):
+    return _local_point_seconds(sr, max(mm, 1), max(kk, 1), max(nn, 1),
+                                name, backend, ())
+
+  if schedule == "dp":
+    # every shard contracts whole requests: one request's share of a batch
+    # sharded over all of them, with no collective
+    return local(m, k, n) / math.prod(max(d, 1) for d in dims) + DP_OVERHEAD_S
+  if schedule == "kspan":
+    t = local(m, k // cols, n)
+    coll = ring_traffic_bytes("all-reduce", 4.0 * m * n, cols)
+  elif schedule == "summa":
+    t = local(m // rows, k, n // cols)
+    coll = (ring_traffic_bytes("all-gather", itemsize * (m // rows) * k, cols)
+            + ring_traffic_bytes("all-gather", itemsize * k * (n // cols),
+                                 rows))
+  elif schedule == "ring":
+    t = cols * local(m, k // cols, n // cols)
+    coll = cols * ring_traffic_bytes("collective-permute",
+                                     itemsize * (k // cols) * n, cols)
+  else:
+    raise ValueError(f"unknown schedule {schedule!r}; one of {SCHEDULE_ARMS}")
+  return t + coll / hw.NVLINK_BYTES_S + DP_OVERHEAD_S
 
 
 class CostTable:

@@ -15,8 +15,11 @@ job.  The variable is the port's own: a table measured for the reference on
 another device never steers the port by accident.  Callers that need
 isolation (the engine, tests) pass ``table=`` instead.
 
-Mesh placement (``resolve(mesh_shape=…, schedules=…)``) waits for the
-distributed schedules, ROADMAP Queue 1 item 11.
+With ``mesh_shape``, ``resolve`` also places a bucket on a device mesh:
+the distributed schedule arms compete with the local choice, from measured
+mesh rows where the table has them and from ``sharded_prior_seconds``
+otherwise (model against model: an unmeasured mesh never beats a local
+measurement on the prior alone).
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import os
 import threading
 from typing import Optional, Sequence, Union
 
-from repro_torch.tuning.cost_table import (CLOSURE_BACKENDS, CostTable,
-                                           Decision, prior_seconds)
+from repro_torch.tuning.cost_table import (CLOSURE_BACKENDS, SCHEDULE_ARMS,
+                                           CostTable, Decision,
+                                           prior_seconds,
+                                           sharded_prior_seconds)
 
 __all__ = ["ENV_VAR", "DEFAULT_BACKEND", "CLOSURE_BACKENDS",
            "set_cost_table", "clear_cost_table", "get_cost_table",
@@ -124,15 +129,44 @@ def resolve(op: str, m: int, k: int, n: int, dtype, *,
             schedules: Optional[Sequence[str]] = None) -> Decision:
   """Dispatch decision for one call signature (raw or bucketed shape): the
   table's cheapest row among ``backends`` (default: the per-contraction
-  arms), or ``DEFAULT_BACKEND`` with source 'default'."""
-  if mesh_shape is not None or schedules is not None:
-    raise NotImplementedError(
-        "resolve(mesh_shape=…, schedules=…) places buckets on a device mesh, "
-        "which is not ported yet: see ROADMAP.md Queue 1 item 11 "
-        "(distributed schedules)")
+  arms), or ``DEFAULT_BACKEND`` with source 'default'.
+
+  With ``mesh_shape`` (a (rows, cols) mesh shape) the schedule arms of
+  ``SCHEDULE_ARMS`` (or only ``schedules``) compete too, and the Decision's
+  ``backend`` may be a schedule name with the mesh shape as its ``cfg``.
+  A measured mesh row competes with whatever the local arm holds; an
+  unmeasured one's prior (on the local choice's backend) with the local
+  *prior*.  Measured rows beat priors inside the sharded pool as well.
+  """
   table = table if table is not None else get_cost_table()
   local = table.best(op, (m, k, n), dtype, backends=backends) \
       if table is not None else None
   if local is None:
     local = Decision(DEFAULT_BACKEND, (), float("inf"), "default")
-  return local
+  if mesh_shape is None:
+    return local
+
+  dims = tuple(int(d) for d in mesh_shape)
+  arms = []
+  for sched in (schedules if schedules is not None else SCHEDULE_ARMS):
+    if sched not in SCHEDULE_ARMS:
+      raise ValueError(f"unknown schedule {sched!r}; one of {SCHEDULE_ARMS}")
+    entry = table.lookup(op, (m, k, n), dtype, sched, dims) \
+        if table is not None else None
+    if entry is not None:
+      arms.append(Decision(sched, dims, entry.seconds, entry.source))
+    else:
+      arms.append(Decision(
+          sched, dims,
+          sharded_prior_seconds(op, (m, k, n), dtype, sched, dims,
+                                backend=local.backend), "prior"))
+  if not arms:
+    return local
+  measured = [a for a in arms if a.source == "measured"]
+  best_sharded = min(measured or arms, key=lambda a: a.seconds)
+  local_s = local.seconds
+  if best_sharded.source == "prior" and local.source != "prior":
+    local_s = prior_seconds(op, (m, k, n), dtype, local.backend, local.cfg)
+  if not math.isfinite(local_s):  # 'default' local: no table at all
+    local_s = prior_seconds(op, (m, k, n), dtype, local.backend, local.cfg)
+  return best_sharded if best_sharded.seconds < local_s else local

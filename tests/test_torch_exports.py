@@ -17,17 +17,15 @@ UNPORTED = {
     "core": {},
     "apps": {},
     "kernels": {},
-    "tuning": {
-        "SCHEDULE_ARMS": 11, "sharded_prior_seconds": 11, "tune_mesh": 11,
-    },
-    "models": {"Parallelism": 11, "specs_like": 11},
+    "tuning": {},
+    "models": {"Parallelism": 13, "specs_like": 13},
     "train": {
         "AdamWConfig": 13, "adamw_update": 13, "init_opt_state": 13,
         "make_train_step": 13, "xent_loss": 13, "checkpoint": 13,
     },
     "serve_mmo": {},
 }
-ROADMAP_ITEMS = {7, 11, 12, 13, 14}
+ROADMAP_ITEMS = {12, 13, 14}
 
 
 def _reference_all(package: str) -> list:

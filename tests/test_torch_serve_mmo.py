@@ -19,7 +19,6 @@ from repro import serve_mmo as jserve  # noqa: E402
 from repro_torch import serve_mmo as tserve  # noqa: E402
 from repro_torch.apps import graphs  # noqa: E402
 from repro_torch.launch import serve_mmo as tlaunch  # noqa: E402
-from repro_torch.serve_mmo import engine as tengine  # noqa: E402
 from repro_torch.serve_mmo.cache import ExecutableCache  # noqa: E402
 
 KINDS = ("apsp", "knn", "reach", "mmo")
@@ -105,23 +104,30 @@ def test_engine_defaults_to_the_card(monkeypatch):
     tserve.MMOEngine()
 
 
-_ACTIVE_VALUE = {bool: True, int: 3, str: "summa"}
+@pytest.mark.parametrize("schedule", ["dp", "kspan", "summa", "ring"])
+def test_pinned_schedule_needs_a_mesh(schedule):
+  """The reference's ValueError for a pinned schedule without a mesh, in
+  both packages."""
+  with pytest.raises(ValueError, match="needs a mesh"):
+    tserve.MMOEngine(device="cpu", schedule=schedule)
+  with pytest.raises(ValueError, match="needs a mesh"):
+    jserve.MMOEngine(schedule=schedule)
 
 
-@pytest.mark.parametrize("knob", sorted(tengine._UNPORTED_KNOBS))
-def test_each_unported_knob_raises(knob):
-  inert, item = tengine._UNPORTED_KNOBS[knob]
-  value = _ACTIVE_VALUE.get(type(inert[0]), object())
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-    tserve.MMOEngine(device="cpu", **{knob: value})
-  tserve.MMOEngine(device="cpu", **{knob: inert[0]})  # inert: accepted
+@pytest.mark.parametrize("with_mesh", [False, True])
+def test_unknown_schedule_raises(with_mesh):
+  from repro_torch.launch.mesh import make_host_mesh
+  mesh = make_host_mesh(1, devices=["cpu"]) if with_mesh else None
+  with pytest.raises(ValueError, match="unknown schedule"):
+    tserve.MMOEngine(device="cpu", mesh=mesh, schedule="suma")
 
 
-@pytest.mark.parametrize("kw", [dict(schedule="dp"), dict(mesh=(2, 4)),
-                                dict(shard_flops=1e9)])
-def test_unported_modes_raise(kw):
-  with pytest.raises(NotImplementedError, match="item 11"):
-    tserve.MMOEngine(device="cpu", **kw)
+def test_mesh_of_another_device_type_is_refused():
+  from repro_torch.launch.mesh import Mesh
+  with pytest.raises(ValueError, match="cannot serve"):
+    tserve.MMOEngine(device="cpu", mesh=Mesh((("cuda:0",),)))
+  with pytest.raises(TypeError, match="unexpected keyword"):
+    tserve.MMOEngine(device="cpu", mesh_shape=(2, 4))
 
 
 # ROADMAP item 9's knobs, each with a value that asks for something
@@ -148,7 +154,8 @@ def test_operability_knobs_take_the_reference_defaults():
   assert set(_OPERABILITY_KNOBS) <= set(port)
   for name in _OPERABILITY_KNOBS:
     assert port[name].default == ref[name].default, name
-  assert set(tengine._UNPORTED_KNOBS) == {"mesh", "schedule", "shard_flops"}
+  for name in ("mesh", "schedule", "shard_flops"):  # the mesh knobs too
+    assert port[name].default == ref[name].default, name
 
 
 @pytest.mark.parametrize("knob", sorted(_OPERABILITY_KNOBS))

@@ -320,11 +320,51 @@ def test_env_var_table_round_trip(tmp_path, monkeypatch):
     tdispatch.clear_cost_table()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(2, 4)),
-                                dict(schedules=("dp",))])
-def test_resolve_refuses_mesh_placement(kw):
-  with pytest.raises(NotImplementedError, match="item 11"):
-    ttune.resolve("minplus", 64, 64, 64, "float32", **kw)
+@pytest.mark.parametrize("schedules", [None, ("dp",), ("summa", "ring")])
+def test_resolve_places_a_bucket_on_a_mesh(schedules):
+  """resolve(mesh_shape=…) returns a schedule decision with the mesh shape
+  as its cfg where a measured mesh row beats the local rows, and the local
+  decision where none does."""
+  t = ttune.CostTable(device="test")
+  t.record("minplus", (64, 64, 64), "float32", "pallas", (), 1e-3)
+  pool = schedules or ttune.SCHEDULE_ARMS
+  t.record("minplus", (64, 64, 64), "float32", pool[-1], (2, 4), 1e-4)
+  d = ttune.resolve("minplus", 64, 64, 64, "float32", table=t,
+                    mesh_shape=(2, 4), schedules=schedules)
+  assert (d.backend, d.cfg, d.source) == (pool[-1], (2, 4), "measured")
+  t.record("minplus", (64, 64, 64), "float32", "pallas", (), 1e-5)
+  d = ttune.resolve("minplus", 64, 64, 64, "float32", table=t,
+                    mesh_shape=(2, 4), schedules=schedules)
+  assert d.backend == "pallas"
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_mesh_rows_cross_load_with_the_same_decisions(writer):
+  """A table with mesh rows, written by either package, gives both
+  packages the same placement wherever its rows are measured."""
+  rng = np.random.default_rng(3)
+  mk = jtune.CostTable if writer == "reference" else ttune.CostTable
+  t = mk(device="test")
+  points = [("minplus", (64, 64, 64)), ("orand", (16, 16, 16)),
+            ("addnorm", (4096, 16, 16384))]
+  for op, shape in points:
+    for backend, cfg in (("xla", (512,)), ("vector", (128,)),
+                         ("pallas", ())):
+      t.record(op, shape, _dtype(op), backend, cfg,
+               float(rng.uniform(1e-5, 1e-3)))
+    for sched in ttune.SCHEDULE_ARMS:
+      t.record(op, shape, _dtype(op), sched, (2, 4),
+               float(rng.uniform(1e-5, 1e-3)))
+  text = t.to_json()
+  jt, tt = jtune.CostTable.from_json(text), ttune.CostTable.from_json(text)
+  for op, shape in points:
+    for pool in (None, ("dp", "summa")):
+      want = jtune.resolve(op, *shape, _dtype(op), table=jt,
+                           mesh_shape=(2, 4), schedules=pool)
+      got = ttune.resolve(op, *shape, _dtype(op), table=tt,
+                          mesh_shape=(2, 4), schedules=pool)
+      assert (got.backend, got.cfg, got.seconds) == (
+          want.backend, tuple(want.cfg), want.seconds)
 
 
 def test_dry_prior_sweep_covers_every_arm(tmp_path):
@@ -427,3 +467,46 @@ def test_tuner_defaults_to_the_card(monkeypatch):
     tauto.measure_point("minplus", (8, 8, 8), "float32", "xla", ())
   assert ttune.tune(ops=("minplus",), shapes=((8, 8, 8),),
                     dry_prior=True).counts()["prior"] > 0
+
+
+def test_tune_mesh_records_rows_on_a_cpu_mesh():
+  """tune_mesh records the sharded prior for every (point, schedule) and a
+  measurement where the schedule divides the point; its dry-prior sweep
+  writes the reference's mesh-row signatures."""
+  from repro_torch.launch.mesh import make_host_mesh
+  mesh = make_host_mesh(8, model=4, devices=["cpu"] * 8)
+  t = ttune.tune_mesh(dims=(2, 4), mesh=mesh, ops=("minplus",),
+                      shapes=((16, 16, 16), (16, 2, 16)), iters=1, warmup=0)
+  assert t.device == "cpu"
+  fits = {s: t.lookup("minplus", (16, 16, 16), "float32", s, (2, 4)).source
+          for s in ttune.SCHEDULE_ARMS}
+  assert fits == {s: "measured" for s in ttune.SCHEDULE_ARMS}
+  narrow = t.lookup("minplus", (16, 2, 16), "float32", "kspan", (2, 4))
+  assert narrow.source == "measured"  # K = 2 buckets to 8, which splits
+  dry = ttune.tune_mesh(dims=(2, 4), ops=("minplus", "orand"),
+                        shapes=((16, 16, 16),), dry_prior=True)
+  ref = jtune.tune_mesh(dims=(2, 4), ops=("minplus", "orand"),
+                        shapes=((16, 16, 16),), dry_prior=True)
+  assert set(dry.entries) == set(ref.entries)
+  assert dry.counts() == {"measured": 0, "prior": 8}
+  with pytest.raises(ValueError, match="unknown schedule"):
+    ttune.tune_mesh(dims=(2, 4), schedules=("gossip",), dry_prior=True)
+  with pytest.raises(ValueError, match="is not"):
+    ttune.tune_mesh(dims=(4, 2), mesh=mesh, ops=("minplus",),
+                    shapes=((16, 16, 16),))
+
+
+def test_autotune_cli_mesh(tmp_path):
+  out = tmp_path / "mesh_table.json"
+  assert tauto.main(["--dry-prior", "--mesh", "2,4", "--ops", "minplus",
+                     "--shapes", "16x16x16", "--schedules", "dp,summa",
+                     "--out", str(out)]) == 0
+  table = ttune.CostTable.load(out)
+  assert table.lookup("minplus", (16, 16, 16), "float32", "summa",
+                      (2, 4)) is not None
+  assert table.lookup("minplus", (16, 16, 16), "float32", "ring",
+                      (2, 4)) is None
+  with pytest.raises(SystemExit):  # eight devices asked, the CPU is one
+    tauto.main(["--device", "cpu", "--mesh", "2,4", "--out", str(out)])
+  with pytest.raises(SystemExit):
+    tauto.main(["--dry-prior", "--mesh", "2", "--out", str(out)])

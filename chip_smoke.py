@@ -5,6 +5,9 @@
 
 Phases (any failure exits non-zero):
 
+  0. the static analyzer — ``python -m repro_torch.analysis --json`` on the
+     tree this script runs from must exit 0 (no new semiring, lock or
+     capture finding); prints the count of rules and findings;
   1. device and card — needs CUDA; prints the nvidia-smi name/power line;
   2. build — compiles the SIMD² unit kernel (K1), the fused closure
      fixpoint (K2), flash attention (K3) and the SSD intra-chunk kernel (K4)
@@ -160,7 +163,21 @@ Phases (any failure exits non-zero):
      on ``backend="megakernel"`` routed to summa (its shards on K1, K2
      never); every result equals phase 4's, and each engine's routing,
      where each batch ran (the placements of the executables that ran) and
-     its K1/K2 launches are printed.
+     its K1/K2 launches are printed;
+  10. LM training on the card, ``impl="xla"`` (K3 and K4 have no backward,
+     as the reference's Pallas arms have none; no K1–K4 launch here): (a)
+     the flash backward's dq, dk, dv against ``xla_autodiff`` at tinyllama's
+     attention shape (B 4, S 2048, H 32, KV 4, D 64) in bf16 and f32, and
+     against a float64 autograd at B 1, S 1024, each arm's fwd+bwd ms; (b)
+     tinyllama-1.1b at its published width and depth, bf16 compute, f32
+     master, AdamW, 4 × 2048 SyntheticLM tokens per step: one batch at
+     accum=2 against accum=1 and remat="full" against none (lr 0), then 1
+     warm-up and 8 timed steps (CUDA events), every loss finite, step ms,
+     tokens/s, peak ``max_memory_allocated`` and model FLOPs per step over
+     the bf16 dense peak; (c) mamba2-780m at full width with 8 of its 48
+     layers, the same step; (d) ``python -m repro_torch.launch.train
+     --smoke --deterministic`` killed at step 20 (exit 42) and resumed:
+     the final loss equals the uninterrupted run's within rtol 1e-5.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -171,6 +188,7 @@ import copy
 import gc
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2463,6 +2481,332 @@ def phase_mesh(sm, mk, torch, np, graphs, reqs, results, a_t, b_t, q_t,
   return out
 
 
+# Phase 0: the static analyzer over the tree this script runs from.
+
+
+def phase_analysis() -> dict:
+  """``python -m repro_torch.analysis --json`` must exit 0: no new finding
+  of the semiring, lock or capture rules over ``src/repro_torch``."""
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-m", "repro_torch.analysis", "--json"],
+      capture_output=True, text=True, timeout=300, cwd=ROOT,
+      env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+  doc = json.loads(proc.stdout) if proc.stdout.strip().startswith("{") \
+      else {}
+  out = {"rc": proc.returncode, "rules": len(doc.get("rules", [])),
+         "findings": len(doc.get("findings", [])),
+         "baselined": len(doc.get("baselined", [])),
+         "suppressed": doc.get("suppressed"),
+         "s": time.perf_counter() - t0}
+  log(f"[analysis] python -m repro_torch.analysis: exit {proc.returncode}, "
+      f"{out['rules']} rules, {out['findings']} new findings, "
+      f"{out['baselined']} baselined, {out['suppressed']} suppressed, "
+      f"{out['s']:.1f}s")
+  if proc.returncode != 0 or not doc.get("ok"):
+    raise AssertionError(f"the analyzer reports findings:\n{proc.stdout}"
+                         f"{proc.stderr}")
+  return out
+
+
+# Phase 10: LM training on the card, impl="xla" (K3 and K4 are forward
+# kernels; the reference trains only on its XLA arm).  Batch 4 × 2048
+# tokens of SyntheticLM, bf16 compute, f32 master, AdamW.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 8
+SSM_TRAIN_LAYERS = 8  # of mamba2-780m's 48: a depth cut, widths as published
+# (a) the flash backward against autograd through the chunks: f32 within
+# 1e-4 (both sum 2048 keys in f32, in other orders), bf16 within 2e-2 (each
+# gradient rounds to bf16 once at the end: an ulp at magnitude 2-4); against
+# a float64 autograd of the same f32 inputs at B 1, S 1024 within 1e-4 (f32
+# sums of 1024 terms)
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_BWD_F64_TOL = 1e-4
+# (b) one batch at accum=2 against accum=1: the mean loss of two halves is
+# the mean loss of the whole, but bf16 GEMMs of half the rows may sum in
+# another order: loss rtol 2e-3, grad norm rtol 2e-2; remat="full" repeats
+# the same forward kernels, so its loss is held to 1e-6
+ACCUM_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
+REMAT_RTOL = 1e-6
+
+
+def attention_f64(torch, q, k, v, scale):
+  """Causal GQA attention in float64 over the whole (B, S, H, D) input: the
+  plain definition, no chunks."""
+  b, s, h, d = q.shape
+  g = h // k.shape[2]
+  kk = k.repeat_interleave(g, dim=2)
+  vv = v.repeat_interleave(g, dim=2)
+  sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+  mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+  p = torch.softmax(torch.where(mask, sc, float("-inf")), dim=-1)
+  return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+def phase_flash_backward(torch, card: str) -> dict:
+  """Phase 10(a): dq, dk, dv of the flash backward against xla_autodiff at
+  tinyllama's attention shape, both dtypes, then against float64."""
+  from repro_torch.models import attention as attn
+  b, s, h, kv, d = TRAIN_BATCH, TRAIN_SEQ, 32, 4, 64
+  scale = d ** -0.5
+  gen = torch.Generator(device="cuda").manual_seed(10)
+  out = {}
+
+  def grads(arm, q, k, v, dout):
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    if arm == "flash":
+      o = attn.flash_xla(*ts, True, None, scale, 0, attn.FLASH_CHUNK)
+    elif arm == "autodiff":
+      o, _ = attn._flash_fwd_impl(*ts, True, None, scale, 0,
+                                  attn.FLASH_CHUNK)
+    else:
+      o = attention_f64(torch, *ts, scale)
+    o.backward(dout)
+    return [t.grad for t in ts]
+
+  for dtype in (torch.bfloat16, torch.float32):
+    name = str(dtype).removeprefix("torch.")
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(
+        dtype) for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+                             (b, s, h, d)))
+    row = {}
+    for arm in ("flash", "autodiff"):
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      base = torch.cuda.memory_allocated()
+      row[f"{arm}_ms"] = cuda_time_ms(lambda: grads(arm, q, k, v, dout), 3)
+      row[f"{arm}_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                - base) / 2 ** 30
+    gf = grads("flash", q, k, v, dout)
+    ga = grads("autodiff", q, k, v, dout)
+    tol = FLASH_BWD_TOL[name]
+    for label, x, y in zip(("dq", "dk", "dv"), gf, ga):
+      err = max_abs_err(x, y)
+      row[f"{label}_max_abs_err"] = err
+      if not (bool(torch.isfinite(x).all()) and torch.allclose(
+          x.float(), y.float(), rtol=tol, atol=tol)):
+        raise AssertionError(f"flash backward {label} ({name}) differs from "
+                             f"xla_autodiff: max |d| {err!r}")
+    out[name] = row
+    log(f"[train] (a) flash backward vs xla_autodiff, {name}, B {b} S {s} "
+        f"H {h}/{kv} D {d} (fwd+bwd, CUDA events; tolerance {tol}): "
+        f"{json.dumps(row)} {card}")
+    del q, k, v, dout, gf, ga
+  # against float64, at B 1, S 1024
+  q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((1, 1024, h, d), (1, 1024, kv, d),
+                                 (1, 1024, kv, d), (1, 1024, h, d)))
+  gf = grads("flash", q, k, v, dout)
+  g64 = grads("f64", q.double(), k.double(), v.double(), dout.double())
+  row = {}
+  for label, x, y in zip(("dq", "dk", "dv"), gf, g64):
+    row[f"{label}_max_abs_err"] = max_abs_err(x.double(), y)
+    if not torch.allclose(x.double(), y, rtol=FLASH_BWD_F64_TOL,
+                          atol=FLASH_BWD_F64_TOL):
+      raise AssertionError(f"flash backward {label} differs from float64 "
+                           f"autograd: {row}")
+  out["f64"] = row
+  log(f"[train] (a) flash backward f32 vs float64 autograd, B 1 S 1024 "
+      f"(tolerance {FLASH_BWD_F64_TOL}): {json.dumps(row)}")
+  return out
+
+
+def matmul_params(params) -> int:
+  """Parameters that enter a matmul: every 2-D or larger leaf but the
+  embedding, which is a lookup."""
+  from repro_torch.train.optimizer import _leaves
+  return sum(p.numel() for p in _leaves(
+      {k: v for k, v in params.items() if k != "embed"}) if p.dim() >= 2)
+
+
+def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
+  """Phase 10(b, c): train ``cfg`` on the card: (probes) accum=2 against
+  accum=1 and remat="full" against none on one batch with lr 0 (the
+  parameters do not move), then 1 warm-up and TRAIN_TIMED timed steps."""
+  from repro_torch.data import DataConfig, SyntheticLM
+  from repro_torch.models import zoo
+  from repro_torch.train import optimizer as opt_mod
+  from repro_torch.train.steps import make_train_step
+  t0 = time.perf_counter()
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+  params = zoo.param_tree(model)
+  n_params = zoo.param_count(model)
+  data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0))
+  opt = opt_mod.init_opt_state(params)
+  row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+         "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "impl": "xla", "dtype": str(cfg.dtype).removeprefix("torch."),
+         "card": card}
+  log(f"[train] {tag} {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+      f"layers, d {cfg.d_model}) built in {time.perf_counter() - t0:.1f}s")
+  if probes:
+    still = opt_mod.AdamWConfig(lr=0.0)
+    batch = data.batch_at(0)
+    probe = {}
+    for label, kw in (("accum1", {}), ("accum2", {"accum": 2}),
+                      ("remat_full", {"remat": "full"})):
+      _, m = make_train_step(cfg, still, **kw)((model, opt), batch)
+      probe[label] = (float(m["loss"]), float(m["grad_norm"]))
+      if not all(map(lambda x: x == x and abs(x) < float("inf"),
+                     probe[label])):
+        raise AssertionError(f"{label}: loss or grad norm not finite")
+    (l1, n1), (l2, n2), (lr_, nr) = (probe["accum1"], probe["accum2"],
+                                     probe["remat_full"])
+    row.update(accum1=probe["accum1"], accum2=probe["accum2"],
+               remat_full=probe["remat_full"])
+    log(f"[train] {tag} one batch, lr 0: accum=1 loss {l1!r} grad norm "
+        f"{n1!r}; accum=2 loss {l2!r} grad norm {n2!r}; remat=full loss "
+        f"{lr_!r} grad norm {nr!r}")
+    if (abs(l2 - l1) > ACCUM_RTOL["loss"] * abs(l1)
+        or abs(n2 - n1) > ACCUM_RTOL["grad_norm"] * abs(n1)):
+      raise AssertionError("accum=2 differs from accum=1 on one batch")
+    if abs(lr_ - l1) > REMAT_RTOL * abs(l1):
+      raise AssertionError("remat='full' changes the loss")
+    with torch.no_grad():  # the real run starts from fresh moments
+      for t in opt_mod._leaves({"m": opt["m"], "v": opt["v"]}):
+        t.zero_()
+      opt["step"].zero_()
+  oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+  step = make_train_step(cfg, oc)
+  state = (model, opt)
+  state, m = step(state, data.batch_at(0))  # warm-up
+  losses = [float(m["loss"])]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for i in range(1, TRAIN_TIMED + 1):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    batch = data.batch_at(i)
+    e0.record()
+    state, m = step(state, batch)
+    e1.record()
+    losses.append(float(m["loss"]))  # waits for the step
+    times.append(e0.elapsed_time(e1))
+  peak = torch.cuda.max_memory_allocated()
+  if not all(x == x and abs(x) < float("inf") for x in losses):
+    raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+  step_ms = sorted(times)[len(times) // 2]
+  state = profile_train_step(torch, step, state, data.batch_at(
+      TRAIN_TIMED + 1), step_ms, tag)
+  tokens = TRAIN_BATCH * TRAIN_SEQ
+  flops = 6.0 * matmul_params(params) * tokens
+  if cfg.family != "ssm":  # causal attention: half of S² per head, 3 passes
+    flops += (3 * 2 * 2 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads
+              * TRAIN_SEQ ** 2 * cfg.hd / 2)
+  row.update(step_ms_median=step_ms, step_ms=times,
+             tokens_s=tokens / (step_ms / 1e3), losses=losses,
+             max_memory_allocated_gib=peak / 2 ** 30,
+             model_flops_per_step=flops,
+             bf16_peak_share=flops / (step_ms / 1e3) / hw.PEAK_OPS[
+                 "bfloat16"])
+  log(f"[train] {tag} {json.dumps(row)}")
+  del state, model, params, opt
+  return row
+
+
+def profile_train_step(torch, step, state, batch, step_ms: float,
+                       tag: str):
+  """Where one train step spends its time: torch.profiler's kernel time on
+  the card, summed by kernel, against the step's wall time under the
+  profiler and its CUDA-event time unprofiled."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    wall = time.perf_counter() - t0
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  busy = sum(e.self_device_time_total for e in kernels) / 1e6
+  log(f"[train] {tag} profile of one step: {sum(e.count for e in kernels)} "
+      f"kernels, {busy * 1e3:.1f}ms on the card; wall {wall * 1e3:.1f}ms "
+      f"under the profiler ({busy / wall:.1%} busy), {step_ms:.1f}ms "
+      f"unprofiled")
+  for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                  reverse=True)[:10]:
+    log(f"[train]   {e.self_device_time_total / 1e3:9.2f}ms x{e.count:<6} "
+        f"{e.key[:100]}")
+  return state
+
+
+TRAIN_CLI = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+             "cuda", "--deterministic"]
+
+
+def phase_kill_resume(tmp: Path) -> dict:
+  """Phase 10(d): the train driver killed at step 20 of 30 (exit 42) and
+  restarted from its checkpoint ends at the uninterrupted run's loss
+  (rtol 1e-5, the reference's test); the uninterrupted and the crashing run
+  go at once."""
+  env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+  common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "30",
+            "--batch", "4", "--seq", "32", "--lr", "1e-3", "--ckpt-every",
+            "10", "--log-every", "30"]
+  t0 = time.perf_counter()
+  runs = [subprocess.Popen(
+      TRAIN_CLI + common + extra, stdout=subprocess.PIPE,
+      stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+      for extra in (["--ckpt-dir", str(tmp / "ref")],
+                    ["--ckpt-dir", str(tmp / "crash"), "--fail-at", "20"])]
+  (ref_out, ref_err), (_, crash_err) = (r.communicate(timeout=300)
+                                        for r in runs)
+  if runs[0].returncode != 0 or runs[1].returncode != 42:
+    raise AssertionError(f"train driver exit codes {runs[0].returncode}, "
+                         f"{runs[1].returncode} (want 0, 42):\n{ref_err}"
+                         f"{crash_err}")
+  r2 = subprocess.run(TRAIN_CLI + common + ["--ckpt-dir", str(tmp / "crash")],
+                      capture_output=True, text=True, timeout=300, cwd=ROOT,
+                      env=env)
+  if r2.returncode != 0 or "resumed from step 20" not in r2.stdout:
+    raise AssertionError(f"resume failed:\n{r2.stdout}{r2.stderr}")
+
+  def loss_of(text):
+    line = [ln for ln in text.splitlines() if "loss=" in ln][-1]
+    return float(line.split("loss=")[1].split()[0])
+  want, got = loss_of(ref_out), loss_of(r2.stdout)
+  out = {"crash_exit": runs[1].returncode, "uninterrupted_loss": want,
+         "resumed_loss": got, "s": time.perf_counter() - t0}
+  log(f"[train] (d) kill at step 20 (exit 42) and resume: final loss "
+      f"{got!r}, uninterrupted {want!r}, {out['s']:.1f}s")
+  if abs(got - want) > 1e-5 * abs(want):
+    raise AssertionError("the resumed run's loss differs from the "
+                         "uninterrupted run's")
+  return out
+
+
+def phase_training(torch, card: str, kernels) -> dict:
+  """Phase 10: (a) the flash backward, (b) tinyllama-1.1b at full width and
+  depth, (c) mamba2-780m at full width, 8 layers, (d) kill and resume
+  through the driver.  Training launches none of K1–K4 (impl='xla')."""
+  import tempfile
+  from repro_torch import configs
+  t_phase = time.perf_counter()
+  before = [k.launches for k in kernels]
+  out = {"flash_backward": phase_flash_backward(torch, card)}
+  gc.collect()
+  torch.cuda.empty_cache()
+  out["tinyllama"] = train_phase_model(
+      torch, configs.get_config(LM_ARCH), card, "(b)", probes=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  ssm = configs.get_config(SSM_ARCH).replace(n_layers=SSM_TRAIN_LAYERS)
+  out["mamba2"] = train_phase_model(torch, ssm, card, "(c)", probes=False)
+  gc.collect()
+  torch.cuda.empty_cache()
+  (ROOT / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    out["kill_resume"] = phase_kill_resume(Path(tmp))
+  if [k.launches for k in kernels] != before:
+    raise AssertionError("training launched a hand-written kernel")
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[train] phase 10 in {out['s']:.1f}s")
+  return out
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -2484,6 +2828,8 @@ def main() -> int:
       f"bound {hw.SMS} SMs x {hw.LANES} lanes x that clock")
   log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
       f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
+  # -- phase 0: the static analyzer ------------------------------------------
+  analysis = phase_analysis()
   # full-precision f32 for every torch.matmul yardstick and rewrite
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -2937,6 +3283,18 @@ def main() -> int:
   torch.cuda.empty_cache()
   mesh = phase_mesh(sm, mk, torch, np, graphs, reqs, results, a_t, b_t, q_t,
                     r_t)
+
+  # -- phase 10: LM training on the card --------------------------------------
+  del a_t, b_t, q_t, r_t
+  gc.collect()
+  torch.cuda.empty_cache()
+  train = phase_training(torch, card, (sm.semiring_mmo, mk.fixpoint_chunk,
+                                       fa.flash_attention,
+                                       ssd.ssd_intra_chunk))
+  log(f"[summary] analysis {json.dumps(analysis)}; training "
+      f"step ms {train['tinyllama']['step_ms_median']!r} (tinyllama-1.1b), "
+      f"{train['mamba2']['step_ms_median']!r} (mamba2-780m, "
+      f"{SSM_TRAIN_LAYERS} layers) {card}")
 
   head = rows_out[0]
   k2 = k2_rows[0]

@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/configs/__init__.py``.  Each ``<arch>.py`` exports
 ``CONFIG`` (the published configuration, full scale) and ``smoke_config()``
-(a reduced same-family config for CPU tests); ``simd2_apps`` holds the
-paper's own workloads (Table 4).  The other families of the reference's
-registry (MoE, hybrid, enc-dec, VLM) are later slices of ROADMAP item 13.
+(a reduced same-family config for CPU tests and smoke training runs);
+``simd2_apps`` holds the paper's own workloads (Table 4).  Every
+architecture here serves and trains.  The other families of the
+reference's registry (MoE, hybrid, enc-dec, VLM) are ROADMAP item 13's
+steps 2–4.
 """
 from __future__ import annotations
 

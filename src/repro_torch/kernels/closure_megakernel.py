@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import closure as cl_mod
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nan_check, nvcc
 from repro_torch.kernels.semiring_mmo import (OP_CODES, TILE,
                                               semiring_mmo_plain)
 
@@ -157,8 +157,10 @@ def fixpoint_chunk(c: Tensor, adj: Optional[Tensor], kv: Tensor,
   sr = sr_mod.get(op)
   _check(c, adj, {"kv": kv, "act": act, "it": it, "glim": glim}, sr, g_steps)
   if c.device.type == "cpu":
-    return fixpoint_chunk_plain(c, adj, kv, act, it, glim, op=sr.name,
-                                g_steps=g_steps)
+    return nan_check.checked(
+        "fixpoint_chunk", (c, adj),
+        fixpoint_chunk_plain(c, adj, kv, act, it, glim, op=sr.name,
+                             g_steps=g_steps))
   if c.device.type != "cuda":
     raise ValueError(f"fixpoint_chunk runs on cuda or cpu, not {c.device}")
   operands = (c, kv, glim) + (() if adj is None else (adj,))
@@ -193,7 +195,8 @@ def fixpoint_chunk(c: Tensor, adj: Optional[Tensor], kv: Tensor,
     raise RuntimeError(f"closure_megakernel launch failed for {sr.name} "
                        f"{c.dtype} R={r} n={n} g={g_steps}: error code {rc}")
   fixpoint_chunk.launches += 1
-  return out, it_out, act_out
+  return nan_check.checked("fixpoint_chunk", (c, adj),
+                           (out, it_out, act_out))
 
 
 fixpoint_chunk.launches = 0

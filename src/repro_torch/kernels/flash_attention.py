@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nan_check, nvcc
 
 Tensor = torch.Tensor
 
@@ -111,7 +111,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
   if q.device.type == "cpu":
     y = flash_attention_plain(q, k, v, causal=causal, window=window,
                               scale=scale)
-    return y if out is None else out.copy_(y)
+    return nan_check.checked("flash_attention", (q, k, v),
+                             y if out is None else out.copy_(y))
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
   b, h, sq, d = q.shape
@@ -148,7 +149,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                        f"B={b} H={h} Hkv={hkv} Sq={sq} Skv={skv} D={d}: error "
                        f"code {rc}")
   flash_attention.launches += 1
-  return out
+  return nan_check.checked("flash_attention", (q, k, v), out)
 
 
 flash_attention.launches = 0

@@ -57,8 +57,13 @@ class KernelLibrary:
 
     ``-Xptxas -v`` output (registers, shared memory, spills) is kept for
     ``build_log()``.  The library is written under a temporary name and moved
-    into place, so a concurrent process never loads a half-written file.
+    into place, so a concurrent process never loads a half-written file; the
+    lock keeps two threads of one process from compiling it twice.
     """
+    with self._lock:
+      return self._build_locked()
+
+  def _build_locked(self) -> Path:
     out = self.path()
     if out.exists():
       return out
@@ -77,7 +82,8 @@ class KernelLibrary:
   def build_log(self) -> str:
     """The compiler's report from this process's build ('' if it loaded a
     library built earlier)."""
-    return self._build_log
+    with self._lock:
+      return self._build_log
 
   def load(self):
     """Build (if needed) and load the library; idempotent.  Returns the
@@ -89,7 +95,7 @@ class KernelLibrary:
     needed."""
     with self._lock:
       if self._lib is None:
-        self._lib = ctypes.CDLL(str(self.build()))
+        self._lib = ctypes.CDLL(str(self._build_locked()))
       fn = getattr(self._lib, symbol)
       fn.argtypes = argtypes
       fn.restype = restype

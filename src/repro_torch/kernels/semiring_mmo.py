@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import semiring as sr_mod
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nan_check, nvcc
 
 Tensor = torch.Tensor
 
@@ -149,7 +149,8 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
   sr = sr_mod.get(op)
   _check(a, b, c, k_valid, sr)
   if a.device.type == "cpu":
-    return semiring_mmo_plain(a, b, c, op=sr.name, k_valid=k_valid)
+    out = semiring_mmo_plain(a, b, c, op=sr.name, k_valid=k_valid)
+    return nan_check.checked("semiring_mmo", (a, b, c), out)
   if a.device.type != "cuda":
     raise ValueError(f"semiring_mmo runs on cuda or cpu, not {a.device}")
   tensors = (a, b) + tuple(t for t in (c, k_valid) if t is not None)
@@ -157,11 +158,12 @@ def semiring_mmo(a: Tensor, b: Tensor, c: Optional[Tensor] = None, *,
     raise ValueError("semiring_mmo's kernel takes contiguous tensors")
   run = kernel_dtype(sr.name, a.dtype)
   if run == a.dtype:
-    return _launch(a, b, c, k_valid, sr)
-  # the f32 instance on the widened operands, rounded once to the output
-  out = _launch(a.to(run), b.to(run), None if c is None else c.to(run),
-                k_valid, sr)
-  return out.to(out_dtype(sr.name, a.dtype))
+    out = _launch(a, b, c, k_valid, sr)
+  else:
+    # the f32 instance on the widened operands, rounded once to the output
+    out = _launch(a.to(run), b.to(run), None if c is None else c.to(run),
+                  k_valid, sr).to(out_dtype(sr.name, a.dtype))
+  return nan_check.checked("semiring_mmo", (a, b, c), out)
 
 
 def _launch(a: Tensor, b: Tensor, c: Optional[Tensor],

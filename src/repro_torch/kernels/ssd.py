@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nan_check, nvcc
 
 Tensor = torch.Tensor
 
@@ -107,7 +107,8 @@ def ssd_intra_chunk(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor,
                      f"{out.dtype} {tuple(out.shape)} on {out.device}")
   if x.device.type == "cpu":
     y = ssd_intra_chunk_plain(c, b, x, dt, cum)
-    return y if out is None else out.copy_(y)
+    return nan_check.checked("ssd_intra_chunk", (c, b, x, dt, cum),
+                             y if out is None else out.copy_(y))
   if x.device.type != "cuda":
     raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, not {x.device}")
   if p not in HEAD_DIMS:
@@ -140,7 +141,7 @@ def ssd_intra_chunk(c: Tensor, b: Tensor, x: Tensor, dt: Tensor, cum: Tensor,
                        f"BZ={bz} H={h} G={g} Q={q} N={n} P={p}: error code "
                        f"{rc}")
   ssd_intra_chunk.launches += 1
-  return out
+  return nan_check.checked("ssd_intra_chunk", (c, b, x, dt, cum), out)
 
 
 ssd_intra_chunk.launches = 0

@@ -95,6 +95,8 @@ def warmup(engine: MMOEngine, rng: np.random.Generator, sizes, n: int = 40):
 
 
 def main(argv=None):
+  from repro_torch.analysis.sanitize import maybe_enable_sanitize
+  maybe_enable_sanitize()  # REPRO_SANITIZE=1: NaN checks + analyzer preflight
   ap = argparse.ArgumentParser()
   ap.add_argument("--rate", type=float, default=40.0,
                   help="mean arrival rate (problems/s)")

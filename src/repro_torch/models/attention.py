@@ -1,9 +1,11 @@
 """GQA attention: the flash kernel K3 (``impl="pallas"``), the chunked
-online-softmax path in plain PyTorch (``impl="xla"``), and the KV-cache
-decode step with sliding-window masking.
+online-softmax path in plain PyTorch with a flash backward (``impl="xla"``)
+or with autograd through the chunks (``impl="xla_autodiff"``), and the
+KV-cache decode step with sliding-window masking.
 
-Counterpart of ``repro/models/attention.py``, forward only (the backward
-comes with training).  Layouts are the reference's: activations (B, S, D),
+Counterpart of ``repro/models/attention.py``.  K3 has no backward, as the
+reference's Pallas arm has none: a step that needs gradients through it
+raises.  Layouts are the reference's: activations (B, S, D),
 q (B, S, H, hd), k and v (B, S, KV, hd), a layer cache (B, Smax, KV, hd).
 GQA runs in grouped (KV, G) form; expanded k and v are never materialised.
 Decode attention and every projection are plain tensor code, as the
@@ -22,7 +24,7 @@ from repro_torch.models import common as cm
 
 Tensor = torch.Tensor
 _NEG = -1e30
-IMPLS = ("pallas", "xla")
+IMPLS = ("pallas", "xla", "xla_autodiff")
 
 # kv chunk of the online-softmax prefill path (the reference's FLASH_CHUNK)
 FLASH_CHUNK = 2048
@@ -133,6 +135,70 @@ def _flash_fwd_impl(q: Tensor, k: Tensor, v: Tensor, causal: bool,
   return out, m + torch.log(lsafe)
 
 
+class _FlashXla(torch.autograd.Function):
+  """The reference's ``_flash_xla`` custom VJP: the forward keeps only (q, k,
+  v, out, lse), and the backward recomputes each kv chunk's probabilities
+  from them in f32 (``_flash_xla_bwd``) instead of keeping every chunk's
+  probabilities alive from the forward."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, causal, window, scale, q_offset, chunk):
+    out, lse = _flash_fwd_impl(q, k, v, causal, window, scale, q_offset,
+                               chunk)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.cfg = (causal, window, scale, q_offset, chunk)
+    return out
+
+  @staticmethod
+  def backward(ctx, dout):
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, window, scale, q_offset, chunk = ctx.cfg
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+
+    def grouped(t):  # (B, S, H, hd) → (B, KV, G, S, hd) f32
+      return t.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).float()
+
+    qg, og, dg = grouped(q), grouped(out), grouped(dout)
+    delta = torch.sum(og * dg, dim=-1)                   # (B, KV, G, Sq)
+    ks, vs, ck, nck = _kv_chunks(k, v, chunk)
+    qpos = (q_offset + torch.arange(sq, device=q.device))[:, None]
+    dq = torch.zeros((b, kvh, g, sq, hd), device=q.device)
+    dks, dvs = [], []
+    for c_idx in range(nck):
+      kc, vc = ks[c_idx].float(), vs[c_idx].float()
+      s = torch.einsum("bkgqd,bkcd->bkgqc", qg * scale, kc)
+      mask = _chunk_mask(c_idx, ck, skv, qpos, causal, window)
+      p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+      dvs.append(torch.einsum("bkgqc,bkgqd->bkcd", p, dg))
+      dp = torch.einsum("bkgqd,bkcd->bkgqc", dg, vc)
+      ds = p * (dp - delta[..., None]) * scale          # dL/ds · scale chain
+      dq = dq + torch.einsum("bkgqc,bkcd->bkgqd", ds, kc)
+      dks.append(torch.einsum("bkgqc,bkgqd->bkcd", ds, qg))
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    # (nck, B, KV, ck, hd) → (B, Skv padded, KV, hd) → crop
+    dk = torch.stack(dks).permute(1, 0, 3, 2, 4).reshape(b, nck * ck, kvh, hd)
+    dv = torch.stack(dvs).permute(1, 0, 3, 2, 4).reshape(b, nck * ck, kvh, hd)
+    return (dq, dk[:, :skv].to(k.dtype), dv[:, :skv].to(v.dtype),
+            None, None, None, None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+  return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_xla(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              window: Optional[int], scale: float, q_offset: int = 0,
+              chunk: int = FLASH_CHUNK) -> Tensor:
+  """The chunked online-softmax attention with the flash backward; without
+  gradients it is the forward alone."""
+  if not _needs_grad(q, k, v):
+    return _flash_fwd_impl(q, k, v, causal, window, scale, q_offset,
+                           chunk)[0]
+  return _FlashXla.apply(q, k, v, causal, window, scale, q_offset, chunk)
+
+
 def _full_decode(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
                  kv_len: Tensor, window: Optional[int]) -> Tensor:
   """One-step attention against a (possibly partly filled) cache.
@@ -192,7 +258,10 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
                 buffer once the cache is full; the reference selects into a
                 donated buffer instead), and the updated cache is returned.
   impl ('train' and 'prefill'): 'pallas' runs K3 through
-  ``kernels.ops.flash_attention``; 'xla' the chunked plain-PyTorch path.
+  ``kernels.ops.flash_attention`` and refuses a step that needs gradients
+  (K3 has no backward); 'xla' the chunked plain-PyTorch path with the flash
+  backward; 'xla_autodiff' the same forward with autograd through its
+  chunks (the reference's baseline arm).
   """
   scale = cfg.hd ** -0.5
   window = cfg.window
@@ -203,15 +272,22 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
       raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     q, k, v = _project_qkv(p, cfg, x, positions)
     if impl == "pallas":
+      if _needs_grad(q, k, v):
+        raise RuntimeError(
+            "impl='pallas' has no backward: K3 (flash attention) is a "
+            "forward kernel, as the reference's Pallas arm is; train on "
+            "impl='xla'")
       # K3 reads the (B, S, H, hd) projections through transposed views and
       # writes into a (B, S, H, hd) buffer: no copies on either side
       out = torch.empty_like(q)
       ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True, window=window,
                           scale=scale, out=out.transpose(1, 2))
-    else:
+    elif impl == "xla_autodiff":
       out, _ = _flash_fwd_impl(q, k, v, True, window, scale, 0,
                                FLASH_CHUNK)
+    else:
+      out = flash_xla(q, k, v, True, window, scale, 0, FLASH_CHUNK)
     y = torch.matmul(out.flatten(-2), wo.flatten(0, 1))
     return y, ({"k": k, "v": v} if mode == "prefill" else None)
 

@@ -101,11 +101,18 @@ def _y_diag(cc: Tensor, bc: Tensor, xc: Tensor, dtc: Tensor, dac: Tensor,
 
   'xla': the reference's einsums over the expanded (B, nc, H, Q, Q) decay
   mask.  'pallas': one K4 launch reading every operand in place (strided
-  (z, head, q) views) and writing the (B, nc, Q, H, P) result directly.
+  (z, head, q) views) and writing the (B, nc, Q, H, P) result directly; K4
+  has no backward, so it refuses operands that need gradients.
   """
   bsz, nc, q, h, p = xc.shape
   g, n = bc.shape[3], bc.shape[4]
   if impl == "pallas":
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (cc, bc, xc, dtc, cum)):
+      raise RuntimeError(
+          "impl='pallas' has no backward: K4 (the SSD intra-chunk term) is "
+          "a forward kernel, as the reference's Pallas arm is; train on "
+          "impl='xla'")
     bz = bsz * nc
     y = torch.empty((bsz, nc, q, h, p), dtype=torch.float32, device=xc.device)
     ops.ssd_intra_chunk(

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_mod
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
@@ -22,6 +23,34 @@ Tensor = torch.Tensor
 
 def padded_vocab(cfg: cm.ModelConfig, mult: int = 256) -> int:
   return -(-cfg.vocab // mult) * mult
+
+
+REMATS = ("none", "full", "dots")
+# matmuls without batch dims: the reference's dots_with_no_batch_dims_saveable
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+  return (ckpt_mod.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+          else ckpt_mod.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def run_layer(layer, remat: str, *args, **kwargs):
+  """One layer's forward under the ``remat`` policy: 'none' keeps every
+  activation for the backward; 'full' keeps only the layer's input and
+  recomputes the rest (``jax.checkpoint``); 'dots' keeps the outputs of the
+  matmuls without batch dims and recomputes the rest (the reference's
+  ``dots_with_no_batch_dims_saveable``)."""
+  if remat not in REMATS:
+    raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+  if remat == "none" or not torch.is_grad_enabled():
+    return layer(*args, **kwargs)
+  if remat == "full":
+    return ckpt_mod.checkpoint(layer, *args, use_reentrant=False, **kwargs)
+  return ckpt_mod.checkpoint(
+      layer, *args, use_reentrant=False,
+      context_fn=lambda: ckpt_mod.create_selective_checkpoint_contexts(
+          _save_dots), **kwargs)
 
 
 def check_dense(cfg: cm.ModelConfig) -> None:
@@ -101,10 +130,12 @@ class TransformerLM(nn.Module):
 
   def forward(self, tokens: Tensor, positions: Optional[Tensor] = None, *,
               mode: str = "train", cache: Optional[dict] = None,
-              impl: str = "xla"):
+              impl: str = "xla", remat: str = "none"):
     """Returns (logits, new cache or None, aux loss).
 
-    tokens: (B, S) int.  'train' gives logits for every position;
+    tokens: (B, S) int.  ``remat`` is each layer's ``run_layer`` policy
+    (it acts only when gradients are recorded).  'train' gives logits for
+    every position;
     'prefill' only for the last one (the serving path needs no more) and the
     stacked cache {'k', 'v' (L, B, S, KV, hd), 'len'}; 'decode' takes S == 1
     and an ``init_cache``-layout cache, which it updates in place and
@@ -122,8 +153,8 @@ class TransformerLM(nn.Module):
     for i, block in enumerate(self.blocks):
       layer_cache = (None if cache is None else
                      {"k": cache["k"][i], "v": cache["v"][i]})
-      x, kv = block(x, positions, mode=mode, cache=layer_cache,
-                    cache_len=cache_len, impl=impl)
+      x, kv = run_layer(block, remat, x, positions, mode=mode,
+                        cache=layer_cache, cache_len=cache_len, impl=impl)
       kvs.append(kv)
     if mode == "prefill":
       x = x[:, -1:]
@@ -151,7 +182,9 @@ def logits_from(model: TransformerLM, cfg: cm.ModelConfig,
 
 def forward_lm(model: TransformerLM, cfg: cm.ModelConfig, tokens: Tensor,
                positions: Optional[Tensor] = None, *, mode: str = "train",
-               cache: Optional[dict] = None, impl: str = "xla"):
+               cache: Optional[dict] = None, impl: str = "xla",
+               remat: str = "none"):
   """Returns (logits, new_cache_or_None, aux_loss); see
   ``TransformerLM.forward``."""
-  return model(tokens, positions, mode=mode, cache=cache, impl=impl)
+  return model(tokens, positions, mode=mode, cache=cache, impl=impl,
+               remat=remat)

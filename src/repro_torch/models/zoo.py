@@ -86,8 +86,12 @@ class SSMLM(nn.Module):
     self.blocks = nn.ModuleList(SSMLayer(cfg, lp) for lp in params["blocks"])
 
   def forward(self, tokens: Tensor, *, mode: str = "train",
-              cache: Optional[dict] = None, impl: str = "xla"):
+              cache: Optional[dict] = None, impl: str = "xla",
+              remat: str = "none"):
     """Returns (logits, new cache or None, aux loss).
+
+    ``remat`` 'full' recomputes each layer in the backward; 'dots', like
+    the reference's SSM stack, keeps every activation ('none').
 
     'train' gives logits for every position; 'prefill' only for the last
     one and the stacked state after the prompt as the cache; 'decode'
@@ -95,13 +99,16 @@ class SSMLM(nn.Module):
     it updates in place and returns with ``len`` advanced.
     """
     cfg = self.cfg
+    if remat not in tf_mod.REMATS:
+      raise ValueError(f"remat must be one of {tf_mod.REMATS}, got {remat!r}")
     x = self.embed[tokens].to(cfg.dtype)
     stacked = cache["ssm"] if cache is not None else None
     states = []
     for i, layer in enumerate(self.blocks):
       st = (None if stacked is None else
             {name: t[i] for name, t in stacked.items()})
-      x, new_st = layer(x, mode=mode, state=st, impl=impl)
+      x, new_st = tf_mod.run_layer(layer, "full" if remat == "full" else
+                                   "none", x, mode=mode, state=st, impl=impl)
       if mode == "decode":
         for name, t in new_st.items():
           st[name].copy_(t)
@@ -133,10 +140,31 @@ def init(cfg: cm.ModelConfig, generator: torch.Generator,
 
 def forward(model: nn.Module, cfg: cm.ModelConfig, batch: dict, *,
             mode: str = "train", cache: Optional[dict] = None,
-            impl: str = "xla"):
+            impl: str = "xla", remat: str = "none"):
   """Returns (logits, new_cache_or_None, aux_loss); ``model`` is
   ``init``'s module for ``cfg``'s family."""
-  return model(batch["tokens"], mode=mode, cache=cache, impl=impl)
+  return model(batch["tokens"], mode=mode, cache=cache, impl=impl,
+               remat=remat)
+
+
+def param_tree(model: nn.Module) -> dict:
+  """The model's parameters (the tensors themselves, not copies) in the
+  reference's tree: ``embed``, ``final_norm_scale``, ``lm_head`` and
+  ``blocks`` — here a list of per-layer dicts where the reference stacks
+  each leaf along a leading layer axis."""
+  tree: dict = {}
+  for name, p in model.named_parameters():  # layers come in index order
+    *path, leaf = name.split(".")
+    node = tree
+    for part, nxt in zip(path, path[1:] + [leaf]):
+      if isinstance(node, list):
+        if int(part) == len(node):
+          node.append({})
+        node = node[int(part)]
+      else:
+        node = node.setdefault(part, [] if nxt.isdigit() else {})
+    node[leaf] = p
+  return tree
 
 
 def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,

@@ -197,7 +197,7 @@ class RequestArena:
     for name in self._program_specs:
       self._compiled(name)
 
-  def _state(self) -> tuple:
+  def _state_locked(self) -> tuple:
     return ((self._c, self._adj) if self._has_adj else (self._c,)) + (
         self._kv, self._act, self._it)
 
@@ -240,7 +240,7 @@ class RequestArena:
         slot_n = slot_n_host.pin_memory().to(self.device, non_blocking=True)
       else:
         slot_n = slot_n_host
-      self._compiled("admit")(*self._state(), mat, slot_n)
+      self._compiled("admit")(*self._state_locked(), mat, slot_n)
       self._slots[slot] = req
       self._admit_s[slot] = self._clock() if now is None else now
       self._admitted += 1
@@ -253,7 +253,8 @@ class RequestArena:
     with self._lock:
       if len(self._free) == self.capacity:
         return False
-      self._c, self._it, self._act = self._compiled("tick")(*self._state())
+      self._c, self._it, self._act = self._compiled("tick")(
+          *self._state_locked())
       self._ticks += 1
       return True
 

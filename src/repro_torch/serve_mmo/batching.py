@@ -240,6 +240,7 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
                     None)  # feature dim is never padded raggedly
       # mask padded corpus rows to +inf so they lose every top-k comparison
       row_ok = torch.arange(d2.shape[-1], device=d2.device) < valid[:, None]
+      # repro: ignore[semiring-hardcoded-identity] — top-k mask, not a pad
       d2 = torch.where(row_ok[:, None, :], d2, float("inf"))
       return smallest_k(d2, k)
 

@@ -1150,11 +1150,17 @@ class MMOEngine:
           f"request {rid} ({fut.request.kind}/{fut.request.op}) was "
           f"dropped: the queue drained without completing it — engine bug")
 
+  def _serving_thread(self) -> Optional[threading.Thread]:
+    """The loop's thread, read once under the lock: stop() may clear it
+    between two unlocked reads."""
+    with self._lock:
+      return self._thread
+
   def _drive(self, fut: MMOFuture, timeout: Optional[float]):
     """Future.result() plumbing: wait on the loop, or step synchronously."""
     deadline = None if timeout is None else time.perf_counter() + timeout
-    while (self._thread is not None and self._thread.is_alive()
-           and not fut.done()):
+    while ((thread := self._serving_thread()) is not None
+           and thread.is_alive() and not fut.done()):
       self._check_dropped(fut)
       if deadline is not None and time.perf_counter() > deadline:
         return
@@ -1268,9 +1274,9 @@ class MMOEngine:
       if self._running:
         return
       self._running = True
-    self._thread = threading.Thread(target=self._loop, name="mmo-serve",
-                                    daemon=True)
-    self._thread.start()
+      thread = self._thread = threading.Thread(
+          target=self._loop, name="mmo-serve", daemon=True)
+    thread.start()
 
   def stop(self, *, drain: bool = True):
     """Stop the loop; with ``drain`` finish everything queued first (without
@@ -1278,19 +1284,22 @@ class MMOEngine:
     until ``start()`` is called again."""
     with self._lock:
       self._stopped = True
+      thread = self._thread
     if drain:
-      if self._thread is not None and self._thread.is_alive():
+      if thread is not None and thread.is_alive():
         with self._idle:
-          while self._pending and self._thread.is_alive():
+          while self._pending and thread.is_alive():
             self._idle.wait(timeout=0.5)
       else:
         self.run_until_idle()
     with self._work:
       self._running = False
       self._work.notify_all()
-    if self._thread is not None:
-      self._thread.join()
-      self._thread = None
+    if thread is not None:
+      thread.join()  # outside the lock: the loop takes it to exit
+      with self._lock:
+        if self._thread is thread:
+          self._thread = None
 
   def _loop(self):
     if self.device.type == "cuda":

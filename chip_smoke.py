@@ -31,10 +31,14 @@ Phases (any failure exits non-zero):
      shape (bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's
      FA_CASES in f32 and bf16 (a window, head dims 32 to 128, Sq ≠ Skv,
      non-causal), head dims 128 and 16 in bf16, rows that see no key in
-     both dtypes, a steep score (q × 20), and strided views with out=; K4
+     both dtypes, a steep score (q × 20), and strided views with out=; K3
+     at head dim 112 in f32 and bf16 (zamba2's prefill shape B 4, H 32,
+     Hkv 32, S 2048, causal; Sq ≠ Skv; a strided view with out=) and at
+     mixtral's (bf16, B 4, H 32, Hkv 8, S 2048, D 128, window 4096); K4
      at the reference kernel test's shapes in f32 and bf16, the
-     mamba2-780m prefill's shape (BZ 32, H 48, G 1, Q 256, N 128, P 64) in
-     f32 and bf16, grouped cases with G < H, the design's edges (N 20 and
+     mamba2-780m prefill's shape (BZ 32, H 48, G 1, Q 256, N 128, P 64) and
+     zamba2-7b's (BZ 32, H 112, G 1, Q 256, N 64, P 64) in f32 and bf16,
+     grouped cases with G < H, the design's edges (N 20 and
      256, P 8 and 128, Q 600, a ragged head block), and a decay whose exp
      overflows above the diagonal;
   4. main path, batch mode — ``MMOEngine(backend="pallas", max_batch=8)``
@@ -102,7 +106,7 @@ Phases (any failure exits non-zero):
      not used by the port) are timed at the main path's shape, with K3's
      share of its bound, its registers and shared memory, the f32
      instance's time on the same inputs, and K3 against SDPA at the other
-     head dims (16, 32, 80, 128) of the same shape;
+     head dims (16, 32, 80, 112, 128) of the same shape;
   7. SSM serving — the tinyllama model is freed; mamba2-780m at full width
      (48 layers, d 1536, 48 SSM heads of 64, state 128, chunk 256) with
      random weights serves the same 4 × 2048 prompts, 32 new tokens each, on
@@ -177,7 +181,31 @@ Phases (any failure exits non-zero):
      the bf16 dense peak; (c) mamba2-780m at full width with 8 of its 48
      layers, the same step; (d) ``python -m repro_torch.launch.train
      --smoke --deterministic`` killed at step 20 (exit 42) and resumed:
-     the final loss equals the uninterrupted run's within rtol 1e-5.
+     the final loss equals the uninterrupted run's within rtol 1e-5; (e)
+     mixtral-8x7b at full width with 2 of its 32 layers and (f) zamba2-7b
+     at full width with 7 of its 81 (one application of the shared block,
+     then a tail layer), each with (b)'s probes and timed steps, every aux
+     finite and the MoE aux non-zero;
+  11. MoE serving (lines ``[moe]``) — mixtral-8x7b at its published width
+     (d 4096, 32/8 heads of 128, d_ff 14336, 8 experts top-2, window 4096)
+     with 8 of its 32 layers, then phi3.5-moe-42b-a6.6b (16 experts, d_ff
+     6400) with 4 of 32 (neither fits the card whole), seeded random
+     weights, serve the phase-6 prompts on both arms: K3 once per layer per
+     prefill and never in the decode; per layer the (token, choice) pairs
+     each arm dropped by capacity and the routes that differ between the
+     arms; the differing routes of the first layer with any at router
+     near-ties, the bf16 prefill logits and both arms' logits along the
+     same tokens at every decode step within stated limits, the greedy
+     tokens under a near-tie gap of twice that difference (at least the
+     reference's MoE gap, 0.1); the same weights in f32 with identical
+     routes (but at an f32 tie) and logits within a stated atol; then K3
+     at mixtral's served shape against its plain version and SDPA;
+  12. hybrid serving (lines ``[hybrid]``) — zamba2-7b at its published
+     width and depth (81 layers, d 3584, 112 SSM heads of 64, state 64, the
+     shared block every 6 layers) on both arms: K4 81 and K3 13 launches
+     per prefill, neither in the decode, the same logit and token checks,
+     the same weights in f32; then K3 at head dim 112 against SDPA and K4
+     at zamba2's shape against its plain version and the 'xla' einsums.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -275,6 +303,8 @@ SSD_LONG_TOL = {"rtol": 1e-5, "atol": 1e-4}
 SSD_REF_SHAPES = [(2, 4, 4, 32, 16, 8), (1, 2, 2, 64, 32, 16),
                   (3, 1, 1, 16, 8, 8)]
 SSD_MAIN_SHAPE = (4 * 8, 48, 1, 256, 128, 64)
+# zamba2-7b's SSM layers at the 4 × 2048 prefill: 112 heads of 64, state 64
+SSD_ZAMBA_SHAPE = (4 * 8, 112, 1, 256, 64, 64)
 SSD_GROUPED_SHAPES = [(2, 8, 2, 100, 32, 32), (2, 4, 1, 8, 16, 16),
                       (1, 6, 3, 130, 64, 128)]
 # the design's edges (tests/test_torch_ssd_cuda.py): N 20 and 256, P 8 and
@@ -373,6 +403,14 @@ def dtype_instance(row: dict) -> dict:
   return {k: row[k] for k in ("dtype", "case", "op", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
                                "max_abs_err")}
+
+
+def served_instance(row: dict) -> dict:
+  """A timing row of K3 or K4 at a served shape of phases 11-12, as the
+  kernel record lists it."""
+  return {k: row[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "max_abs_err",
+                               "launches")}
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -1249,6 +1287,11 @@ FA_CASES = [
     (1, 4, 4, 160, 160, 80, True, None),
 ]
 LM_FA_CASE = (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 64, True, None)
+# the served shapes of phases 11 and 12: mixtral-8x7b's attention (32 heads
+# over 8 kv heads of 128, window 4096) and zamba2-7b's shared block (32
+# heads, 32 kv heads of 112), both at the 4 × 2048 prefill
+MIXTRAL_FA_CASE = (LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128, True, 4096)
+ZAMBA_FA_CASE = (LM_BATCH, 32, 32, LM_PROMPT, LM_PROMPT, 112, True, None)
 
 
 def fa_inputs(torch, case, dtype, seed):
@@ -1667,6 +1710,23 @@ def phase_flash_vs_plain(fa, torch) -> float:
                            f"from the contiguous call")
   log("[check] K3 strided q, k, v views with out= (f32, bf16): the "
       "contiguous call's bits")
+  # head dim 112 (zamba2's shared block): its prefill shape, Sq ≠ Skv and a
+  # strided view with out=, in both dtypes; mixtral's served shape in bf16
+  for dtype in (torch.float32, torch.bfloat16):
+    check_fa(fa, torch, ZAMBA_FA_CASE, dtype, seed=3)
+    check_fa(fa, torch, (1, 8, 8, 96, 160, 112, True, None), dtype, seed=3)
+    qb, kb, vb = (torch.randn(2, 300, 8, 112, generator=gen,
+                              device="cuda").to(dtype) for _ in range(3))
+    views = [t.transpose(1, 2) for t in (qb, kb, vb)]
+    want = fa.flash_attention(*[t.contiguous() for t in views])
+    buf = torch.full_like(qb, float("nan"))
+    ops.flash_attention(*views, out=buf.transpose(1, 2))
+    if not torch.equal(buf.transpose(1, 2), want):
+      raise AssertionError(f"K3 {dtype} head dim 112: strided views with out= "
+                           f"differ from the contiguous call")
+  log("[check] K3 head dim 112 strided views with out= (f32, bf16): the "
+      "contiguous call's bits")
+  check_fa(fa, torch, MIXTRAL_FA_CASE, torch.bfloat16, seed=3)
   return main_err
 
 
@@ -1741,6 +1801,9 @@ def phase_ssd_vs_plain(ssd, torch) -> float:
   main_err = check_ssd(ssd, torch, SSD_MAIN_SHAPE, torch.float32,
                        SSD_LONG_TOL, seed=1)
   check_ssd(ssd, torch, SSD_MAIN_SHAPE, torch.bfloat16, SSD_LONG_TOL, seed=1)
+  # zamba2's shape: the head block at 112 heads
+  for dtype in (torch.float32, torch.bfloat16):
+    check_ssd(ssd, torch, SSD_ZAMBA_SHAPE, dtype, SSD_LONG_TOL, seed=1)
   for shape in SSD_GROUPED_SHAPES + SSD_EDGE_SHAPES:
     check_ssd(ssd, torch, shape, torch.float32, SSD_LONG_TOL, seed=1)
   # a group's 48 heads in CTA head blocks with a smaller last block
@@ -1906,12 +1969,14 @@ def ssd_sass(ssd) -> dict:
   return tc
 
 
-def xla_logits_along(cfg, model, zoo, torch, tokens, toks, max_len):
-  """The 'xla' engine's per-step logits along its own greedy tokens: the
-  same prefill, cache seating and decode steps as ``Engine.generate``."""
+def logits_along(cfg, model, zoo, torch, tokens, toks, max_len,
+                     impl: str = "xla"):
+  """An engine's per-step logits along the greedy tokens ``toks``: the
+  same prefill (on ``impl``), cache seating and decode steps as
+  ``Engine.generate``."""
   from repro_torch.launch.serve import seat_cache
   from repro_torch.train.steps import make_prefill_step
-  last, cache = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+  last, cache = make_prefill_step(cfg, impl=impl)(model, {"tokens": tokens})
   cache = seat_cache(cfg, cache, max_len, "cuda")
   steps = [last.float()]
   for t in range(toks.shape[1] - 1):
@@ -1925,8 +1990,8 @@ def phase_lm_serving(fa, torch, card: str) -> dict:
   """Phase 6: tinyllama-1.1b at full width through ``Engine``."""
   from repro_torch import configs
   cfg = configs.get_config(LM_ARCH)
-  return serve_phase(torch, card, cfg, fa.flash_attention, "lm",
-                     LM_LOGIT_ATOL,
+  return serve_phase(torch, card, cfg, {fa.flash_attention: cfg.n_layers},
+                     "lm", LM_LOGIT_ATOL,
                      f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, head "
                      f"dim {cfg.hd}")
 
@@ -1940,8 +2005,8 @@ def phase_ssm_serving(ssd, torch, card: str) -> dict:
   from repro_torch.models import zoo
   from repro_torch.train.steps import make_prefill_step
   cfg = configs.get_config(SSM_ARCH)
-  run = serve_phase(torch, card, cfg, ssd.ssd_intra_chunk, "ssm",
-                    SSM_LOGIT_ATOL,
+  run = serve_phase(torch, card, cfg, {ssd.ssd_intra_chunk: cfg.n_layers},
+                    "ssm", SSM_LOGIT_ATOL,
                     f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
                     f"{cfg.ssm_headdim}, state {cfg.ssm_state}, "
                     f"{cfg.ssm_ngroups} group, chunk {cfg.ssm_chunk}")
@@ -1965,12 +2030,21 @@ def phase_ssm_serving(ssd, torch, card: str) -> dict:
   return run
 
 
-def serve_phase(torch, card: str, cfg, kernel, tag: str, logit_atol: float,
-                shape_note: str) -> dict:
+def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
+                logit_atol: float, shape_note: str, tie_gap: float = TIE_GAP,
+                logit_check=None, profile_new: int = LM_NEW,
+                decode_atol=None) -> dict:
   """Serve ``cfg`` at full width through ``Engine`` on both arms: the
-  'pallas' prefill must launch ``kernel`` once per layer and the decode
-  never; prefill logits and greedy tokens are held against the 'xla'
-  arm's.  ``tag`` prefixes the log lines."""
+  'pallas' prefill must launch each kernel of ``kernels`` ({wrapper: launches
+  per prefill}) that many times and the decode never; prefill logits and
+  greedy tokens (under a near-tie gap of ``tie_gap``) are held against the
+  'xla' arm's.  ``logit_check(model, tokens)``, when given, compares the
+  prefill logits in place of the plain max |d| against ``logit_atol``.
+  With ``decode_atol``, both arms' logits along the 'xla' engine's tokens
+  (the two prefills, then the same decode steps) must agree within it at
+  every step, and the near-tie gap widens to twice their largest
+  difference: a greedy token can flip only where the top two are closer
+  than the arms' logits differ.  ``tag`` prefixes the log lines."""
   import numpy as np
   from repro_torch.launch.serve import Engine
   from repro_torch.models import zoo
@@ -1987,26 +2061,28 @@ def serve_phase(torch, card: str, cfg, kernel, tag: str, logit_atol: float,
   max_len = LM_PROMPT + LM_NEW
   eng = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
   xla = Engine(cfg, model, max_len=max_len, impl="xla", device="cuda")
-  # warm-up: cuBLAS, the kernel's library (a whole chunk for the SSM)
+  # warm-up: cuBLAS, the kernels' libraries (a whole chunk for the SSM)
   eng.generate(prompts[:, :256], 2)
   xla.generate(prompts[:, :256], 2)
-  kernel.launches = 0
+  for kernel in kernels:
+    kernel.launches = 0
   eng.generate(prompts, 1)
-  prefill_launches = kernel.launches
+  prefill_launches = {k.__name__: k.launches for k in kernels}
   # the main path: counts set to 0 just before, read just after
-  kernel.launches = 0
+  for kernel in kernels:
+    kernel.launches = 0
   torch.cuda.reset_peak_memory_stats()
   toks = eng.generate(prompts, LM_NEW)
-  launches = kernel.launches
+  launches = {k.__name__: k.launches for k in kernels}
   peak = torch.cuda.max_memory_allocated()
   tm = eng.last_timing
+  want = {k.__name__: n for k, n in kernels.items()}
   log(f"[{tag}] main path: prompts {prompts.shape}, {LM_NEW} new tokens; "
-      f"{kernel.__name__} launches: {prefill_launches} for a prefill alone, "
-      f"{launches} for the whole generate")
-  if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
-    raise AssertionError(f"{kernel.__name__} launches: prefill "
-                         f"{prefill_launches}, generate {launches}; want "
-                         f"{cfg.n_layers} and {cfg.n_layers} (none in the "
+      f"launches {prefill_launches} for a prefill alone, {launches} for the "
+      f"whole generate (want {want} for both)")
+  if prefill_launches != want or launches != want:
+    raise AssertionError(f"launches: prefill {prefill_launches}, generate "
+                         f"{launches}; want {want} and {want} (none in the "
                          f"decode)")
   if toks.shape != (LM_BATCH, LM_NEW) or not (
       (toks >= 0) & (toks < padded_vocab(cfg))).all():
@@ -2029,24 +2105,43 @@ def serve_phase(torch, card: str, cfg, kernel, tag: str, logit_atol: float,
   # prefill logits: pallas vs xla on the same model
   tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
   with torch.inference_mode():
-    lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
-    lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
-    d = (lp.float() - lx.float()).abs()
-    log(f"[{tag}] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
-        f"mean |d|={float(d.mean())!r} (atol {logit_atol}), logits std "
-        f"{float(lx.float().std())!r}")
-    if not bool(torch.isfinite(lp.float()).all()) or float(
-        d.max()) > logit_atol:
-      raise AssertionError("pallas and xla prefill logits disagree")
-    steps = xla_logits_along(cfg, model, zoo, torch, tokens,
+    if logit_check is not None:
+      lm["prefill_check"] = logit_check(model, tokens)
+    else:
+      lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
+      lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+      d = (lp.float() - lx.float()).abs()
+      log(f"[{tag}] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
+          f"mean |d|={float(d.mean())!r} (atol {logit_atol}), logits std "
+          f"{float(lx.float().std())!r}")
+      if not bool(torch.isfinite(lp.float()).all()) or float(
+          d.max()) > logit_atol:
+        raise AssertionError("pallas and xla prefill logits disagree")
+      lm["logits_max_abs_diff"] = float(d.max())
+      del lp, lx, d
+    steps = logits_along(cfg, model, zoo, torch, tokens,
                              torch.as_tensor(xla_toks, device="cuda"), max_len)
+    if decode_atol is not None:
+      psteps = logits_along(cfg, model, zoo, torch, tokens,
+                                torch.as_tensor(xla_toks, device="cuda"),
+                                max_len, impl="pallas")
+      dsteps = (psteps - steps).abs().amax(dim=-1).amax(dim=0).tolist()
+      lm["decode_logits_max_abs_diff"] = dsteps
+      log(f"[{tag}] logits along the xla tokens, pallas prefill vs xla "
+          f"prefill, max |d| per step: {[round(x, 4) for x in dsteps]} "
+          f"(atol {decode_atol})")
+      if max(dsteps) > decode_atol:
+        raise AssertionError("the arms' logits along the same tokens "
+                             "disagree")
+      tie_gap = max(tie_gap, 2 * max(dsteps))
+      del psteps
   if not np.array_equal(steps.argmax(dim=-1).cpu().numpy(), xla_toks):
     raise AssertionError("the xla engine's tokens are not its logits' argmax")
   top2 = steps.topk(2, dim=-1).values
   gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
   compared = 0
   for b in range(LM_BATCH):
-    ties = np.nonzero(gaps[b] < TIE_GAP)[0]
+    ties = np.nonzero(gaps[b] < tie_gap)[0]
     upto = int(ties[0]) if len(ties) else LM_NEW
     if not np.array_equal(toks[b, :upto], xla_toks[b, :upto]):
       raise AssertionError(f"row {b}: pallas tokens {toks[b, :upto]} vs "
@@ -2054,8 +2149,11 @@ def serve_phase(torch, card: str, cfg, kernel, tag: str, logit_atol: float,
     compared += upto
   log(f"[{tag}] greedy tokens pallas == xla on {compared} of "
       f"{LM_BATCH * LM_NEW} positions (the rest follow a top-2 gap under "
-      f"{TIE_GAP}); identical overall: {np.array_equal(toks, xla_toks)}")
-  profile_generate(torch, eng, prompts, LM_NEW, tag)
+      f"{tie_gap}); identical overall: {np.array_equal(toks, xla_toks)}")
+  lm["tokens_compared"] = compared
+  if profile_new != LM_NEW:
+    eng.generate(prompts, profile_new)  # unprofiled, then profiled
+  profile_generate(torch, eng, prompts, profile_new, tag)
   eng.generate(prompts, 1)  # the prefill alone, unprofiled, then profiled
   profile_generate(torch, eng, prompts, 1, tag)
   return lm
@@ -2134,14 +2232,17 @@ def phase_flash_timing(fa, torch, err: float, launches: int,
   return row
 
 
-def phase_ssd_timing(ssd, torch, err: float, launches: int) -> dict:
-  """Phase 7: K4 at the mamba2 prefill's shape, in the model's layout (the
-  (B, nc, Q, H, ·) buffers read and written through strided views, as
-  ``ssd_chunked`` launches it) and on contiguous (BZ, H, Q, ·) copies; its
-  plain version; and, for context, the 'xla' arm's intra-chunk einsums."""
+def phase_ssd_timing(ssd, torch, err, launches: int,
+                     shape=SSD_MAIN_SHAPE,
+                     label: str = "mamba2-780m prefill") -> dict:
+  """Phases 7 and 12: K4 at a prefill's shape (mamba2's, zamba2's), in the
+  model's layout (the (B, nc, Q, H, ·) buffers read and written through
+  strided views, as ``ssd_chunked`` launches it) and on contiguous (BZ, H,
+  Q, ·) copies; its plain version; and, for context, the 'xla' arm's
+  intra-chunk einsums."""
   from repro_torch.kernels import ops
   from repro_torch.models import ssm
-  bz, h, g, q, n, p = SSD_MAIN_SHAPE
+  bz, h, g, q, n, p = shape
   b_, nc = LM_BATCH, bz // LM_BATCH
   gen = torch.Generator(device="cuda").manual_seed(11)
   xc = torch.randn(b_, nc, q, h, p, generator=gen, device="cuda")
@@ -2167,9 +2268,11 @@ def phase_ssd_timing(ssd, torch, err: float, launches: int) -> dict:
   got = ops.ssd_intra_chunk(*views, out=out)
   layout_err = max_abs_err(got, ssd.ssd_intra_chunk_plain(*views))
   xla_err = max_abs_err(buf, ssm._y_diag(cc, bc, xc, dtc, dac, cum, "xla"))
-  b_ms, b_by, cc_ms = ssd_bound_ms(SSD_MAIN_SHAPE, 4)
-  row = {"case": f"mamba2-780m prefill (BZ, H, G, Q, N, P)="
-                 f"{SSD_MAIN_SHAPE} f32, model layout", "ms": ms,
+  if err is None:  # no phase-3 figure for this shape: the model layout's
+    err = layout_err
+  b_ms, b_by, cc_ms = ssd_bound_ms(shape, 4)
+  row = {"case": f"{label} (BZ, H, G, Q, N, P)={shape} f32, model layout",
+         "ms": ms,
          "contiguous_ms": contig_ms, "plain_ms": plain_ms,
          "xla_arm_ms": xla_ms, "bound_ms": b_ms, "bound_by": b_by,
          "share_of_bound": b_ms / ms, "cuda_core_products_ms": cc_ms,
@@ -2514,6 +2617,13 @@ def phase_analysis() -> dict:
 # tokens of SyntheticLM, bf16 compute, f32 master, AdamW.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 8
 SSM_TRAIN_LAYERS = 8  # of mamba2-780m's 48: a depth cut, widths as published
+# (e, f): the MoE and hybrid families at their published widths, cut in
+# depth: mixtral-8x7b with 2 of its 32 layers, zamba2-7b with 7 of its 81
+# (one application of the shared block, then one tail layer)
+MOE_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 2, 7
+# mixtral's step at 4 × 2048 ran out of the card's memory (68 GiB allocated
+# and a 1.75 GiB request refused on the first card run): 2 × 2048 tokens
+MOE_TRAIN_BATCH, HYBRID_TRAIN_BATCH = 2, 4
 # (a) the flash backward against autograd through the chunks: f32 within
 # 1e-4 (both sum 2048 keys in f32, in other orders), bf16 within 2e-2 (each
 # gradient rounds to bf16 once at the end: an ulp at magnitude 2-4); against
@@ -2618,10 +2728,14 @@ def matmul_params(params) -> int:
       {k: v for k, v in params.items() if k != "embed"}) if p.dim() >= 2)
 
 
-def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
-  """Phase 10(b, c): train ``cfg`` on the card: (probes) accum=2 against
-  accum=1 and remat="full" against none on one batch with lr 0 (the
-  parameters do not move), then 1 warm-up and TRAIN_TIMED timed steps."""
+def train_phase_model(torch, cfg, card: str, tag: str, probes: bool,
+                      batch_rows: int = TRAIN_BATCH) -> dict:
+  """Phase 10(b, c, e, f): train ``cfg`` on the card: (probes) accum=2
+  against accum=1 and remat="full" against none on one batch with lr 0
+  (the parameters do not move), then 1 warm-up and TRAIN_TIMED timed steps
+  on ``batch_rows`` × TRAIN_SEQ tokens.  Every loss and aux must be finite,
+  an MoE model's aux non-zero."""
+  from repro_torch.models import hybrid, moe
   from repro_torch.data import DataConfig, SyntheticLM
   from repro_torch.models import zoo
   from repro_torch.train import optimizer as opt_mod
@@ -2631,10 +2745,10 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
   params = zoo.param_tree(model)
   n_params = zoo.param_count(model)
   data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                global_batch=TRAIN_BATCH, seed=0))
+                                global_batch=batch_rows, seed=0))
   opt = opt_mod.init_opt_state(params)
   row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-         "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "params": n_params, "batch": batch_rows, "seq": TRAIN_SEQ,
          "impl": "xla", "dtype": str(cfg.dtype).removeprefix("torch."),
          "card": card}
   log(f"[train] {tag} {cfg.name}: {n_params} parameters ({cfg.n_layers} "
@@ -2646,19 +2760,24 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
     for label, kw in (("accum1", {}), ("accum2", {"accum": 2}),
                       ("remat_full", {"remat": "full"})):
       _, m = make_train_step(cfg, still, **kw)((model, opt), batch)
-      probe[label] = (float(m["loss"]), float(m["grad_norm"]))
+      probe[label] = (float(m["loss"]), float(m["grad_norm"]),
+                      float(m["aux_loss"]))
       if not all(map(lambda x: x == x and abs(x) < float("inf"),
                      probe[label])):
-        raise AssertionError(f"{label}: loss or grad norm not finite")
-    (l1, n1), (l2, n2), (lr_, nr) = (probe["accum1"], probe["accum2"],
-                                     probe["remat_full"])
+        raise AssertionError(f"{label}: loss, grad norm or aux not finite")
+    (l1, n1, a1), (l2, n2, a2), (lr_, nr, _) = (
+        probe["accum1"], probe["accum2"], probe["remat_full"])
     row.update(accum1=probe["accum1"], accum2=probe["accum2"],
                remat_full=probe["remat_full"])
     log(f"[train] {tag} one batch, lr 0: accum=1 loss {l1!r} grad norm "
-        f"{n1!r}; accum=2 loss {l2!r} grad norm {n2!r}; remat=full loss "
-        f"{lr_!r} grad norm {nr!r}")
+        f"{n1!r} aux {a1!r}; accum=2 loss {l2!r} grad norm {n2!r} aux "
+        f"{a2!r}; remat=full loss {lr_!r} grad norm {nr!r}")
+    # an MoE aux is a product of two batch means (top-1 fraction × mean
+    # probability), not a sum over rows: its gradient, and so the grad
+    # norm, differs between accum=2 and accum=1 (the reference's too)
     if (abs(l2 - l1) > ACCUM_RTOL["loss"] * abs(l1)
-        or abs(n2 - n1) > ACCUM_RTOL["grad_norm"] * abs(n1)):
+        or (not cfg.n_experts
+            and abs(n2 - n1) > ACCUM_RTOL["grad_norm"] * abs(n1))):
       raise AssertionError("accum=2 differs from accum=1 on one batch")
     if abs(lr_ - l1) > REMAT_RTOL * abs(l1):
       raise AssertionError("remat='full' changes the loss")
@@ -2671,6 +2790,7 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
   state = (model, opt)
   state, m = step(state, data.batch_at(0))  # warm-up
   losses = [float(m["loss"])]
+  auxes = [float(m["aux_loss"])]
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   times = []
@@ -2682,20 +2802,32 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool) -> dict:
     state, m = step(state, batch)
     e1.record()
     losses.append(float(m["loss"]))  # waits for the step
+    auxes.append(float(m["aux_loss"]))
     times.append(e0.elapsed_time(e1))
   peak = torch.cuda.max_memory_allocated()
-  if not all(x == x and abs(x) < float("inf") for x in losses):
-    raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+  if not all(x == x and abs(x) < float("inf") for x in losses + auxes):
+    raise AssertionError(f"{tag}: a loss or aux is not finite: {losses} "
+                         f"{auxes}")
+  if cfg.n_experts and not all(a > 0 for a in auxes):
+    raise AssertionError(f"{tag}: an MoE aux is zero: {auxes}")
   step_ms = sorted(times)[len(times) // 2]
   state = profile_train_step(torch, step, state, data.batch_at(
       TRAIN_TIMED + 1), step_ms, tag)
-  tokens = TRAIN_BATCH * TRAIN_SEQ
-  flops = 6.0 * matmul_params(params) * tokens
-  if cfg.family != "ssm":  # causal attention: half of S² per head, 3 passes
-    flops += (3 * 2 * 2 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads
-              * TRAIN_SEQ ** 2 * cfg.hd / 2)
+  tokens = batch_rows * TRAIN_SEQ
+  dense_params = matmul_params(params)
+  if cfg.n_experts:
+    # each expert runs all C slots of every row: E·C of the S·E pairs
+    expert = sum(t.numel() for lp in params["blocks"]
+                 for t in lp["moe"]["experts"].values())
+    dense_params -= expert * (1 - moe.capacity(cfg, TRAIN_SEQ) / TRAIN_SEQ)
+  flops = 6.0 * dense_params * tokens
+  attn_layers = {"ssm": 0, "hybrid": hybrid.layout(cfg)[1]}.get(
+      cfg.family, cfg.n_layers)
+  # causal attention: half of S² per head, 3 passes
+  flops += (3 * 2 * 2 * attn_layers * batch_rows * cfg.n_heads
+            * TRAIN_SEQ ** 2 * cfg.hd / 2)
   row.update(step_ms_median=step_ms, step_ms=times,
-             tokens_s=tokens / (step_ms / 1e3), losses=losses,
+             tokens_s=tokens / (step_ms / 1e3), losses=losses, auxes=auxes,
              max_memory_allocated_gib=peak / 2 ** 30,
              model_flops_per_step=flops,
              bf16_peak_share=flops / (step_ms / 1e3) / hw.PEAK_OPS[
@@ -2781,7 +2913,9 @@ def phase_kill_resume(tmp: Path) -> dict:
 def phase_training(torch, card: str, kernels) -> dict:
   """Phase 10: (a) the flash backward, (b) tinyllama-1.1b at full width and
   depth, (c) mamba2-780m at full width, 8 layers, (d) kill and resume
-  through the driver.  Training launches none of K1–K4 (impl='xla')."""
+  through the driver, (e) mixtral-8x7b at full width, 2 layers, (f)
+  zamba2-7b at full width, 7 layers.  Training launches none of K1–K4
+  (impl='xla')."""
   import tempfile
   from repro_torch import configs
   t_phase = time.perf_counter()
@@ -2800,11 +2934,308 @@ def phase_training(torch, card: str, kernels) -> dict:
   (ROOT / "build").mkdir(exist_ok=True)
   with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
     out["kill_resume"] = phase_kill_resume(Path(tmp))
+  for key, arch, layers, rows, tag in (
+      ("mixtral", "mixtral-8x7b", MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, "(e)"),
+      ("zamba2", HYBRID_ARCH, HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH,
+       "(f)")):
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[key] = train_phase_model(
+        torch, configs.get_config(arch).replace(n_layers=layers), card, tag,
+        probes=True, batch_rows=rows)
   if [k.launches for k in kernels] != before:
     raise AssertionError("training launched a hand-written kernel")
   out["s"] = time.perf_counter() - t_phase
   log(f"[train] phase 10 in {out['s']:.1f}s")
   return out
+
+
+# Phase 11: MoE serving.  Both configs keep their published widths; their
+# depth is cut because neither fits one 80 GB card whole (f32 master
+# weights: mixtral-8x7b 187 GB, phi3.5-moe 167 GB at 32 layers).
+MOE_SERVED = (("mixtral-8x7b", 8), ("phi3.5-moe-42b-a6.6b", 4))
+# the reference's near-tie tolerance for MoE (tests/test_serve.py): a router
+# near-tie swaps experts and moves logits by more than the dense gap
+MOE_TIE_GAP = 0.1
+# bf16 prefill logits, pallas vs xla, over every row: the arms round the
+# attention output differently, so each router reads another input and
+# routes flip (782 of 131,072 (token, choice) routes over mixtral's 8 layers
+# on the first card run) yet the logits moved by 0.0391 at most; the limit
+# is twice that.  The first layer's flips sat at router margins up to
+# 0.00305: the limit on them is twice that.
+MOE_LOGIT_ATOL = 0.078
+MOE_FLIP_MARGIN = 0.0061
+# the arms' logits along the same tokens (the 'xla' engine's), at every
+# decode step: a route flipped in the decode moves them further than in
+# the prefill (0.176 for mixtral, 0.265 for phi3.5-moe at one step of 32 on
+# the second card run, 0.035-0.047 at the others); the limit is twice the
+# larger
+MOE_DECODE_ATOL = 0.53
+# f32 compute: the arms differ in the order of K3's f32 sums; routes flip
+# only at a router tie closer than MOE_F32_FLIP_MARGIN (none flipped on the
+# card: mixtral's logits agreed to 6.08e-6); the limit is SSM_F32's
+MOE_F32_LOGIT_ATOL = 1e-4
+MOE_F32_FLIP_MARGIN = 1e-5
+# Phase 12: zamba2-7b at its published width and depth (81 SSM layers, the
+# shared block every 6: 13 applications).  bf16 logits pallas vs xla, with
+# logits std 1.20: the prefill's 0.0547 at most and along the same tokens
+# 0.0703 at most (the first two card runs); the limits twice those.  In
+# f32 the prefill logits agreed to 1.74e-5; the limit is SSM_F32's.
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_LOGIT_ATOL = 0.11
+HYBRID_DECODE_ATOL = 0.14
+HYBRID_F32_LOGIT_ATOL = 1e-4
+
+
+class RouteSpy:
+  """While active, records every MoE layer's routing: the expert ids (B, S,
+  k), the keep mask (B, S, k) and the router's top-k margin (B, S): the
+  smallest gap among its k + 1 largest probabilities, computed again in
+  f32 from the same input.  It wraps ``models.moe``'s ``_route`` and
+  ``_dispatch`` and changes neither result."""
+
+  def __init__(self, torch):
+    from repro_torch.models import moe
+    self.torch, self.moe, self.layers = torch, moe, []
+
+  def __enter__(self):
+    torch, moe = self.torch, self.moe
+    route, dispatch = moe._route, moe._dispatch
+    self._saved = (route, dispatch)
+
+    def spy_route(w, cfg, x):
+      out = route(w, cfg, x)
+      probs = torch.softmax(torch.matmul(x.float(), w.float()), dim=-1)
+      top = probs.sort(dim=-1, descending=True).values[..., :cfg.topk + 1]
+      self.layers.append({"idx": out[1],
+                          "margin": (top[..., :-1] - top[..., 1:]).amin(-1)})
+      return out
+
+    def spy_dispatch(x, idx, e, cap):
+      out = dispatch(x, idx, e, cap)
+      self.layers[-1]["keep"] = out[3]
+      return out
+    moe._route, moe._dispatch = spy_route, spy_dispatch
+    return self
+
+  def __exit__(self, *exc):
+    self.moe._route, self.moe._dispatch = self._saved
+
+
+def route_diff(a: RouteSpy, b: RouteSpy, tag: str) -> dict:
+  """Per layer of two recorded prefills: the (token, choice) pairs each arm
+  dropped by capacity, the routes that differ and the largest router
+  margin at one.  Returns the batch rows with no differing route in any
+  layer, the totals, and the largest margin at a differing route of the
+  first layer that has one (its router reads inputs that differ only by
+  the arms' rounding; a later layer's also by the earlier flips)."""
+  if len(a.layers) != len(b.layers):
+    raise AssertionError(f"{len(a.layers)} vs {len(b.layers)} MoE layers")
+  rows, first, flips, per_layer = None, None, 0, []
+  for i, (la, lb) in enumerate(zip(a.layers, b.layers)):
+    tok = (la["idx"] != lb["idx"]).any(-1)               # (B, S)
+    n = int((la["idx"] != lb["idx"]).sum())
+    m = float(lb["margin"][tok].max()) if n else 0.0
+    drop = [int((~la["keep"]).sum()), int((~lb["keep"]).sum())]
+    per_layer.append({"dropped": drop, "differing_routes": n,
+                      "max_margin_at_a_flip": m})
+    log(f"[{tag}] layer {i}: dropped by capacity {drop[0]} (pallas) and "
+        f"{drop[1]} (xla) of {la['keep'].numel()} (token, choice) pairs; "
+        f"routes differing {n}, largest router margin at one {m!r}")
+    if n and first is None:
+      first = m
+    flips += n
+    ok = ~tok.any(-1)
+    rows = ok if rows is None else rows & ok
+  return {"rows": rows, "flips": flips, "first_layer_margin": first or 0.0,
+          "per_layer": per_layer}
+
+
+def moe_prefill_check(cfg, tag: str, atol: float, margin: float,
+                      rows_without_flips: bool):
+  """A ``serve_phase`` logit check for an MoE model: both arms' prefills
+  with their routes recorded.  The differing routes of the first layer
+  that has any must sit at router near-ties (margin under ``margin``).
+  The logits must agree within ``atol``: on every row, or with
+  ``rows_without_flips`` on the rows with no differing route (all of them
+  when none differs)."""
+  def check(model, tokens):
+    import torch
+    from repro_torch.train.steps import make_prefill_step
+    with RouteSpy(torch) as rp:
+      lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
+    with RouteSpy(torch) as rx:
+      lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+    diff = route_diff(rp, rx, tag)
+    rows = (diff["rows"] if rows_without_flips
+            else torch.ones_like(diff["rows"]))
+    d = (lp.float() - lx.float()).abs()
+    worst = float(d[rows].max()) if bool(rows.any()) else float("nan")
+    out = {"flips": diff["flips"], "rows_compared": int(rows.sum()),
+           "logits_max_abs_diff": worst,
+           "logits_max_abs_diff_all_rows": float(d.max()),
+           "first_layer_margin": diff["first_layer_margin"],
+           "per_layer": diff["per_layer"]}
+    log(f"[{tag}] prefill logits pallas vs xla ({str(cfg.dtype)[6:]}): "
+        f"{diff['flips']} routes differ, the largest router margin at one "
+        f"of the first layer with any {diff['first_layer_margin']!r} (limit "
+        f"{margin}); max |d| {worst!r} over {out['rows_compared']} of "
+        f"{rows.numel()} rows (atol {atol}), "
+        f"{out['logits_max_abs_diff_all_rows']!r} over all; logits std "
+        f"{float(lx.float().std())!r}")
+    if not bool(torch.isfinite(lp.float()).all()):
+      raise AssertionError("non-finite pallas prefill logits")
+    if diff["first_layer_margin"] >= margin:
+      raise AssertionError("a route differs between the arms away from a "
+                           "router near-tie")
+    if not bool(rows.any()) or worst > atol:
+      raise AssertionError("pallas and xla prefill logits disagree")
+    return out
+  return check
+
+
+def f32_prefill_check(torch, cfg, tag: str, atol: float,
+                      moe_margin=None) -> dict:
+  """The same weights (the same seed) computing in f32: both arms' prefill
+  logits must agree within ``atol``; for an MoE model the routes too,
+  except at a router tie closer than ``moe_margin``."""
+  import numpy as np
+  from repro_torch.models import zoo
+  from repro_torch.train.steps import make_prefill_step
+  gc.collect()
+  torch.cuda.empty_cache()
+  cfg32 = cfg.replace(dtype=torch.float32)
+  model = zoo.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  prompts = np.random.default_rng(0).integers(
+      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  with torch.inference_mode():
+    if moe_margin is not None:
+      out = moe_prefill_check(cfg32, tag, atol, moe_margin,
+                              rows_without_flips=True)(model, tokens)
+    else:
+      lp, _ = make_prefill_step(cfg32, impl="pallas")(model,
+                                                      {"tokens": tokens})
+      lx, _ = make_prefill_step(cfg32, impl="xla")(model, {"tokens": tokens})
+      d = float((lp - lx).abs().max())
+      out = {"logits_max_abs_diff": d}
+      log(f"[{tag}] f32 compute, same weights: prefill logits pallas vs xla "
+          f"max |d|={d!r} (atol {atol}), logits std {float(lx.std())!r}")
+      if not bool(torch.isfinite(lp).all()) or d > atol:
+        raise AssertionError("pallas and xla f32 prefill logits disagree")
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return out
+
+
+def k3_served_row(fa, torch, case, label: str, launches: int) -> dict:
+  """K3's bf16 instance at a served shape: ms, its plain version's, SDPA's
+  (a window past every key is no window), the bound, and its result
+  against the plain version's."""
+  b, h, hkv, sq, skv, d, causal, window = case
+  if window is not None and window < skv:
+    raise ValueError("SDPA takes no sliding window here")
+  q, k, v = fa_inputs(torch, case, torch.bfloat16, 3)
+  run = (lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
+  ms = cuda_time_ms(run, 20)
+  plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+      q, k, v, causal=causal, window=window), 3)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                     enable_gqa=True), 20)
+  err = max_abs_err(run(), fa.flash_attention_plain(q, k, v, causal=causal,
+                                                    window=window))
+  b_ms, b_by = attention_bound_ms(case, "bfloat16")
+  row = {"case": f"{label} bf16 B{b} H{h}/{hkv} S{sq} D{d}"
+                 f"{'' if window is None else f' window {window}'}",
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+         "max_abs_err": err, "launches": launches,
+         "dynamic_shared_memory_bytes": k3_tc_smem(d)}
+  log(f"[time] K3 {json.dumps(row)}")
+  if err > FA_ATOL["bfloat16"]:
+    raise AssertionError(f"K3 disagrees with its plain version at {label}")
+  return row
+
+
+def phase_moe_serving(fa, torch, card: str) -> dict:
+  """Phase 11: mixtral-8x7b (8 of 32 layers) and phi3.5-moe (4 of 32) at
+  their published widths through ``Engine`` on both arms, K3 once per
+  layer in the prefill and never in the decode; the bf16 prefill logits
+  under the router near-tie rule, then the same weights in f32 with
+  identical routes; then K3 at mixtral's served shape against SDPA."""
+  from repro_torch import configs
+  t_phase = time.perf_counter()
+  out = {}
+  for arch, layers in MOE_SERVED:
+    cfg = configs.get_config(arch).replace(n_layers=layers)
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != MIXTRAL_FA_CASE[1:3] + (
+        MIXTRAL_FA_CASE[5],):
+      raise AssertionError(f"{arch}'s attention is not MIXTRAL_FA_CASE's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    note = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of "
+            f"{cfg.hd}, window {cfg.window}, {cfg.n_experts} experts top-"
+            f"{cfg.topk}, d_ff {cfg.d_ff}; {layers} of "
+            f"{configs.get_config(arch).n_layers} layers")
+    run = serve_phase(torch, card, cfg, {fa.flash_attention: cfg.n_layers},
+                      "moe", MOE_LOGIT_ATOL, note, tie_gap=MOE_TIE_GAP,
+                      logit_check=moe_prefill_check(
+                          cfg, "moe", MOE_LOGIT_ATOL, MOE_FLIP_MARGIN,
+                          rows_without_flips=False),
+                      profile_new=4, decode_atol=MOE_DECODE_ATOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["f32"] = f32_prefill_check(torch, cfg, "moe", MOE_F32_LOGIT_ATOL,
+                                   moe_margin=MOE_F32_FLIP_MARGIN)
+    out[arch] = run
+  out["k3_row"] = k3_served_row(
+      fa, torch, MIXTRAL_FA_CASE, "mixtral-8x7b prefill",
+      out["mixtral-8x7b"]["launches"]["flash_attention"])
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[moe] phase 11 in {out['s']:.1f}s")
+  return out
+
+
+def phase_hybrid_serving(fa, ssd, torch, card: str) -> dict:
+  """Phase 12: zamba2-7b at its published width and depth through
+  ``Engine`` on both arms: K4 once per SSM layer (81) and K3 once per
+  application of the shared block (13) in the prefill, neither in the
+  decode; then the same weights in f32; then K3 at head dim 112 against
+  SDPA and K4 at zamba2's shape against its plain version and the 'xla'
+  einsums."""
+  from repro_torch import configs
+  from repro_torch.models import hybrid
+  t_phase = time.perf_counter()
+  cfg = configs.get_config(HYBRID_ARCH)
+  every, n_apps = hybrid.layout(cfg)
+  if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != ZAMBA_FA_CASE[1:3] + (
+      ZAMBA_FA_CASE[5],) or (cfg.ssm_heads, cfg.ssm_state) != (
+          SSD_ZAMBA_SHAPE[1], SSD_ZAMBA_SHAPE[4]):
+    raise AssertionError("zamba2's shapes are not the phase's constants")
+  gc.collect()
+  torch.cuda.empty_cache()
+  note = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, state "
+          f"{cfg.ssm_state}; the shared block every {every} layers "
+          f"({n_apps} applications): {cfg.n_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}")
+  run = serve_phase(torch, card, cfg, {ssd.ssd_intra_chunk: cfg.n_layers,
+                                       fa.flash_attention: n_apps},
+                    "hybrid", HYBRID_LOGIT_ATOL, note, profile_new=4,
+                    decode_atol=HYBRID_DECODE_ATOL)
+  gc.collect()
+  torch.cuda.empty_cache()
+  run["f32"] = f32_prefill_check(torch, cfg, "hybrid", HYBRID_F32_LOGIT_ATOL)
+  run["k3_row"] = k3_served_row(fa, torch, ZAMBA_FA_CASE, "zamba2-7b prefill",
+                                run["launches"]["flash_attention"])
+  run["k4_row"] = phase_ssd_timing(ssd, torch, None,
+                                   run["launches"]["ssd_intra_chunk"],
+                                   SSD_ZAMBA_SHAPE, "zamba2-7b prefill")
+  run["s"] = time.perf_counter() - t_phase
+  log(f"[hybrid] phase 12 in {run['s']:.1f}s")
+  return run
 
 
 def main() -> int:
@@ -3261,7 +3692,8 @@ def main() -> int:
 
   # -- phase 6: LM serving at full width, then K3 timing ----------------------
   lm = phase_lm_serving(fa, torch, card)
-  k3 = phase_flash_timing(fa, torch, k3_err, lm["launches"], k3_ptxas)
+  k3 = phase_flash_timing(fa, torch, k3_err,
+                          lm["launches"]["flash_attention"], k3_ptxas)
 
   # -- phase 7: SSM serving at full width, then K4 timing ---------------------
   gc.collect()  # the tinyllama engines and weights went out of scope
@@ -3271,7 +3703,8 @@ def main() -> int:
   ssm_run = phase_ssm_serving(ssd, torch, card)
   gc.collect()
   torch.cuda.empty_cache()
-  k4 = phase_ssd_timing(ssd, torch, k4_err, ssm_run["launches"])
+  k4 = phase_ssd_timing(ssd, torch, k4_err,
+                        ssm_run["launches"]["ssd_intra_chunk"])
 
   # -- phase 8: the rest of the applications ----------------------------------
   gc.collect()
@@ -3294,7 +3727,33 @@ def main() -> int:
   log(f"[summary] analysis {json.dumps(analysis)}; training "
       f"step ms {train['tinyllama']['step_ms_median']!r} (tinyllama-1.1b), "
       f"{train['mamba2']['step_ms_median']!r} (mamba2-780m, "
-      f"{SSM_TRAIN_LAYERS} layers) {card}")
+      f"{SSM_TRAIN_LAYERS} layers), {train['mixtral']['step_ms_median']!r} "
+      f"(mixtral-8x7b, {MOE_TRAIN_LAYERS} layers), "
+      f"{train['zamba2']['step_ms_median']!r} (zamba2-7b, "
+      f"{HYBRID_TRAIN_LAYERS} layers) {card}")
+
+  # -- phase 11: MoE serving ---------------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  moe_run = phase_moe_serving(fa, torch, card)
+
+  # -- phase 12: hybrid serving ------------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  hyb = phase_hybrid_serving(fa, ssd, torch, card)
+  k3_paths = {"tinyllama-1.1b": k3["launches"],
+              **{arch: moe_run[arch]["launches"]["flash_attention"]
+                 for arch, _ in MOE_SERVED},
+              HYBRID_ARCH: hyb["launches"]["flash_attention"]}
+  k4_paths = {SSM_ARCH: k4["launches"],
+              HYBRID_ARCH: hyb["launches"]["ssd_intra_chunk"]}
+  served = {arch: moe_run[arch] for arch, _ in MOE_SERVED}
+  served[HYBRID_ARCH] = hyb
+  log(f"[summary] phases 11-12 {card}: " + "; ".join(
+      f"{arch} prefill {r['prefill_ms']!r} ms, decode "
+      f"{r['decode_ms_per_token']!r} ms/token, peak "
+      f"{r['max_memory_allocated_gib']!r} GiB" for arch, r in served.items())
+      + f"; phase 11 {moe_run['s']:.1f}s, phase 12 {hyb['s']:.1f}s")
 
   head = rows_out[0]
   k2 = k2_rows[0]
@@ -3322,17 +3781,22 @@ def main() -> int:
       "name": "flash_attention_wgmma", "design": K3_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
       "replaces": "src/repro/kernels/flash_attention.py:107",
-      "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+      "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+      "max_abs_err": k3["max_abs_err"],
       "ms": k3["ms"], "plain_ms": k3["plain_ms"],
       "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-      "library_ms": k3["library_ms"]}, {
+      "library_ms": k3["library_ms"],
+      "instances": [served_instance(row) for row in (
+          moe_run["k3_row"], hyb["k3_row"])]}, {
       "name": "ssd_intra_chunk", "design": K4_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/ssd.cu",
       "replaces": "src/repro/kernels/ssd.py:54",
-      "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+      "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
+      "max_abs_err": k4["max_abs_err"],
       "ms": k4["ms"], "plain_ms": k4["plain_ms"],
       "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-      "library_ms": None}]}
+      "library_ms": None,
+      "instances": [served_instance(hyb["k4_row"])]}]}
   log(json.dumps(record))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
-"""Config registry of the port: the dense LM architectures and mamba2.
+"""Config registry of the port: the dense, MoE, SSM and hybrid LM
+architectures.
 
 Counterpart of ``repro/configs/__init__.py``.  Each ``<arch>.py`` exports
 ``CONFIG`` (the published configuration, full scale) and ``smoke_config()``
 (a reduced same-family config for CPU tests and smoke training runs);
 ``simd2_apps`` holds the paper's own workloads (Table 4).  Every
 architecture here serves and trains.  The other families of the
-reference's registry (MoE, hybrid, enc-dec, VLM) are ROADMAP item 13's
-steps 2–4.
+reference's registry (enc-dec, VLM) are ROADMAP item 13's step 4.
 """
 from __future__ import annotations
 
@@ -18,10 +18,12 @@ _ARCHS = {
     "granite-8b": "granite_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mamba2-780m": "mamba2_780m",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "zamba2-7b": "zamba2_7b",
 }
 # the reference's other architectures, not ported yet
-_LATER = ("seamless-m4t-large-v2", "mixtral-8x7b",
-          "phi3.5-moe-42b-a6.6b", "zamba2-7b", "chameleon-34b")
+_LATER = ("seamless-m4t-large-v2", "chameleon-34b")
 
 
 def list_archs():
@@ -31,7 +33,7 @@ def list_archs():
 def get_config(name: str, smoke: bool = False):
   if name in _LATER:
     raise NotImplementedError(
-        f"{name}: the port has the dense and SSM LM families only; the "
-        f"other families are ROADMAP item 13")
+        f"{name}: the port has the dense, MoE, SSM and hybrid LM families; "
+        f"enc-dec and VLM are ROADMAP item 13")
   mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
   return mod.smoke_config() if smoke else mod.CONFIG

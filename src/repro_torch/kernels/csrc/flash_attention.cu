@@ -51,7 +51,7 @@
 // memory) loads the tile four ahead into its stage, so no thread waits for
 // a free stage and no CTA-wide barrier runs in the loop.
 // Tiles of head dims 64 and 128 use the 128-byte swizzle (conflict-free
-// wgmma reads); 16, 32 and 80 use unswizzled 8-column boxes.  Each step
+// wgmma reads); 16, 32, 80 and 112 use unswizzled 8-column boxes.  Each step
 // issues S of tile u behind P V of tile u - 1, without a branch (a
 // warpgroup that skips a tile masks all of it), so the softmax overlaps the
 // second product.  The softmax runs in registers in the log2 domain (the
@@ -340,7 +340,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
 // into the row.  MN-major (V): 8-key groups 1024 B apart (sbo), 64-column
 // blocks a box apart (lbo).
 //
-// Otherwise (16, 32, 80): unswizzled boxes of 8 columns, 64 rows of 16 bytes
+// Otherwise (16, 32, 80, 112): unswizzled boxes of 8 columns, 64 rows of 16 bytes
 // each, so every 8 x 8 core matrix is 128 contiguous bytes; column blocks
 // 1024 B apart.  The descriptor's lbo steps between core matrices along the
 // contraction axis, sbo along M or N.
@@ -493,6 +493,38 @@ __device__ __forceinline__ void wgmma_rs_m64n80k16(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n112k16(float (&d)[56],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b, int scale_d) {
@@ -537,6 +569,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) wgmma_rs_m64n32k16(d, a, desc_b, 1);
   if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, desc_b, 1);
   if constexpr (N == 80) wgmma_rs_m64n80k16(d, a, desc_b, 1);
+  if constexpr (N == 112) wgmma_rs_m64n112k16(d, a, desc_b, 1);
   if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, desc_b, 1);
 }
 
@@ -962,6 +995,7 @@ extern "C" int simd2_flash_attention(int dtype, int head_dim, const void* q,
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(80)
+    FA_CASE(112)
     FA_CASE(128)
     default:
       return -1;

@@ -42,7 +42,7 @@ Tensor = torch.Tensor
 # not skipped (they get the mean of V over that block), which prefill, with
 # Sq == Skv, never has.
 TILE = (64, 64)
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 2 ** 31 - 1

@@ -4,17 +4,23 @@
         --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --smoke --device cpu
 
-Counterpart of ``repro/launch/serve.py`` for the dense and SSM LM families.
-The prefill runs through ``impl``: 'pallas' (the default) launches the
-flash-attention kernel K3 once per attention layer, or the SSD intra-chunk
-kernel K4 once per SSM layer; 'xla' runs the plain PyTorch paths.  (The
-reference's engine builds its prefill without ``impl``, so it takes 'xla';
-its steps take the argument.)  A dense cache is allocated once at
-``max_len`` (sliding-window configs get a window-sized ring buffer); an
+Counterpart of ``repro/launch/serve.py`` for the dense, MoE, SSM and hybrid
+LM families.  The prefill runs through ``impl``: 'pallas' (the default)
+launches the flash-attention kernel K3 once per attention layer (a
+hybrid's: once per application of its shared block), and the SSD
+intra-chunk kernel K4 once per SSM layer; 'xla' runs the plain PyTorch
+paths.  (The reference's engine builds its prefill without ``impl``, so it
+takes 'xla'; its steps take the argument.)  A KV cache is allocated once
+at ``max_len`` (sliding-window configs get a window-sized ring buffer); an
 SSM's cache is its recurrent state, which the prefill hands to the decode
-as it is.  Decode keeps the tokens on the card and syncs once at the end.
-Runs on the card (``--device cuda``, the default) unless told otherwise.
+as it is; a hybrid's is both.  Decode keeps the tokens on the card and
+syncs once at the end.  Runs on the card (``--device cuda``, the default)
+unless told otherwise.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import zoo
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -34,18 +41,24 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
   """The prefill's cache as the decode's.
 
-  Dense: the KV rows (L, B, S, ...) seated at the front of a zeroed
-  ``max_len`` cache, ``len`` carried over.  SSM: the state after the prompt
-  is the decode's state, in ``init_cache``'s layout already, and is
-  returned as it is (the reference seats it unchanged).
+  Dense and MoE: the KV rows (L, B, S, ...) seated at the front of a
+  zeroed ``max_len`` cache, ``len`` carried over.  SSM: the state after the
+  prompt is the decode's state, in ``init_cache``'s layout already, and is
+  returned as it is (the reference seats it unchanged).  Hybrid: the SSM
+  state as it is, and each application's KV rows (n_apps, B, S, ...) at
+  the front of a zeroed ``max_len`` cache.
   """
   if cfg.family == "ssm":
     return cache
-  b, s = cache["k"].shape[1:3]
-  full = zoo.init_cache(cfg, b, max_len, device=device)
-  full["k"][:, :, :s] = cache["k"]
-  full["v"][:, :, :s] = cache["v"]
+  kv = cache["attn"] if cfg.family == "hybrid" else cache
+  n, b, s = kv["k"].shape[:3]
+  full = attn_mod.init_cache(cfg, n, b, max_len, device=device)
+  full["k"][:, :, :s] = kv["k"]
+  full["v"][:, :, :s] = kv["v"]
   full["len"].copy_(cache["len"])
+  if cfg.family == "hybrid":
+    return {"ssm": cache["ssm"], "attn": {"k": full["k"], "v": full["v"]},
+            "len": full["len"]}
   return full
 
 

@@ -3,6 +3,10 @@ tolerance and deterministic resume, on one device.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 200 --batch 8 --seq 256 --smoke --ckpt-dir run1
+    python -m repro_torch.launch.train --arch mixtral-8x7b --smoke \
+        --steps 30 --batch 4 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch zamba2-7b --smoke \
+        --steps 30 --batch 4 --seq 32 --device cpu
 
 Counterpart of ``repro/launch/train.py``, with its flags plus ``--device``
 (default ``cuda``; ``cpu`` for the CPU) and ``--deterministic``.  It runs
@@ -107,6 +111,7 @@ def main(argv=None):
       dt = time.time() - t0
       tok_s = args.batch * args.seq * (step + 1 - start) / max(dt, 1e-9)
       print(f"[train] step={step + 1} loss={loss:.4f} "
+            f"aux={float(metrics['aux_loss']):.4f} "
             f"lr={float(metrics['lr']):.2e} "
             f"gnorm={float(metrics['grad_norm']):.2f} tok/s={tok_s:,.0f}",
             flush=True)

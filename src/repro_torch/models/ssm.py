@@ -262,6 +262,22 @@ class SSMBlock(nn.Module):
                      **kw)
 
 
+class SSMLayer(nn.Module):
+  """Pre-norm residual SSM layer: x + ssm_block(rms_norm(x))."""
+
+  def __init__(self, cfg: cm.ModelConfig, params: dict):
+    super().__init__()
+    self.cfg = cfg
+    self.ln_norm_scale = nn.Parameter(params["ln_norm_scale"],
+                                      requires_grad=False)
+    self.ssm = SSMBlock(cfg, params["ssm"])
+
+  def forward(self, x: Tensor, **kw):
+    h = cm.rms_norm(x, self.ln_norm_scale, self.cfg.norm_eps)
+    y, state = self.ssm(h, **kw)
+    return x + y, state
+
+
 def init_ssm_state(cfg: cm.ModelConfig, n_layers: int, batch: int,
                    device=DEFAULT_DEVICE) -> dict:
   """Zeroed layer-stacked decode state: 'ssm' (L, B, H, N, P) f32, 'conv'

@@ -1,10 +1,12 @@
-"""Decoder-only LM for the dense family: tinyllama, qwen2.5, granite,
-h2o-danube (sliding window).
+"""Decoder-only LM, dense and MoE: tinyllama, qwen2.5, granite,
+h2o-danube (sliding window), mixtral (MoE, sliding window), phi3.5-moe.
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks its
 layers and scans over them; here each layer is a ``Block`` module and the
-model loops over them.  Mixture-of-experts configs (mixtral, phi3.5-moe,
-chameleon's family) wait for a later slice of ROADMAP item 13.
+model loops over them.  A block takes the ``moe`` subtree where
+``cfg.n_experts`` is set and the ``mlp`` subtree otherwise; the model's aux
+loss is the mean of its blocks' (0 for a dense block).  Chameleon's VLM
+family waits for ROADMAP item 13's step 4.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from torch.utils import checkpoint as ckpt_mod
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 
 Tensor = torch.Tensor
 
@@ -53,11 +56,11 @@ def run_layer(layer, remat: str, *args, **kwargs):
           _save_dots), **kwargs)
 
 
-def check_dense(cfg: cm.ModelConfig) -> None:
-  if cfg.family != "dense" or cfg.n_experts:
+def check_family(cfg: cm.ModelConfig) -> None:
+  if cfg.family not in ("dense", "moe"):
     raise NotImplementedError(
-        f"{cfg.name}: the port's transformer runs the dense LM family only; "
-        f"{cfg.family} (n_experts={cfg.n_experts}) is ROADMAP item 13")
+        f"{cfg.name}: the port's transformer runs the dense and MoE LM "
+        f"families; {cfg.family} is ROADMAP item 13")
 
 
 def init_lm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
@@ -76,7 +79,8 @@ def init_lm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
           "ln1_norm_scale": torch.ones(d, dtype=cfg.param_dtype, device=dev),
           "ln2_norm_scale": torch.ones(d, dtype=cfg.param_dtype, device=dev),
           "attn": attn_mod.attn_params(generator, cfg),
-          "mlp": mlp_mod.mlp_params(generator, cfg),
+          **({"moe": moe_mod.moe_params(generator, cfg)} if cfg.n_experts
+             else {"mlp": mlp_mod.mlp_params(generator, cfg)}),
       } for _ in range(cfg.n_layers)],
   }
   if not cfg.tie_embeddings:
@@ -85,7 +89,8 @@ def init_lm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
 
 
 class Block(nn.Module):
-  """Pre-norm residual block: x + attn(norm(x)), then + mlp(norm(x))."""
+  """Pre-norm residual block: x + attn(norm(x)), then + mlp(norm(x)) or
+  + moe(norm(x)); returns (x, kv, aux)."""
 
   def __init__(self, cfg: cm.ModelConfig, params: dict):
     super().__init__()
@@ -95,7 +100,10 @@ class Block(nn.Module):
     self.ln2_norm_scale = nn.Parameter(params["ln2_norm_scale"],
                                        requires_grad=False)
     self.attn = attn_mod.Attention(cfg, params["attn"])
-    self.mlp = mlp_mod.MLP(cfg, params["mlp"])
+    if cfg.n_experts:
+      self.moe = moe_mod.MoE(cfg, params["moe"])
+    else:
+      self.mlp = mlp_mod.MLP(cfg, params["mlp"])
 
   def forward(self, x: Tensor, positions: Tensor, *, mode: str,
               cache: Optional[dict], cache_len: Optional[Tensor], impl: str):
@@ -104,7 +112,11 @@ class Block(nn.Module):
                       cache_len=cache_len, impl=impl)
     x = x + a
     h = cm.rms_norm(x, self.ln2_norm_scale, self.cfg.norm_eps)
-    return x + self.mlp(h), kv
+    if self.cfg.n_experts:
+      m, aux = self.moe(h)
+    else:
+      m, aux = self.mlp(h), torch.zeros((), device=x.device)
+    return x + m, kv, aux
 
 
 class TransformerLM(nn.Module):
@@ -116,7 +128,7 @@ class TransformerLM(nn.Module):
 
   def __init__(self, cfg: cm.ModelConfig, params: dict):
     super().__init__()
-    check_dense(cfg)
+    check_family(cfg)
     if len(params["blocks"]) != cfg.n_layers:
       raise ValueError(f"{len(params['blocks'])} blocks for a "
                        f"{cfg.n_layers}-layer config")
@@ -149,13 +161,15 @@ class TransformerLM(nn.Module):
       base = cache_len if mode == "decode" else 0
       positions = (base + torch.arange(s, device=x.device)[None, :]
                    + torch.zeros((b, 1), dtype=torch.int32, device=x.device))
-    kvs = []
+    kvs, auxs = [], []
     for i, block in enumerate(self.blocks):
       layer_cache = (None if cache is None else
                      {"k": cache["k"][i], "v": cache["v"][i]})
-      x, kv = run_layer(block, remat, x, positions, mode=mode,
-                        cache=layer_cache, cache_len=cache_len, impl=impl)
+      x, kv, aux = run_layer(block, remat, x, positions, mode=mode,
+                             cache=layer_cache, cache_len=cache_len,
+                             impl=impl)
       kvs.append(kv)
+      auxs.append(aux)
     if mode == "prefill":
       x = x[:, -1:]
     x = cm.rms_norm(x, self.final_norm_scale, cfg.norm_eps)
@@ -169,7 +183,7 @@ class TransformerLM(nn.Module):
     elif mode == "decode":
       # each layer wrote its row into its view of the stacked cache
       new_cache = {"k": cache["k"], "v": cache["v"], "len": cache_len + 1}
-    return logits, new_cache, torch.zeros((), device=x.device)
+    return logits, new_cache, torch.stack(auxs).mean()
 
 
 def logits_from(model: TransformerLM, cfg: cm.ModelConfig,

@@ -1,4 +1,4 @@
-"""Unified model API for the port's LM families (dense and SSM so far):
+"""Unified model API for the port's LM families (dense, MoE, SSM, hybrid):
 
     model = zoo.init(cfg, generator, device)
     logits, cache, aux = zoo.forward(model, cfg, batch, mode=..., ...)
@@ -7,9 +7,11 @@ Counterpart of ``repro/models/zoo.py``.  ``batch`` is a dict
 {'tokens': (B, S) int}.  Caches keep the reference's layouts: dense
 {'k', 'v': (L, B, max_len, KV, hd), 'len'}; SSM {'ssm': {'ssm'
 (L, B, H, N, P) f32, 'conv' (L, B, K−1, d_inner), 'bc_conv'
-(L, B, K−1, 2GN)}, 'len'}, both with an int32 scalar 'len'.  The MoE,
-hybrid, enc-dec and VLM families are ROADMAP item 13's later slices and
-raise ``NotImplementedError``.
+(L, B, K−1, 2GN)}, 'len'}; hybrid {'ssm': the SSM state, 'attn': {'k',
+'v': (n_apps, B, max_len, KV, hd)}, 'len'}; each with an int32 scalar
+'len'.  The MoE family runs in the dense family's ``TransformerLM``.  The
+enc-dec and VLM families are ROADMAP item 13's step 4 and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch import nn
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 
@@ -50,22 +53,6 @@ def init_ssm_lm_params(generator: torch.Generator,
   }
 
 
-class SSMLayer(nn.Module):
-  """Pre-norm residual SSM layer: x + ssm_block(rms_norm(x))."""
-
-  def __init__(self, cfg: cm.ModelConfig, params: dict):
-    super().__init__()
-    self.cfg = cfg
-    self.ln_norm_scale = nn.Parameter(params["ln_norm_scale"],
-                                      requires_grad=False)
-    self.ssm = ssm_mod.SSMBlock(cfg, params["ssm"])
-
-  def forward(self, x: Tensor, **kw):
-    h = cm.rms_norm(x, self.ln_norm_scale, self.cfg.norm_eps)
-    y, state = self.ssm(h, **kw)
-    return x + y, state
-
-
 class SSMLM(nn.Module):
   """Embedding, ``n_layers`` SSM layers, final norm and LM head (the
   reference's ``_init_ssm_lm`` / ``_forward_ssm_lm``)."""
@@ -83,7 +70,8 @@ class SSMLM(nn.Module):
                                          requires_grad=False)
     if not cfg.tie_embeddings:
       self.lm_head = nn.Parameter(params["lm_head"], requires_grad=False)
-    self.blocks = nn.ModuleList(SSMLayer(cfg, lp) for lp in params["blocks"])
+    self.blocks = nn.ModuleList(ssm_mod.SSMLayer(cfg, lp)
+                                for lp in params["blocks"])
 
   def forward(self, tokens: Tensor, *, mode: str = "train",
               cache: Optional[dict] = None, impl: str = "xla",
@@ -134,6 +122,10 @@ def init(cfg: cm.ModelConfig, generator: torch.Generator,
   dev = resolve_device(device)
   if cfg.family == "ssm":
     return SSMLM(cfg, init_ssm_lm_params(generator, cfg)).to(dev)
+  if cfg.family == "hybrid":
+    return hybrid_mod.HybridLM(
+        cfg, hybrid_mod.init_hybrid_params(generator, cfg)).to(dev)
+  tf_mod.check_family(cfg)
   params = tf_mod.init_lm_params(generator, cfg)
   return tf_mod.TransformerLM(cfg, params).to(dev)
 
@@ -151,7 +143,7 @@ def param_tree(model: nn.Module) -> dict:
   """The model's parameters (the tensors themselves, not copies) in the
   reference's tree: ``embed``, ``final_norm_scale``, ``lm_head`` and
   ``blocks`` — here a list of per-layer dicts where the reference stacks
-  each leaf along a leading layer axis."""
+  each leaf along a leading layer axis — and a hybrid's ``shared``."""
   tree: dict = {}
   for name, p in model.named_parameters():  # layers come in index order
     *path, leaf = name.split(".")
@@ -169,14 +161,17 @@ def param_tree(model: nn.Module) -> dict:
 
 def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
                device=DEFAULT_DEVICE) -> dict:
-  """A zeroed cache; ``max_len`` sizes the dense KV cache and is not read by
-  the SSM state, which has no length."""
+  """A zeroed cache; ``max_len`` sizes the KV cache (dense, MoE, and the
+  hybrid's per application) and is not read by the SSM state, which has no
+  length."""
   dev = resolve_device(device)
   if cfg.family == "ssm":
     return {"ssm": ssm_mod.init_ssm_state(cfg, cfg.n_layers, batch,
                                           device=dev),
             "len": torch.zeros((), dtype=torch.int32, device=dev)}
-  tf_mod.check_dense(cfg)
+  if cfg.family == "hybrid":
+    return hybrid_mod.init_hybrid_cache(cfg, batch, max_len, device=dev)
+  tf_mod.check_family(cfg)
   return attn_mod.init_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
 
 

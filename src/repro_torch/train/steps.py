@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/train/steps.py``.  ``make_train_step`` builds a
 (state, batch) → (state, metrics) function with:
-  * next-token cross-entropy (+ the MoE load-balance aux, weight 0.01;
-    aux is 0 for the dense and SSM families),
+  * next-token cross-entropy (+ the MoE load-balance aux, weight 0.01:
+    the model's mean over its MoE layers, averaged over the microbatches
+    like the loss; 0 for the dense, SSM and hybrid families),
   * gradient microbatching (sequential accumulation over ``accum`` slices
     — the compute/memory knob at fixed global batch),
   * AdamW with global-norm clip (``train.optimizer``).
@@ -14,7 +15,8 @@ and the gradients come back through those casts in f32.  The step runs on
 one device; the reference's mesh knobs (``grad_specs``, ``zero2``,
 ``grad_comm_bf16``) are ROADMAP item 13.6 and accepted only at their
 no-mesh defaults.  ``make_prefill_step`` / ``make_decode_step`` are the
-two serving steps.
+two serving steps, for every family's cache (dense and MoE KV, SSM state,
+hybrid both).
 """
 from __future__ import annotations
 

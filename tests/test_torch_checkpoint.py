@@ -115,6 +115,41 @@ def test_reads_a_checkpoint_the_reference_wrote(tmp_path):
     np.testing.assert_array_equal(np.asarray(node), a)
 
 
+@pytest.mark.parametrize("arch,path,shape", [
+    ("mixtral-8x7b", "params/blocks/moe/experts/w1", (2, 4, 64, 128)),
+    ("phi3.5-moe-42b-a6.6b", "params/blocks/moe/router", (2, 64, 4)),
+    ("zamba2-7b", "params/shared/attn/wq", (64, 4, 16)),
+])
+def test_reads_the_reference_checkpoint_of_each_family(tmp_path, arch, path,
+                                                       shape):
+  """The reference's own ``zoo.init`` tree, written by the reference's
+  checkpointer (MoE experts stacked (L, E, D, F); a hybrid's shared block
+  with no layer axis), restores into a port model's tree equal to
+  ``convert.from_reference`` of the same tree; the port writes it back in
+  the same layout."""
+  from repro import configs as jconfigs
+  from repro.models import zoo as jzoo
+  from repro_torch.models import convert
+  jcfg = jconfigs.get_config(arch, smoke=True)
+  tcfg = tconfigs.get_config(arch, smoke=True)
+  tree = jax.tree.map(np.asarray, jzoo.init(jcfg, jax.random.PRNGKey(1)))
+  jckpt.save(str(tmp_path / "ref"), 4, {"params": tree})
+  template = {"params": tzoo.param_tree(
+      tzoo.init(tcfg, torch.Generator().manual_seed(0), "cpu"))}
+  back, step = ckpt.restore(str(tmp_path / "ref"), template=template)
+  assert step == 4
+  want = tzoo.param_tree(convert.from_reference(tree, tcfg, device="cpu"))
+  _assert_trees_equal(back["params"], want)
+  ckpt.save(str(tmp_path / "port"), 5, back)
+  flat = ckpt._flatten(back)
+  assert flat[path].shape == shape
+  ref, _ = jckpt.restore(str(tmp_path / "port"))
+  node = ref
+  for part in path.split("/"):
+    node = node[part]
+  np.testing.assert_array_equal(np.asarray(node), flat[path])
+
+
 # --- data ---------------------------------------------------------------------
 
 

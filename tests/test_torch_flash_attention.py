@@ -36,6 +36,7 @@ FA_CASES = [
     (1, 4, 1, 200, 200, 64, True, 96),
     (1, 2, 2, 64, 256, 128, True, None),
     (1, 4, 4, 160, 160, 80, True, None),   # non-128-aligned head dim
+    (1, 4, 4, 96, 160, 112, True, None),   # zamba2's head dim, Sq ≠ Skv
 ]
 BQ, BKV = fa.TILE
 

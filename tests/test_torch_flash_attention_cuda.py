@@ -10,7 +10,9 @@ The shapes are ``chip_smoke.py``'s: the LM main path (tinyllama prefill,
 bf16, B 4, H 32, Hkv 4, S 2048, D 64, causal), the reference's FA_CASES in
 f32 and in bf16 (all five head dims, Sq ≠ Skv, a window, non-causal), the
 rows that see no key in both dtypes, a steep score whose running max jumps
-between kv tiles, and strided views with ``out=``.  Tolerances: f32 atol
+between kv tiles, and strided views with ``out=``; head dim 112 (zamba2's
+shared attention block) in both dtypes, its prefill shape, Sq ≠ Skv and a
+strided view with ``out=``.  Tolerances: f32 atol
 2e-5 (the reference kernel test's own; the summation order differs), bf16
 atol 3e-2 (the reference's own; the bf16 instance also rounds P to bf16
 for the second product, as flash-attention kernels on this card do).
@@ -39,6 +41,12 @@ BF16_CASES = [
     (1, 16, 2, 300, 300, 128, True, None),    # head dim 128 (qwen, granite)
     (1, 8, 2, 200, 200, 80, True, 64),        # head dim 80 with a window
     (2, 4, 2, 40, 40, 16, True, None),        # the smoke configs' head dim
+]
+# head dim 112 (zamba2-7b's shared block: 32 heads, 32 kv heads)
+D112_CASES = [
+    (4, 32, 32, 2048, 2048, 112, True, None),  # zamba2 prefill, B 4
+    (1, 8, 8, 96, 160, 112, True, None),       # Sq ≠ Skv
+    (1, 4, 2, 200, 200, 112, True, 64),        # GQA, a window
 ]
 
 
@@ -123,6 +131,30 @@ def test_steep_scores_rescale_with_bf16_p(cuda):
   want = fa.flash_attention_plain(q, k, v, causal=True)
   assert not torch.isnan(got).any()
   torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", D112_CASES, ids=str)
+def test_head_dim_112_matches_plain(cuda, case, dtype):
+  got, want = _run(case, dtype, cuda, seed=6)
+  atol = 2e-5 if dtype == torch.float32 else 3e-2
+  torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_head_dim_112_strided_views_with_out(cuda, dtype):
+  """zamba2's layout: (B, S, H, 112) projections read through transposed
+  views and written into a view of a (B, S, H, 112) buffer."""
+  b, h, s, d = 2, 8, 300, 112
+  g = torch.Generator().manual_seed(7)
+  qb, kb, vb = (torch.randn(b, s, h, d, generator=g).to(cuda, dtype)
+                for _ in range(3))
+  q, k, v = (t.transpose(1, 2) for t in (qb, kb, vb))
+  want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+  buf = torch.full_like(qb, float("nan"))
+  ops.flash_attention(q, k, v, out=buf.transpose(1, 2))
+  torch.cuda.synchronize()
+  assert torch.equal(buf.transpose(1, 2), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

@@ -230,12 +230,16 @@ def test_convert_from_reference(arch):
 
 
 def test_other_families_are_refused():
-  with pytest.raises(NotImplementedError, match="item 13"):
-    tconfigs.get_config("mixtral-8x7b", smoke=True)
-  cfg = tconfigs.get_config("tinyllama-1.1b", smoke=True).replace(
-      family="moe", n_experts=4, topk=2)
-  with pytest.raises(NotImplementedError, match="item 13"):
-    tzoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+  for name in ("seamless-m4t-large-v2", "chameleon-34b"):
+    with pytest.raises(NotImplementedError, match="item 13"):
+      tconfigs.get_config(name, smoke=True)
+  for family in ("vlm", "encdec"):
+    cfg = tconfigs.get_config("tinyllama-1.1b", smoke=True).replace(
+        family=family)
+    with pytest.raises(NotImplementedError, match="item 13"):
+      tzoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+      tzoo.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_draws_from_the_generator():

@@ -38,6 +38,8 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 ARCHS = ["tinyllama-1.1b", "mamba2-780m"]
+# the MoE and hybrid families: the aux loss is the mean over the MoE layers
+NEW_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
 
 
 def _cfgs(arch, dtype="f32"):
@@ -106,7 +108,7 @@ def test_lr_schedule_matches_reference(step):
 
 
 def test_decay_mask_and_paths_match_reference():
-  for arch in ARCHS:
+  for arch in ARCHS + NEW_ARCHS:
     _, _, jparams, model = _models(arch)
     want = sorted((p, jopt._decay_mask(p))
                   for p in jax.tree.leaves(jopt._paths(jparams)))
@@ -290,7 +292,11 @@ def test_grad_accum_matches_full_batch_and_reference(arch):
 @pytest.mark.parametrize("arch,remat", [("tinyllama-1.1b", "full"),
                                         ("tinyllama-1.1b", "dots"),
                                         ("mamba2-780m", "full"),
-                                        ("mamba2-780m", "dots")])
+                                        ("mamba2-780m", "dots"),
+                                        ("mixtral-8x7b", "full"),
+                                        ("mixtral-8x7b", "dots"),
+                                        ("zamba2-7b", "full"),
+                                        ("zamba2-7b", "dots")])
 def test_remat_matches_none(arch, remat):
   lr = 1e-3
   _, _, m0, _, t0 = _steps(arch, "f32", lr=lr, ref=False)
@@ -301,6 +307,46 @@ def test_remat_matches_none(arch, remat):
   for a, b in zip(jax.tree.leaves(_stacked(m0)),
                   jax.tree.leaves(_stacked(m1))):
     np.testing.assert_allclose(a, b, atol=2 * lr)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_moe_and_hybrid_train_step_matches_reference(arch):
+  """One f32 step: loss, aux (the mean over the MoE layers; 0 for the
+  hybrid), grad norm and the updated parameters against the reference's."""
+  lr = 1e-3
+  jnew, jm, model, tstate, tm = _steps(arch, "f32", lr=lr)
+  np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                             rtol=1e-5)
+  np.testing.assert_allclose(float(tm["aux_loss"]), float(jm["aux_loss"]),
+                             rtol=1e-5)
+  np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                             rtol=1e-5)
+  assert (float(tm["aux_loss"]) > 0) == arch.startswith(("mixtral", "phi"))
+  for a, b in zip(jax.tree.leaves(jnew), jax.tree.leaves(_stacked(model))):
+    np.testing.assert_allclose(b, np.asarray(a, np.float32), atol=2 * lr)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-7b"])
+def test_moe_and_hybrid_grad_accum(arch):
+  """accum=2 against the reference's accum=2 (loss, aux and grad norm; the
+  aux averaged over the microbatches as the loss is) and against accum=1
+  on the same global batch: the capacity is per batch row, so the halves
+  route and drop as the whole does, and the loss is the same.  The MoE
+  aux is a product of two batch means (top-1 fraction × mean probability),
+  not a sum over rows, so its gradient differs between the two (the
+  reference's too): the grad norm is held to accum=1 only for the
+  hybrid."""
+  lr = 1e-3
+  _, jm, _, _, tm2 = _steps(arch, "f32", accum=2, lr=lr)
+  _, _, _, _, tm1 = _steps(arch, "f32", accum=1, lr=lr, ref=False)
+  for key in ("loss", "aux_loss", "grad_norm"):
+    np.testing.assert_allclose(float(tm2[key]), float(jm[key]), rtol=1e-5,
+                               err_msg=key)
+  np.testing.assert_allclose(float(tm2["loss"]), float(tm1["loss"]),
+                             rtol=1e-5)
+  if arch == "zamba2-7b":
+    np.testing.assert_allclose(float(tm2["grad_norm"]),
+                               float(tm1["grad_norm"]), rtol=1e-4)
 
 
 def test_remat_dots_saves_only_the_projections():
@@ -315,7 +361,7 @@ def test_remat_dots_saves_only_the_projections():
     ttf.run_layer(lambda x: x, "everything", torch.zeros(1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x7b", "zamba2-7b"])
 def test_pallas_is_refused_in_training(arch):
   _, tcfg, _, model = _models(arch)
   oc = topt.AdamWConfig()

@@ -205,7 +205,33 @@ Phases (any failure exits non-zero):
      shared block every 6 layers) on both arms: K4 81 and K3 13 launches
      per prefill, neither in the decode, the same logit and token checks,
      the same weights in f32; then K3 at head dim 112 against SDPA and K4
-     at zamba2's shape against its plain version and the 'xla' einsums.
+     at zamba2's shape against its plain version and the 'xla' einsums;
+  13. enc-dec serving (lines ``[encdec]``) — seamless-m4t-large-v2 at its
+     published width and depth (24 + 24 layers, d 1024, 16 heads of 64,
+     d_ff 8192, vocabulary 256,206): 4 requests of a 4096-frame seeded
+     source and a 256-token prompt, 32 new tokens; the engine encodes once
+     on its arm, so on 'pallas' K3 launches 72 times per prefill (24
+     non-causal encoder, 24 causal decoder, 24 cross-attention with Sq 256
+     over Skv 4096, reading each layer's cross K/V as a strided view) and
+     never in the decode; the same logit and token checks as phase 11, the
+     same weights in f32; then K3 at the three new shapes against its
+     plain version and SDPA;
+  14. VLM serving (lines ``[vlm]``) — chameleon-34b at its published width
+     (d 8192, 64/8 heads of 128, d_ff 22016, qk-norm, vocabulary 65,536)
+     with 8 of its 48 layers: a seeded 8192 × 256 codebook, 1024 patches
+     per request (drawn codes plus 0.05 noise) tokenized by one K1 addnorm
+     launch (``vq_tokenize(backend="pallas")``; the ids equal the drawn
+     codes, a float64 brute force and the 'vector' arm), fused ahead of 1024
+     text tokens at offset 32768 and served: K1 once and K3 8 times per
+     generate, the same checks, the same weights in f32; then K3 at
+     chameleon's shape and K1 at the VQ shape timed;
+  15. the pipeline (lines ``[pipe]``) — the GPipe schedule
+     (``models/pipeline.py``) on a virtual 4 × 2 mesh of eight shards of the
+     card, tests/test_pipeline.py's construction widened: 4 stages of 3
+     tanh layers, D 4096, 8 microbatches of 512 rows split over "data", f32:
+     forward and gradients against the sequential layers and float64, the
+     bubble fraction and ms per call against the sequential call (a
+     virtual mesh measures the schedule, not an interconnect).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -406,8 +432,8 @@ def dtype_instance(row: dict) -> dict:
 
 
 def served_instance(row: dict) -> dict:
-  """A timing row of K3 or K4 at a served shape of phases 11-12, as the
-  kernel record lists it."""
+  """A timing row of K1, K3 or K4 at a served shape of phases 11-14, as
+  the kernel record lists it."""
   return {k: row[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "max_abs_err",
                                "launches")}
@@ -1969,18 +1995,32 @@ def ssd_sass(ssd) -> dict:
   return tc
 
 
+def prefill(cfg, model, tokens, impl: str, src=None) -> tuple:
+  """``make_prefill_step``'s (last-position logits, cache) on ``impl``, and
+  the decode steps' extra batch: an enc-dec model first encodes ``src`` on
+  the same arm and hands the output to both, as ``Engine.generate``
+  does."""
+  from repro_torch.models import encdec
+  from repro_torch.train.steps import make_prefill_step
+  extra = ({} if src is None else
+           {"enc_out": encdec.encode(model, cfg, src, impl=impl)})
+  last, cache = make_prefill_step(cfg, impl=impl)(model, {"tokens": tokens,
+                                                          **extra})
+  return last, cache, extra
+
+
 def logits_along(cfg, model, zoo, torch, tokens, toks, max_len,
-                     impl: str = "xla"):
+                     impl: str = "xla", src=None):
   """An engine's per-step logits along the greedy tokens ``toks``: the
   same prefill (on ``impl``), cache seating and decode steps as
   ``Engine.generate``."""
   from repro_torch.launch.serve import seat_cache
-  from repro_torch.train.steps import make_prefill_step
-  last, cache = make_prefill_step(cfg, impl=impl)(model, {"tokens": tokens})
+  last, cache, extra = prefill(cfg, model, tokens, impl, src)
   cache = seat_cache(cfg, cache, max_len, "cuda")
   steps = [last.float()]
   for t in range(toks.shape[1] - 1):
-    logits, cache, _ = zoo.forward(model, cfg, {"tokens": toks[:, t:t + 1]},
+    logits, cache, _ = zoo.forward(model, cfg, {"tokens": toks[:, t:t + 1],
+                                                **extra},
                                    mode="decode", cache=cache)
     steps.append(logits[:, -1].float())
   return torch.stack(steps, dim=1)  # (B, n_new, V)
@@ -2033,7 +2073,8 @@ def phase_ssm_serving(ssd, torch, card: str) -> dict:
 def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
                 logit_atol: float, shape_note: str, tie_gap: float = TIE_GAP,
                 logit_check=None, profile_new: int = LM_NEW,
-                decode_atol=None) -> dict:
+                decode_atol=None, prompts=None, src=None,
+                front=None) -> dict:
   """Serve ``cfg`` at full width through ``Engine`` on both arms: the
   'pallas' prefill must launch each kernel of ``kernels`` ({wrapper: launches
   per prefill}) that many times and the decode never; prefill logits and
@@ -2044,40 +2085,58 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
   (the two prefills, then the same decode steps) must agree within it at
   every step, and the near-tie gap widens to twice their largest
   difference: a greedy token can flip only where the top two are closer
-  than the arms' logits differ.  ``tag`` prefixes the log lines."""
+  than the arms' logits differ.  ``tag`` prefixes the log lines.
+
+  ``prompts`` (B, S) numpy default to LM_BATCH × LM_PROMPT seeded tokens;
+  ``src``, an enc-dec model's source frames on the card, goes to every
+  generate and prefill.  ``front()``, when given, makes the prompts on the
+  card (a frontend with kernels of its own, counted in ``kernels``): the
+  measured generates call it inside their counting windows, and its
+  prompts must equal ``prompts``."""
   import numpy as np
   from repro_torch.launch.serve import Engine
   from repro_torch.models import zoo
   from repro_torch.models.transformer import padded_vocab
-  from repro_torch.train.steps import make_prefill_step
   t0 = time.perf_counter()
   model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
   torch.cuda.synchronize()
   log(f"[{tag}] {cfg.name}: {zoo.param_count(model)} parameters "
       f"({cfg.n_layers} layers, d {cfg.d_model}, {shape_note}) built in "
       f"{time.perf_counter() - t0:.1f}s")
-  prompts = np.random.default_rng(0).integers(
-      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
-  max_len = LM_PROMPT + LM_NEW
+  if prompts is None:
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+
+  def made_prompts():
+    if front is None:
+      return prompts
+    made = front()
+    if not np.array_equal(made.cpu().numpy(), prompts):
+      raise AssertionError("the frontend's prompts changed between calls")
+    return made
+  n_prompt = prompts.shape[1]
+  max_len = n_prompt + LM_NEW
   eng = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
   xla = Engine(cfg, model, max_len=max_len, impl="xla", device="cuda")
   # warm-up: cuBLAS, the kernels' libraries (a whole chunk for the SSM)
-  eng.generate(prompts[:, :256], 2)
-  xla.generate(prompts[:, :256], 2)
+  eng.generate(prompts[:, :256], 2, src_embeds=src)
+  xla.generate(prompts[:, :256], 2, src_embeds=src)
   for kernel in kernels:
     kernel.launches = 0
-  eng.generate(prompts, 1)
+  eng.generate(made_prompts(), 1, src_embeds=src)
   prefill_launches = {k.__name__: k.launches for k in kernels}
   # the main path: counts set to 0 just before, read just after
   for kernel in kernels:
     kernel.launches = 0
   torch.cuda.reset_peak_memory_stats()
-  toks = eng.generate(prompts, LM_NEW)
+  toks = eng.generate(made_prompts(), LM_NEW, src_embeds=src)
   launches = {k.__name__: k.launches for k in kernels}
   peak = torch.cuda.max_memory_allocated()
   tm = eng.last_timing
   want = {k.__name__: n for k, n in kernels.items()}
-  log(f"[{tag}] main path: prompts {prompts.shape}, {LM_NEW} new tokens; "
+  log(f"[{tag}] main path: prompts {prompts.shape}"
+      f"{'' if src is None else f', sources {tuple(src.shape)}'}, "
+      f"{LM_NEW} new tokens; "
       f"launches {prefill_launches} for a prefill alone, {launches} for the "
       f"whole generate (want {want} for both)")
   if prefill_launches != want or launches != want:
@@ -2089,15 +2148,17 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
     raise AssertionError(f"bad tokens {toks.shape}")
   step_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
   lm = {"prefill_ms": tm["prefill_s"] * 1e3, "decode_ms_per_token": step_ms,
-        "prefill_tokens_s": LM_BATCH * LM_PROMPT / tm["prefill_s"],
+        "prefill_tokens_s": LM_BATCH * n_prompt / tm["prefill_s"],
         "decode_tokens_s": LM_BATCH * tm["decode_steps"] / tm["decode_s"],
         "generate_tokens_s": LM_BATCH * LM_NEW / (tm["prefill_s"]
                                                   + tm["decode_s"]),
         "max_memory_allocated_gib": peak / 2 ** 30, "launches": launches,
         "card": card}
   log(f"[{tag}] {json.dumps(lm)}")
+  if src is not None:
+    lm["source_frames_s"] = src.shape[0] * src.shape[1] / tm["prefill_s"]
   torch.cuda.reset_peak_memory_stats()
-  xla_toks = xla.generate(prompts, LM_NEW)
+  xla_toks = xla.generate(prompts, LM_NEW, src_embeds=src)
   lm["xla_max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
   log(f"[{tag}] xla arm: prefill {xla.last_timing['prefill_s'] * 1e3:.1f}ms, "
       f"decode {xla.last_timing['decode_s'] / (LM_NEW - 1) * 1e3:.2f}"
@@ -2108,8 +2169,8 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
     if logit_check is not None:
       lm["prefill_check"] = logit_check(model, tokens)
     else:
-      lp, _ = make_prefill_step(cfg, impl="pallas")(model, {"tokens": tokens})
-      lx, _ = make_prefill_step(cfg, impl="xla")(model, {"tokens": tokens})
+      lp = prefill(cfg, model, tokens, "pallas", src)[0]
+      lx = prefill(cfg, model, tokens, "xla", src)[0]
       d = (lp.float() - lx.float()).abs()
       log(f"[{tag}] prefill logits pallas vs xla: max |d|={float(d.max())!r} "
           f"mean |d|={float(d.mean())!r} (atol {logit_atol}), logits std "
@@ -2120,11 +2181,12 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
       lm["logits_max_abs_diff"] = float(d.max())
       del lp, lx, d
     steps = logits_along(cfg, model, zoo, torch, tokens,
-                             torch.as_tensor(xla_toks, device="cuda"), max_len)
+                         torch.as_tensor(xla_toks, device="cuda"), max_len,
+                         src=src)
     if decode_atol is not None:
       psteps = logits_along(cfg, model, zoo, torch, tokens,
-                                torch.as_tensor(xla_toks, device="cuda"),
-                                max_len, impl="pallas")
+                            torch.as_tensor(xla_toks, device="cuda"),
+                            max_len, impl="pallas", src=src)
       dsteps = (psteps - steps).abs().amax(dim=-1).amax(dim=0).tolist()
       lm["decode_logits_max_abs_diff"] = dsteps
       log(f"[{tag}] logits along the xla tokens, pallas prefill vs xla "
@@ -2152,14 +2214,17 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
       f"{tie_gap}); identical overall: {np.array_equal(toks, xla_toks)}")
   lm["tokens_compared"] = compared
   if profile_new != LM_NEW:
-    eng.generate(prompts, profile_new)  # unprofiled, then profiled
-  profile_generate(torch, eng, prompts, profile_new, tag)
-  eng.generate(prompts, 1)  # the prefill alone, unprofiled, then profiled
-  profile_generate(torch, eng, prompts, 1, tag)
+    # unprofiled, then profiled
+    eng.generate(prompts, profile_new, src_embeds=src)
+  profile_generate(torch, eng, prompts, profile_new, tag, src)
+  # the prefill alone, unprofiled, then profiled
+  eng.generate(prompts, 1, src_embeds=src)
+  profile_generate(torch, eng, prompts, 1, tag, src)
   return lm
 
 
-def profile_generate(torch, eng, prompts, n_new: int, tag: str) -> None:
+def profile_generate(torch, eng, prompts, n_new: int, tag: str,
+                     src=None) -> None:
   """Where one generate() spends its time: torch.profiler's kernel time on
   the card, summed by kernel, against the host wall time of the same call
   under the profiler and of the unprofiled call of the same shape before
@@ -2171,7 +2236,7 @@ def profile_generate(torch, eng, prompts, n_new: int, tag: str) -> None:
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    eng.generate(prompts, n_new)
+    eng.generate(prompts, n_new, src_embeds=src)
     wall = time.perf_counter() - t0
   kernels = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA]
@@ -2985,6 +3050,52 @@ HYBRID_ARCH = "zamba2-7b"
 HYBRID_LOGIT_ATOL = 0.11
 HYBRID_DECODE_ATOL = 0.14
 HYBRID_F32_LOGIT_ATOL = 1e-4
+# Phase 13: seamless-m4t-large-v2 uncut: speech-to-text translation, a long
+# audio source (the config's src_len, 4096 frames of seeded N(0, 1)
+# embeddings: the audio frontend is a stub) and a short target prefix
+ENCDEC_ARCH, ENCDEC_PROMPT = "seamless-m4t-large-v2", 256
+# K3's three seamless shapes: encoder self-attention, cross-attention,
+# decoder self-attention
+SEAMLESS_FA_CASES = (
+    ("seamless encoder", (LM_BATCH, 16, 16, 4096, 4096, 64, False, None)),
+    ("seamless cross-attention", (LM_BATCH, 16, 16, ENCDEC_PROMPT, 4096, 64,
+                                  False, None)),
+    ("seamless decoder", (LM_BATCH, 16, 16, ENCDEC_PROMPT, ENCDEC_PROMPT, 64,
+                          True, None)))
+# bf16 logits pallas vs xla, with logits std 0.640: the prefill's 0.03125
+# at most and along the same tokens 0.03125 at most (the first card run,
+# an H100, this seed); the limits twice those.  In f32 the prefill logits
+# agreed to 2.92e-6; the limit is SSM_F32's.
+ENCDEC_LOGIT_ATOL = 0.0625
+ENCDEC_DECODE_ATOL = 0.0625
+ENCDEC_F32_LOGIT_ATOL = 1e-4
+# Phase 14: chameleon-34b at its published width with 8 of its 48 layers
+# (34.29e9 parameters whole: 137 GB of f32, 69 GB even in bf16, do not fit
+# one card; 8 layers and the embedding and head are 6.6e9, 26.5 GB); the
+# image half as examples/vq_retrieval.py builds it: a seeded 8192 × 256
+# codebook, 1024 patches per request (one 512 × 512 image), each a drawn
+# code plus 0.05·N(0, 1), fused ahead of 1024 text tokens at offset 32768
+VLM_ARCH, VLM_LAYERS = "chameleon-34b", 8
+VLM_CODES, VLM_CODE_DIM, VLM_PATCHES, VLM_NOISE = 8192, 256, 1024, 0.05
+VLM_TEXT, VLM_OFFSET = 1024, 32768
+CHAMELEON_FA_CASE = (LM_BATCH, 64, 8, VLM_PATCHES + VLM_TEXT,
+                     VLM_PATCHES + VLM_TEXT, 128, True, None)
+# bf16 logits pallas vs xla, with logits std 1.81: the prefill's 0.046875
+# at most and along the same tokens 0.0625 at most (the first card run);
+# the limits twice those.  In f32 the prefill logits agreed to 1.18e-5.
+VLM_LOGIT_ATOL = 0.094
+VLM_DECODE_ATOL = 0.125
+VLM_F32_LOGIT_ATOL = 1e-4
+# Phase 15: the GPipe schedule, tests/test_pipeline.py's construction at a
+# width that does work on the card: S stages of LPS tanh layers of D, M
+# microbatches of MB rows, f32 (TF32 off, as for every f32 product here).
+# Forward against float64: f32 sums of D products per layer, outputs in
+# [-1, 1]; gradients relative to their largest magnitude.  Limits set from
+# the dtype before the first card run, which measured 2.5e-6 (pipeline) and
+# 4.1e-6 (sequential) forward, 1.1e-6 and 2.2e-6 gradients
+PIPE_S, PIPE_LPS, PIPE_D, PIPE_M, PIPE_MB = 4, 3, 4096, 8, 512
+PIPE_FWD_ATOL = 1e-4
+PIPE_GRAD_RTOL = 1e-4
 
 
 class RouteSpy:
@@ -3095,29 +3206,29 @@ def moe_prefill_check(cfg, tag: str, atol: float, margin: float,
 
 
 def f32_prefill_check(torch, cfg, tag: str, atol: float,
-                      moe_margin=None) -> dict:
+                      moe_margin=None, prompts=None, src=None) -> dict:
   """The same weights (the same seed) computing in f32: both arms' prefill
-  logits must agree within ``atol``; for an MoE model the routes too,
-  except at a router tie closer than ``moe_margin``."""
+  logits (on ``prompts``, ``serve_phase``'s default when None, and an
+  enc-dec model's ``src``) must agree within ``atol``; for an MoE model
+  the routes too, except at a router tie closer than ``moe_margin``."""
   import numpy as np
   from repro_torch.models import zoo
-  from repro_torch.train.steps import make_prefill_step
   gc.collect()
   torch.cuda.empty_cache()
   cfg32 = cfg.replace(dtype=torch.float32)
   model = zoo.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
                    "cuda")
-  prompts = np.random.default_rng(0).integers(
-      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+  if prompts is None:
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
   tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
   with torch.inference_mode():
     if moe_margin is not None:
       out = moe_prefill_check(cfg32, tag, atol, moe_margin,
                               rows_without_flips=True)(model, tokens)
     else:
-      lp, _ = make_prefill_step(cfg32, impl="pallas")(model,
-                                                      {"tokens": tokens})
-      lx, _ = make_prefill_step(cfg32, impl="xla")(model, {"tokens": tokens})
+      lp = prefill(cfg32, model, tokens, "pallas", src)[0]
+      lx = prefill(cfg32, model, tokens, "xla", src)[0]
       d = float((lp - lx).abs().max())
       out = {"logits_max_abs_diff": d}
       log(f"[{tag}] f32 compute, same weights: prefill logits pallas vs xla "
@@ -3236,6 +3347,224 @@ def phase_hybrid_serving(fa, ssd, torch, card: str) -> dict:
   run["s"] = time.perf_counter() - t_phase
   log(f"[hybrid] phase 12 in {run['s']:.1f}s")
   return run
+
+
+def phase_encdec_serving(fa, torch, card: str) -> dict:
+  """Phase 13: seamless-m4t-large-v2 at its published width and depth
+  through ``Engine`` on both arms, 4 sources of 4096 frames and 256-token
+  prompts: K3 once per encoder layer and twice per decoder layer (72) in
+  the prefill, never in the decode; the same weights in f32; then K3 at
+  its three new shapes against its plain version and SDPA."""
+  import numpy as np
+  from repro_torch import configs
+  t_phase = time.perf_counter()
+  cfg = configs.get_config(ENCDEC_ARCH)
+  for _, case in SEAMLESS_FA_CASES:
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != case[1:3] + (case[5],) or (
+        case[4] not in (cfg.src_len, ENCDEC_PROMPT)):
+      raise AssertionError("seamless's shapes are not the phase's constants")
+  gc.collect()
+  torch.cuda.empty_cache()
+  src = torch.randn(LM_BATCH, cfg.src_len, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+  prompts = np.random.default_rng(0).integers(
+      0, cfg.vocab, (LM_BATCH, ENCDEC_PROMPT), dtype=np.int32)
+  launches = cfg.enc_layers + 2 * cfg.dec_layers
+  note = (f"{cfg.enc_layers} + {cfg.dec_layers} layers, {cfg.n_heads} heads "
+          f"of {cfg.hd}, d_ff {cfg.d_ff}, vocabulary {cfg.vocab}; sources of "
+          f"{cfg.src_len} frames")
+  run = serve_phase(torch, card, cfg, {fa.flash_attention: launches},
+                    "encdec", ENCDEC_LOGIT_ATOL, note, profile_new=4,
+                    decode_atol=ENCDEC_DECODE_ATOL, prompts=prompts, src=src)
+  log(f"[encdec] K3 read every decoder layer's cross K/V as a strided view "
+      f"of the one (B, Skv, L, 2, KV, hd) product ({cfg.dec_layers} of the "
+      f"{launches} launches; attention._check_override refuses a layout "
+      f"the kernel would need copied)")
+  gc.collect()
+  torch.cuda.empty_cache()
+  run["f32"] = f32_prefill_check(torch, cfg, "encdec", ENCDEC_F32_LOGIT_ATOL,
+                                 prompts=prompts, src=src)
+  run["k3_rows"] = [k3_served_row(fa, torch, case, label, n)
+                    for (label, case), n in zip(
+                        SEAMLESS_FA_CASES,
+                        (cfg.enc_layers, cfg.dec_layers, cfg.dec_layers))]
+  run["s"] = time.perf_counter() - t_phase
+  log(f"[encdec] phase 13 in {run['s']:.1f}s")
+  return run
+
+
+def k1_vq_row(sm, torch, patches, codebook, launches: int) -> dict:
+  """K1's addnorm instance at the VQ shape (all patches × the codebook):
+  ms, its plain version's, the bound, ``vq_tokenize`` whole on 'pallas'
+  and on the 'xla' arm (cuBLAS's expansion) for context."""
+  from repro_torch.models import vlm
+  d = patches.shape[-1]
+  a = patches.reshape(1, -1, d)
+  b = codebook.T.contiguous()[None]
+  _, m, k = a.shape
+  n = b.shape[-1]
+  ms = cuda_time_ms(lambda: sm.semiring_mmo(a, b, op="addnorm"), 20)
+  plain_ms = cuda_time_ms(lambda: sm.semiring_mmo_plain(a, b, op="addnorm"),
+                          3)
+  vq_ms = cuda_time_ms(lambda: vlm.vq_tokenize(patches, codebook,
+                                               backend="pallas"), 20)
+  xla_ms = cuda_time_ms(lambda: vlm.vq_tokenize(patches, codebook,
+                                                backend="xla"), 20)
+  err = check(f"K1 addnorm VQ {m} × {k} · {k} × {n}",
+              sm.semiring_mmo(a, b, op="addnorm"),
+              sm.semiring_mmo_plain(a, b, op="addnorm"), "addnorm")
+  b_ms, b_by = bound_ms("addnorm", "float32", 1, m, k, n, k, False)
+  row = {"case": f"chameleon VQ tokenizer addnorm f32 {m} × {k} · {k} × {n}",
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "share_of_bound": b_ms / ms, "library_ms": None, "max_abs_err": err,
+         "launches": launches, "vq_tokenize_ms": vq_ms,
+         "xla_arm_vq_tokenize_ms": xla_ms}
+  log(f"[time] K1 {json.dumps(row)}")
+  return row
+
+
+def phase_vlm_serving(sm, fa, torch, card: str) -> dict:
+  """Phase 14: chameleon-34b at its published width with 8 of its 48
+  layers: the image half tokenized by one K1 addnorm launch (ids held to
+  the drawn codes, a float64 brute force and the 'vector' arm), fused
+  ahead of the text and served through ``Engine`` on both arms (K1 once
+  and K3 once per layer per generate, K3 never in the decode); the same
+  weights in f32; then K3 at chameleon's shape and K1 at the VQ shape."""
+  import numpy as np
+  from repro_torch import configs
+  from repro_torch.models import vlm
+  t_phase = time.perf_counter()
+  full = configs.get_config(VLM_ARCH)
+  cfg = full.replace(n_layers=VLM_LAYERS)
+  if (cfg.n_heads, cfg.n_kv_heads, cfg.hd) != CHAMELEON_FA_CASE[1:3] + (
+      CHAMELEON_FA_CASE[5],) or not cfg.qk_norm:
+    raise AssertionError("chameleon's shapes are not the phase's constants")
+  gc.collect()
+  torch.cuda.empty_cache()
+  gen = torch.Generator(device="cuda").manual_seed(5)
+  codebook = torch.randn(VLM_CODES, VLM_CODE_DIM, generator=gen,
+                         device="cuda")
+  codes = torch.randint(0, VLM_CODES, (LM_BATCH, VLM_PATCHES), generator=gen,
+                        device="cuda")
+  patches = codebook[codes] + VLM_NOISE * torch.randn(
+      LM_BATCH, VLM_PATCHES, VLM_CODE_DIM, generator=gen, device="cuda")
+  text = torch.as_tensor(np.random.default_rng(0).integers(
+      0, VLM_OFFSET, (LM_BATCH, VLM_TEXT)), device="cuda")
+  made = []
+
+  def front():
+    ids = vlm.vq_tokenize(patches, codebook, backend="pallas")
+    made.append(ids)
+    return vlm.fuse_streams(text, ids, VLM_OFFSET)
+  prompts = front().cpu().numpy()
+  ids = made[0].long()
+  flat = patches.reshape(-1, VLM_CODE_DIM)
+  f64 = torch.cat([addnorm_f64(torch, flat[i:i + 256], codebook.T,
+                               rows=64).argmin(-1)
+                   for i in range(0, flat.shape[0], 256)])
+  vec = vlm.vq_tokenize(patches, codebook, backend="vector").long()
+  same = {"drawn codes": bool(torch.equal(ids, codes)),
+          "float64 brute force": bool(torch.equal(ids.flatten(), f64)),
+          "'vector' arm": bool(torch.equal(ids, vec))}
+  log(f"[vlm] image half: {LM_BATCH} × {VLM_PATCHES} patches of "
+      f"{VLM_CODE_DIM} against {VLM_CODES} codes, one K1 addnorm launch; "
+      f"ids equal to {same}; fused prompts {prompts.shape}, image ids in "
+      f"[{int(prompts[:, :VLM_PATCHES].min())}, "
+      f"{int(prompts[:, :VLM_PATCHES].max())}]")
+  if not all(same.values()):
+    raise AssertionError("the VQ ids differ")
+  note = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of {cfg.hd}, "
+          f"qk-norm, d_ff {cfg.d_ff}, vocabulary {cfg.vocab}; "
+          f"{VLM_LAYERS} of {full.n_layers} layers")
+  run = serve_phase(torch, card, cfg, {sm.semiring_mmo: 1,
+                                       fa.flash_attention: cfg.n_layers},
+                    "vlm", VLM_LOGIT_ATOL, note, profile_new=4,
+                    decode_atol=VLM_DECODE_ATOL, prompts=prompts,
+                    front=front)
+  run["vq_ids_equal"] = same
+  gc.collect()
+  torch.cuda.empty_cache()
+  run["f32"] = f32_prefill_check(torch, cfg, "vlm", VLM_F32_LOGIT_ATOL,
+                                 prompts=prompts)
+  run["k3_row"] = k3_served_row(fa, torch, CHAMELEON_FA_CASE,
+                                "chameleon-34b prefill",
+                                run["launches"]["flash_attention"])
+  run["k1_row"] = k1_vq_row(sm, torch, patches, codebook,
+                            run["launches"]["semiring_mmo"])
+  run["s"] = time.perf_counter() - t_phase
+  log(f"[vlm] phase 14 in {run['s']:.1f}s")
+  return run
+
+
+def phase_pipeline(torch, card: str) -> dict:
+  """Phase 15: the GPipe schedule on a virtual 4 × 2 mesh of eight shards
+  of the card, microbatch rows split over "data": forward and gradients
+  against the sequential layers, each held to float64; ms per call against
+  the sequential call.  The shards share one card, so the schedule's
+  stages run one after another: this measures the schedule's overhead, not
+  an interconnect."""
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.models import pipeline
+  t_phase = time.perf_counter()
+  mesh = make_host_mesh(devices=["cuda:0"] * 8, axis_names=("stage", "data"))
+  n_layers = PIPE_S * PIPE_LPS
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  w = torch.randn(n_layers, PIPE_D, PIPE_D, generator=gen,
+                  device="cuda") / PIPE_D ** 0.5
+  x = torch.randn(PIPE_M, PIPE_MB, PIPE_D, generator=gen, device="cuda")
+
+  def stage_fn(ws, h):
+    for layer in ws:
+      h = torch.tanh(h @ layer)
+    return h
+  run = pipeline.pipeline(stage_fn, mesh, axis="stage", in_spec=("stage",),
+                          x_spec=(None, "data"))
+
+  def piped(wt):
+    return run(pipeline.split_stages(wt, PIPE_S), x)
+
+  def grads(fn, wt):
+    wt = wt.detach().requires_grad_(True)
+    y = fn(wt)
+    (g,) = torch.autograd.grad((y.double() ** 2).sum(), (wt,))
+    return y.detach(), g
+
+  y_p, g_p = grads(piped, w)
+  y_s, g_s = grads(lambda wt: stage_fn(wt, x), w)
+  y_64, g_64 = grads(lambda wt: stage_fn(wt, x.double()), w.double())
+  g_max = float(g_64.abs().max())
+  errs = {"forward_pipeline_vs_f64": float((y_p - y_64).abs().max()),
+          "forward_sequential_vs_f64": float((y_s - y_64).abs().max()),
+          "forward_pipeline_vs_sequential": float((y_p - y_s).abs().max()),
+          "grad_pipeline_vs_f64_rel": float((g_p - g_64).abs().max()) / g_max,
+          "grad_sequential_vs_f64_rel":
+              float((g_s - g_64).abs().max()) / g_max,
+          "grad_pipeline_vs_sequential_rel":
+              float((g_p - g_s).abs().max()) / g_max}
+  del y_64, g_64
+  with torch.no_grad():
+    pipe_ms = cuda_time_ms(lambda: piped(w), 5)
+    seq_ms = cuda_time_ms(lambda: stage_fn(w, x), 5)
+  pipe_train_ms = cuda_time_ms(lambda: grads(piped, w), 3)
+  seq_train_ms = cuda_time_ms(lambda: grads(lambda wt: stage_fn(wt, x), w), 3)
+  out = {"mesh": dict(mesh.shape), "stages": PIPE_S,
+         "layers_per_stage": PIPE_LPS, "d": PIPE_D, "microbatches": PIPE_M,
+         "rows": PIPE_MB,
+         "bubble_fraction": pipeline.bubble_fraction(PIPE_S, PIPE_M),
+         "ms": pipe_ms, "sequential_ms": seq_ms,
+         "fwd_bwd_ms": pipe_train_ms, "sequential_fwd_bwd_ms": seq_train_ms,
+         **errs, "card": card}
+  log(f"[pipe] GPipe on a virtual (stage 4, data 2) mesh of cuda:0 (the "
+      f"stages share the card and run one after another: the schedule's "
+      f"cost, no interconnect): {json.dumps(out)}")
+  if not (errs["forward_pipeline_vs_f64"] <= PIPE_FWD_ATOL
+          and errs["forward_sequential_vs_f64"] <= PIPE_FWD_ATOL
+          and errs["grad_pipeline_vs_f64_rel"] <= PIPE_GRAD_RTOL
+          and errs["grad_sequential_vs_f64_rel"] <= PIPE_GRAD_RTOL):
+    raise AssertionError("the pipeline disagrees with the sequential layers")
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[pipe] phase 15 in {out['s']:.1f}s")
+  return out
 
 
 def main() -> int:
@@ -3747,13 +4076,36 @@ def main() -> int:
               HYBRID_ARCH: hyb["launches"]["flash_attention"]}
   k4_paths = {SSM_ARCH: k4["launches"],
               HYBRID_ARCH: hyb["launches"]["ssd_intra_chunk"]}
+
+  # -- phase 13: enc-dec serving -----------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  encdec_run = phase_encdec_serving(fa, torch, card)
+
+  # -- phase 14: VLM serving ---------------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  vlm_run = phase_vlm_serving(sm, fa, torch, card)
+
+  # -- phase 15: the pipeline schedule -----------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  pipe = phase_pipeline(torch, card)
+  k3_paths[ENCDEC_ARCH] = encdec_run["launches"]["flash_attention"]
+  k3_paths[VLM_ARCH] = vlm_run["launches"]["flash_attention"]
   served = {arch: moe_run[arch] for arch, _ in MOE_SERVED}
   served[HYBRID_ARCH] = hyb
-  log(f"[summary] phases 11-12 {card}: " + "; ".join(
+  served[ENCDEC_ARCH] = encdec_run
+  served[VLM_ARCH] = vlm_run
+  log(f"[summary] phases 11-15 {card}: " + "; ".join(
       f"{arch} prefill {r['prefill_ms']!r} ms, decode "
       f"{r['decode_ms_per_token']!r} ms/token, peak "
       f"{r['max_memory_allocated_gib']!r} GiB" for arch, r in served.items())
-      + f"; phase 11 {moe_run['s']:.1f}s, phase 12 {hyb['s']:.1f}s")
+      + f"; pipeline {pipe['ms']!r} ms per call against "
+      f"{pipe['sequential_ms']!r} sequential (bubble fraction "
+      f"{pipe['bubble_fraction']!r}); phase 11 {moe_run['s']:.1f}s, phase "
+      f"12 {hyb['s']:.1f}s, phase 13 {encdec_run['s']:.1f}s, phase 14 "
+      f"{vlm_run['s']:.1f}s, phase 15 {pipe['s']:.1f}s")
 
   head = rows_out[0]
   k2 = k2_rows[0]
@@ -3762,12 +4114,13 @@ def main() -> int:
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
       "launches": launches + qos["k1"] + ops["k1"] + apps["k1"]
-                  + mesh["k1"],
+                  + mesh["k1"] + vlm_run["launches"]["semiring_mmo"],
       "max_abs_err": big_err,
       "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
       "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-      "instances": [dtype_instance(row) for row in k1_dtype_rows]}, {
+      "instances": [dtype_instance(row) for row in k1_dtype_rows]
+                   + [served_instance(vlm_run["k1_row"])]}, {
       "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",
@@ -3787,7 +4140,8 @@ def main() -> int:
       "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
       "library_ms": k3["library_ms"],
       "instances": [served_instance(row) for row in (
-          moe_run["k3_row"], hyb["k3_row"])]}, {
+          moe_run["k3_row"], hyb["k3_row"], *encdec_run["k3_rows"],
+          vlm_run["k3_row"])]}, {
       "name": "ssd_intra_chunk", "design": K4_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/ssd.cu",
       "replaces": "src/repro/kernels/ssd.py:54",

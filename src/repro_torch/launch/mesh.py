@@ -84,8 +84,10 @@ def available_devices(device: str) -> list:
 
 def make_host_mesh(n_devices: int = 0, model: int = 2, *,
                    device: str = "cuda",
-                   devices: Sequence | None = None) -> Mesh:
-  """A (n // model, model) mesh over ``n_devices`` devices (0: all).
+                   devices: Sequence | None = None,
+                   axis_names: Sequence = AXIS_NAMES) -> Mesh:
+  """A (n // model, model) mesh over ``n_devices`` devices (0: all), its
+  axes named ``axis_names`` (e.g. ("stage", "data") for the pipeline).
 
   Without ``devices`` it takes the devices of ``device``'s type that exist
   (``cuda``: the cards present) and raises when fewer exist than asked
@@ -104,4 +106,4 @@ def make_host_mesh(n_devices: int = 0, model: int = 2, *,
     raise ValueError(f"{n} devices do not split into rows of {model}")
   pool = pool[:n]
   return Mesh(tuple(tuple(pool[r * model:(r + 1) * model])
-                    for r in range(n // model)))
+                    for r in range(n // model)), tuple(axis_names))

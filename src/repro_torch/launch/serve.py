@@ -8,14 +8,24 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b \
+        --smoke --device cpu
 
-Counterpart of ``repro/launch/serve.py`` for the dense, MoE, SSM and hybrid
-LM families.  The prefill runs through ``impl``: 'pallas' (the default)
+Counterpart of ``repro/launch/serve.py`` for every LM family: dense, MoE,
+VLM (chameleon's backbone, served on fused token streams), SSM, hybrid and
+enc-dec.  The prefill runs through ``impl``: 'pallas' (the default)
 launches the flash-attention kernel K3 once per attention layer (a
-hybrid's: once per application of its shared block), and the SSD
-intra-chunk kernel K4 once per SSM layer; 'xla' runs the plain PyTorch
-paths.  (The reference's engine builds its prefill without ``impl``, so it
-takes 'xla'; its steps take the argument.)  A KV cache is allocated once
+hybrid's: once per application of its shared block; an enc-dec model's:
+once per encoder layer and twice per decoder layer, self- and
+cross-attention), and the SSD intra-chunk kernel K4 once per SSM layer;
+'xla' runs the plain PyTorch paths.  An enc-dec ``generate`` encodes its
+source once, on ``impl``, and hands that encoder output to the prefill
+and to every decode step (the reference encodes it once in ``generate``
+and again, on its chunked arm, inside the prefill: the same values).
+(The reference's engine builds its prefill without ``impl``, so it takes
+'xla'; its steps take the argument.)  A KV cache is allocated once
 at ``max_len`` (sliding-window configs get a window-sized ring buffer); an
 SSM's cache is its recurrent state, which the prefill hands to the decode
 as it is; a hybrid's is both.  Decode keeps the tokens on the card and
@@ -34,6 +44,7 @@ import torch
 from repro_torch import configs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec
 from repro_torch.models import zoo
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -41,8 +52,9 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
   """The prefill's cache as the decode's.
 
-  Dense and MoE: the KV rows (L, B, S, ...) seated at the front of a
-  zeroed ``max_len`` cache, ``len`` carried over.  SSM: the state after the
+  Dense, MoE, VLM and enc-dec (the decoder's self-attention): the KV rows
+  (L, B, S, ...) seated at the front of a zeroed ``max_len`` cache,
+  ``len`` carried over.  SSM: the state after the
   prompt is the decode's state, in ``init_cache``'s layout already, and is
   returned as it is (the reference seats it unchanged).  Hybrid: the SSM
   state as it is, and each application's KV rows (n_apps, B, S, ...) at
@@ -73,6 +85,7 @@ class Engine:
     if cfg.window is not None:
       max_len = min(max_len, cfg.window)
     self.max_len = max_len
+    self.impl = impl
     self._prefill = make_prefill_step(cfg, impl=impl)
     self._decode = make_decode_step(cfg)
     # host-clock seconds of the last generate(): prefill (to the first
@@ -80,16 +93,27 @@ class Engine:
     self.last_timing = {}
 
   @torch.inference_mode()
-  def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
-    """prompts: (B, S) int (right-aligned, already padded).  Returns the
-    (B, n_new) int32 greedy continuation."""
+  def generate(self, prompts: np.ndarray, n_new: int,
+               src_embeds=None) -> np.ndarray:
+    """prompts: (B, S) int, an array or tensor (right-aligned, already
+    padded); ``src_embeds`` (B, S_src, D), an array or tensor, an enc-dec
+    model's source frames.  Returns the (B, n_new) int32 greedy
+    continuation."""
     s = prompts.shape[1]
     if s > self.max_len and self.cfg.family != "ssm":
       raise ValueError(f"prompt length {s} exceeds the cache's {self.max_len}")
     t0 = time.perf_counter()
-    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                             device=self.device)
-    last_logits, cache = self._prefill(self.model, {"tokens": tokens})
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
+    batch = {"tokens": tokens}
+    step_batch = {}
+    if self.cfg.family == "encdec":
+      if src_embeds is None:
+        raise ValueError(f"{self.cfg.name} needs src_embeds")
+      src = torch.as_tensor(src_embeds, device=self.device)
+      step_batch["enc_out"] = encdec.encode(self.model, self.cfg, src,
+                                            impl=self.impl)
+      batch.update(step_batch)
+    last_logits, cache = self._prefill(self.model, batch)
 
     cache = seat_cache(self.cfg, cache, self.max_len, self.device)
     tok = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
@@ -97,7 +121,8 @@ class Engine:
     tok.cpu()  # the first token on the host ends the prefill
     t1 = time.perf_counter()
     for _ in range(n_new - 1):
-      tok, cache = self._decode(self.model, cache, {"tokens": tok})
+      tok, cache = self._decode(self.model, cache,
+                                {"tokens": tok, **step_batch})
       out.append(tok)
     result = torch.cat(out, dim=1).cpu().numpy()
     t2 = time.perf_counter()
@@ -128,8 +153,12 @@ def main(argv=None):
   rng = np.random.default_rng(args.seed)
   prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                          dtype=np.int32)
+  src = None
+  if cfg.family == "encdec":
+    src = rng.standard_normal(
+        (args.batch, cfg.src_len, cfg.d_model)).astype(np.float32)
   t0 = time.time()
-  toks = eng.generate(prompts, args.gen)
+  toks = eng.generate(prompts, args.gen, src_embeds=src)
   dt = time.time() - t0
   print(f"[serve] arch={cfg.name} impl={args.impl} device={dev} generated "
         f"{toks.shape} in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")

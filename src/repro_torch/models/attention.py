@@ -1,7 +1,9 @@
 """GQA attention: the flash kernel K3 (``impl="pallas"``), the chunked
 online-softmax path in plain PyTorch with a flash backward (``impl="xla"``)
 or with autograd through the chunks (``impl="xla_autodiff"``), and the
-KV-cache decode step with sliding-window masking.
+KV-cache decode step with sliding-window masking; non-causal
+self-attention and cross-attention over given keys and values for the
+enc-dec family.
 
 Counterpart of ``repro/models/attention.py``.  K3 has no backward, as the
 reference's Pallas arm has none: a step that needs gradients through it
@@ -20,6 +22,7 @@ from torch import nn
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import kernel_takes
 from repro_torch.models import common as cm
 
 Tensor = torch.Tensor
@@ -62,22 +65,30 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
   return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _project_q(p: dict, cfg: cm.ModelConfig, x: Tensor,
+               positions: Tensor) -> Tensor:
+  """x: (B, S, D) → q (B, S, H, hd), RoPE applied."""
+  dt = cfg.dtype
+  q = _proj(x, p["wq"].to(dt))
+  if cfg.qkv_bias:
+    q = q + p["bq"].to(dt)
+  if cfg.qk_norm:
+    q = cm.rms_norm(q, p["q_norm_scale"], cfg.norm_eps)
+  return cm.rope(q, positions, cfg.rope_theta)
+
+
 def _project_qkv(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor):
   """x: (B, S, D) → q (B, S, H, hd), k and v (B, S, KV, hd), RoPE applied."""
   dt = cfg.dtype
-  q = _proj(x, p["wq"].to(dt))
   k = _proj(x, p["wk"].to(dt))
   v = _proj(x, p["wv"].to(dt))
   if cfg.qkv_bias:
-    q = q + p["bq"].to(dt)
     k = k + p["bk"].to(dt)
     v = v + p["bv"].to(dt)
   if cfg.qk_norm:
-    q = cm.rms_norm(q, p["q_norm_scale"], cfg.norm_eps)
     k = cm.rms_norm(k, p["k_norm_scale"], cfg.norm_eps)
-  q = cm.rope(q, positions, cfg.rope_theta)
   k = cm.rope(k, positions, cfg.rope_theta)
-  return q, k, v
+  return _project_q(p, cfg, x, positions), k, v
 
 
 def _chunk_mask(c_idx: int, ck: int, skv: int, qpos: Tensor, causal: bool,
@@ -243,11 +254,23 @@ def init_cache(cfg: cm.ModelConfig, n_layers: int, batch: int, max_len: int,
   }
 
 
+def _check_override(k: Tensor, v: Tensor) -> None:
+  """K3 reads cross-attention K/V, slices of the stacked (L, B, Skv, KV,
+  hd) projections, as they are: a layout the kernel does not take is an
+  error, not a silent copy."""
+  for name, t in (("k", k), ("v", v)):
+    if t.device.type == "cuda" and not kernel_takes(t.transpose(1, 2)):
+      raise ValueError(
+          f"kv_override {name} (strides {t.stride()}) is not a layout K3 "
+          f"reads: a unit stride on hd and, in bf16, 16-byte aligned rows")
+
+
 def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
               mode: str = "train", layer_cache: Optional[dict] = None,
-              cache_len: Optional[Tensor] = None, impl: str = "xla"):
-  """One causal attention block with RoPE; returns (out (B, S, D), cache
-  entry or None).
+              cache_len: Optional[Tensor] = None, impl: str = "xla",
+              causal: bool = True, kv_override: Optional[tuple] = None):
+  """One attention block with RoPE; returns (out (B, S, D), cache entry or
+  None).
 
   mode:
     'train'   — full sequence, no cache; returns (out, None)
@@ -262,6 +285,14 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
   (K3 has no backward); 'xla' the chunked plain-PyTorch path with the flash
   backward; 'xla_autodiff' the same forward with autograd through its
   chunks (the reference's baseline arm).
+
+  ``causal=False`` lets every query see every key (the encoder).
+  ``kv_override=(k, v)``, each (B, Skv, KV, hd), is cross-attention: the
+  keys and values are the given ones (the encoder's, with no RoPE), the
+  attention is non-causal, and q keeps its RoPE at ``positions``.  In
+  'decode' it attends all Skv rows and returns ``layer_cache`` untouched.
+  The reference projects k and v from x before overriding them; that work
+  changes no value and is skipped here.
   """
   scale = cfg.hd ** -0.5
   window = cfg.window
@@ -270,26 +301,39 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
   if mode in ("train", "prefill"):
     if impl not in IMPLS:
       raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if kv_override is None:
+      q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+      q = _project_q(p, cfg, x, positions)
+      k, v = kv_override
+      causal = False
     if impl == "pallas":
       if _needs_grad(q, k, v):
         raise RuntimeError(
             "impl='pallas' has no backward: K3 (flash attention) is a "
             "forward kernel, as the reference's Pallas arm is; train on "
             "impl='xla'")
+      if kv_override is not None:
+        _check_override(k, v)
       # K3 reads the (B, S, H, hd) projections through transposed views and
       # writes into a (B, S, H, hd) buffer: no copies on either side
       out = torch.empty_like(q)
       ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True, window=window,
+                          v.transpose(1, 2), causal=causal, window=window,
                           scale=scale, out=out.transpose(1, 2))
     elif impl == "xla_autodiff":
-      out, _ = _flash_fwd_impl(q, k, v, True, window, scale, 0,
+      out, _ = _flash_fwd_impl(q, k, v, causal, window, scale, 0,
                                FLASH_CHUNK)
     else:
-      out = flash_xla(q, k, v, True, window, scale, 0, FLASH_CHUNK)
+      out = flash_xla(q, k, v, causal, window, scale, 0, FLASH_CHUNK)
     y = torch.matmul(out.flatten(-2), wo.flatten(0, 1))
     return y, ({"k": k, "v": v} if mode == "prefill" else None)
+
+  if mode == "decode" and kv_override is not None:
+    ko, vo = kv_override
+    out = _full_decode(_project_q(p, cfg, x, positions), ko, vo, scale=scale,
+                       kv_len=ko.shape[1], window=None)
+    return torch.matmul(out.flatten(-2), wo.flatten(0, 1)), layer_cache
 
   if mode == "decode":
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)

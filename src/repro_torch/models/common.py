@@ -85,6 +85,17 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
   return (x * scale.float()).to(dt)
 
 
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
+  """Layer normalisation: mean and variance in f32, cast back to x's
+  dtype."""
+  dt = x.dtype
+  x = x.float()
+  mu = torch.mean(x, dim=-1, keepdim=True)
+  var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+  x = (x - mu) * torch.rsqrt(var + eps)
+  return (x * scale.float() + bias.float()).to(dt)
+
+
 def rope_freqs(d2: int, theta: float) -> np.ndarray:
   """The rotation frequencies, built in numpy f32 exactly as the reference
   builds them, so both packages start from the same bits."""

@@ -1,10 +1,10 @@
 """Feed-forward blocks: SwiGLU (llama family) and GELU.
 
 Counterpart of ``repro/models/mlp.py``.  ``mlp_params`` draws one layer's
-SwiGLU weights in the reference's layout; ``mlp`` is the block as a
-function of such a dict (GELU when the dict has no ``w3``, as the
-reference's ungated weights have none); ``MLP`` holds one layer's weights
-as a module.
+SwiGLU weights (or, ungated, the enc-dec family's GELU weights) in the
+reference's layout; ``mlp`` is the block as a function of such a dict
+(GELU when the dict has no ``w3``, as the reference's ungated weights have
+none); ``MLP`` holds one layer's weights as a module.
 """
 from __future__ import annotations
 
@@ -16,14 +16,18 @@ from repro_torch.models import common as cm
 Tensor = torch.Tensor
 
 
-def mlp_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
-  """One layer's SwiGLU weights in the reference's layout."""
+def mlp_params(generator: torch.Generator, cfg: cm.ModelConfig,
+               gated: bool = True) -> dict:
+  """One layer's SwiGLU weights (``gated``) or GELU weights (no ``w3``) in
+  the reference's layout."""
   d, f = cfg.d_model, cfg.d_ff
-  return {
+  p = {
       "w1": cm.dense_init(generator, (d, f), dtype=cfg.param_dtype),
       "w2": cm.dense_init(generator, (f, d), dtype=cfg.param_dtype),
-      "w3": cm.dense_init(generator, (d, f), dtype=cfg.param_dtype),
   }
+  if gated:
+    p["w3"] = cm.dense_init(generator, (d, f), dtype=cfg.param_dtype)
+  return p
 
 
 def mlp(p: dict, cfg: cm.ModelConfig, x: Tensor) -> Tensor:

@@ -1,12 +1,13 @@
-"""Decoder-only LM, dense and MoE: tinyllama, qwen2.5, granite,
-h2o-danube (sliding window), mixtral (MoE, sliding window), phi3.5-moe.
+"""Decoder-only LM, dense, MoE and VLM: tinyllama, qwen2.5, granite,
+h2o-danube (sliding window), mixtral (MoE, sliding window), phi3.5-moe,
+chameleon (the qk-norm early-fusion VLM backbone).
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks its
 layers and scans over them; here each layer is a ``Block`` module and the
 model loops over them.  A block takes the ``moe`` subtree where
 ``cfg.n_experts`` is set and the ``mlp`` subtree otherwise; the model's aux
-loss is the mean of its blocks' (0 for a dense block).  Chameleon's VLM
-family waits for ROADMAP item 13's step 4.
+loss is the mean of its blocks' (0 for a dense block).  The model takes
+token ids or precomputed (B, S, D) embeddings (a modality frontend's).
 """
 from __future__ import annotations
 
@@ -56,11 +57,13 @@ def run_layer(layer, remat: str, *args, **kwargs):
           _save_dots), **kwargs)
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_family(cfg: cm.ModelConfig) -> None:
-  if cfg.family not in ("dense", "moe"):
-    raise NotImplementedError(
-        f"{cfg.name}: the port's transformer runs the dense and MoE LM "
-        f"families; {cfg.family} is ROADMAP item 13")
+  if cfg.family not in FAMILIES:
+    raise ValueError(f"{cfg.name}: the transformer runs the {FAMILIES} "
+                     f"families, not {cfg.family}")
 
 
 def init_lm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
@@ -145,7 +148,8 @@ class TransformerLM(nn.Module):
               impl: str = "xla", remat: str = "none"):
     """Returns (logits, new cache or None, aux loss).
 
-    tokens: (B, S) int.  ``remat`` is each layer's ``run_layer`` policy
+    tokens: (B, S) int token ids, or (B, S, D) precomputed embeddings (the
+    reference's ``forward_lm(tokens_or_embeds)``).  ``remat`` is each layer's ``run_layer`` policy
     (it acts only when gradients are recorded).  'train' gives logits for
     every position;
     'prefill' only for the last one (the serving path needs no more) and the
@@ -154,8 +158,8 @@ class TransformerLM(nn.Module):
     returns with ``len`` advanced.
     """
     cfg = self.cfg
-    x = self.embed[tokens].to(cfg.dtype)
-    b, s = tokens.shape
+    x = (self.embed[tokens] if tokens.ndim == 2 else tokens).to(cfg.dtype)
+    b, s = x.shape[:2]
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
       base = cache_len if mode == "decode" else 0

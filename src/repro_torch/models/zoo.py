@@ -1,17 +1,20 @@
-"""Unified model API for the port's LM families (dense, MoE, SSM, hybrid):
+"""Unified model API for the port's LM families (dense, MoE, VLM, SSM,
+hybrid, enc-dec):
 
     model = zoo.init(cfg, generator, device)
     logits, cache, aux = zoo.forward(model, cfg, batch, mode=..., ...)
 
 Counterpart of ``repro/models/zoo.py``.  ``batch`` is a dict
-{'tokens': (B, S) int}.  Caches keep the reference's layouts: dense
-{'k', 'v': (L, B, max_len, KV, hd), 'len'}; SSM {'ssm': {'ssm'
-(L, B, H, N, P) f32, 'conv' (L, B, K−1, d_inner), 'bc_conv'
-(L, B, K−1, 2GN)}, 'len'}; hybrid {'ssm': the SSM state, 'attn': {'k',
-'v': (n_apps, B, max_len, KV, hd)}, 'len'}; each with an int32 scalar
-'len'.  The MoE family runs in the dense family's ``TransformerLM``.  The
-enc-dec and VLM families are ROADMAP item 13's step 4 and raise
-``NotImplementedError``.
+{'tokens': (B, S) int}, plus {'src_embeds': (B, S_src, D)} for the
+enc-dec family (and, for the transformer families, precomputed embeddings
+in place of the tokens), and for an enc-dec decode the encoder output
+{'enc_out'} (or ``enc_out=``).  Caches keep the reference's layouts: dense
+{'k', 'v': (L, B, max_len, KV, hd), 'len'} (enc-dec: the decoder's
+self-attention, L = dec_layers); SSM {'ssm': {'ssm' (L, B, H, N, P) f32,
+'conv' (L, B, K−1, d_inner), 'bc_conv' (L, B, K−1, 2GN)}, 'len'}; hybrid
+{'ssm': the SSM state, 'attn': {'k', 'v': (n_apps, B, max_len, KV, hd)},
+'len'}; each with an int32 scalar 'len'.  The MoE and VLM families run in
+the dense family's ``TransformerLM``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
@@ -125,6 +129,9 @@ def init(cfg: cm.ModelConfig, generator: torch.Generator,
   if cfg.family == "hybrid":
     return hybrid_mod.HybridLM(
         cfg, hybrid_mod.init_hybrid_params(generator, cfg)).to(dev)
+  if cfg.family == "encdec":
+    return encdec_mod.EncDecLM(
+        cfg, encdec_mod.init_encdec_params(generator, cfg)).to(dev)
   tf_mod.check_family(cfg)
   params = tf_mod.init_lm_params(generator, cfg)
   return tf_mod.TransformerLM(cfg, params).to(dev)
@@ -132,18 +139,29 @@ def init(cfg: cm.ModelConfig, generator: torch.Generator,
 
 def forward(model: nn.Module, cfg: cm.ModelConfig, batch: dict, *,
             mode: str = "train", cache: Optional[dict] = None,
-            impl: str = "xla", remat: str = "none"):
+            enc_out: Optional[Tensor] = None, impl: str = "xla",
+            remat: str = "none"):
   """Returns (logits, new_cache_or_None, aux_loss); ``model`` is
-  ``init``'s module for ``cfg``'s family."""
-  return model(batch["tokens"], mode=mode, cache=cache, impl=impl,
-               remat=remat)
+  ``init``'s module for ``cfg``'s family.  An enc-dec model reads
+  ``batch['enc_out']`` ahead of ``enc_out`` and encodes
+  ``batch['src_embeds']`` when neither is given."""
+  if cfg.family == "encdec":
+    return encdec_mod.forward_encdec(
+        model, cfg, batch.get("src_embeds"), batch["tokens"], mode=mode,
+        cache=cache, enc_out=batch.get("enc_out", enc_out), impl=impl,
+        remat=remat)
+  inputs = (batch.get("src_embeds", batch.get("tokens"))
+            if cfg.family in tf_mod.FAMILIES else batch["tokens"])
+  return model(inputs, mode=mode, cache=cache, impl=impl, remat=remat)
 
 
 def param_tree(model: nn.Module) -> dict:
   """The model's parameters (the tensors themselves, not copies) in the
   reference's tree: ``embed``, ``final_norm_scale``, ``lm_head`` and
   ``blocks`` — here a list of per-layer dicts where the reference stacks
-  each leaf along a leading layer axis — and a hybrid's ``shared``."""
+  each leaf along a leading layer axis — and a hybrid's ``shared``; an
+  enc-dec model's ``enc`` and ``dec`` (lists of layers, as ``blocks``) and
+  ``enc_norm_scale`` in place of ``blocks``."""
   tree: dict = {}
   for name, p in model.named_parameters():  # layers come in index order
     *path, leaf = name.split(".")
@@ -161,9 +179,9 @@ def param_tree(model: nn.Module) -> dict:
 
 def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
                device=DEFAULT_DEVICE) -> dict:
-  """A zeroed cache; ``max_len`` sizes the KV cache (dense, MoE, and the
-  hybrid's per application) and is not read by the SSM state, which has no
-  length."""
+  """A zeroed cache; ``max_len`` sizes the KV cache (dense, MoE, VLM, the
+  enc-dec decoder's self-attention, and the hybrid's per application) and
+  is not read by the SSM state, which has no length."""
   dev = resolve_device(device)
   if cfg.family == "ssm":
     return {"ssm": ssm_mod.init_ssm_state(cfg, cfg.n_layers, batch,
@@ -171,6 +189,9 @@ def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
             "len": torch.zeros((), dtype=torch.int32, device=dev)}
   if cfg.family == "hybrid":
     return hybrid_mod.init_hybrid_cache(cfg, batch, max_len, device=dev)
+  if cfg.family == "encdec":
+    return attn_mod.init_cache(cfg, cfg.dec_layers, batch, max_len,
+                               device=dev)
   tf_mod.check_family(cfg)
   return attn_mod.init_cache(cfg, cfg.n_layers, batch, max_len, device=dev)
 

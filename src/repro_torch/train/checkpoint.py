@@ -11,7 +11,8 @@ directory per step):
 Writes go to ``step_X.tmp`` and are renamed only after fsync — a crash
 mid-save can never corrupt the committed checkpoint (restart reads LATEST).
 The state is a tree of dicts whose leaves are tensors or arrays; a list of
-per-layer dicts (the port's ``blocks``) is written as the reference's
+per-layer dicts (the port's ``blocks``, an enc-dec model's ``enc`` and
+``dec``) is written as the reference's
 stacked leaves (``params/blocks/attn/wq`` of shape (L, ...)), so either
 package reads the other's checkpoint of the same arrays.  The port runs
 one process and writes ``shard_p0.npz``.  The data pipeline is stateless

@@ -15,8 +15,10 @@ and the gradients come back through those casts in f32.  The step runs on
 one device; the reference's mesh knobs (``grad_specs``, ``zero2``,
 ``grad_comm_bf16``) are ROADMAP item 13.6 and accepted only at their
 no-mesh defaults.  ``make_prefill_step`` / ``make_decode_step`` are the
-two serving steps, for every family's cache (dense and MoE KV, SSM state,
-hybrid both).
+two serving steps, for every family's cache (dense, MoE, VLM and the
+enc-dec decoder's KV, SSM state, hybrid both).  A batch carries
+``src_embeds`` for the enc-dec family (its source frames) and, in an
+enc-dec decode, the encoder output ``enc_out``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ def xent_loss(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
 
 def loss_fn(model, cfg: cm.ModelConfig, batch: dict, *, impl: str = "xla",
             remat: str = "none"):
-  """(loss + 0.01·aux, (loss, aux)) of one batch {'tokens', 'labels'}."""
+  """(loss + 0.01·aux, (loss, aux)) of one batch {'tokens', 'labels'}
+  (+ 'src_embeds' for enc-dec)."""
   logits, _, aux = zoo.forward(model, cfg, batch, mode="train", impl=impl,
                                remat=remat)
   loss = xent_loss(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
@@ -82,8 +85,12 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
 
   def grads_of(model, leaves, mb):
     tot, (loss, aux) = loss_fn(model, cfg, mb, impl=impl, remat=remat)
-    grads = torch.autograd.grad(tot, leaves)
-    return [g.float() for g in grads], loss.detach(), aux.detach()
+    # a leaf the batch does not reach (the embedding, when the batch
+    # carries embeddings) has a zero gradient, as under jax.grad
+    grads = torch.autograd.grad(tot, leaves, allow_unused=True)
+    return ([torch.zeros_like(p, dtype=torch.float32) if g is None
+             else g.float() for p, g in zip(leaves, grads)],
+            loss.detach(), aux.detach())
 
   def train_step(state, batch):
     model, opt_state = state
@@ -139,10 +146,11 @@ def make_prefill_step(cfg: cm.ModelConfig, *, impl: str = "xla"):
 
 def make_decode_step(cfg: cm.ModelConfig):
   """decode_step(model, cache, batch) → (greedy next token (B, 1) int32,
-  cache).  ``batch`` is {'tokens': (B, 1)}; the cache is updated in place."""
+  cache).  ``batch`` is {'tokens': (B, 1)} (and, for enc-dec, 'enc_out');
+  the cache is updated in place."""
   def decode_step(model, cache, batch):
     logits, cache, _ = zoo.forward(model, cfg, batch, mode="decode",
-                                   cache=cache)
+                                   cache=cache, enc_out=batch.get("enc_out"))
     nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     return nxt[:, None], cache
   return decode_step

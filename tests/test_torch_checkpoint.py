@@ -119,12 +119,17 @@ def test_reads_a_checkpoint_the_reference_wrote(tmp_path):
     ("mixtral-8x7b", "params/blocks/moe/experts/w1", (2, 4, 64, 128)),
     ("phi3.5-moe-42b-a6.6b", "params/blocks/moe/router", (2, 64, 4)),
     ("zamba2-7b", "params/shared/attn/wq", (64, 4, 16)),
+    ("seamless-m4t-large-v2", "params/dec/cross/wk", (2, 64, 4, 16)),
+    ("seamless-m4t-large-v2", "params/enc/mlp/w1", (2, 64, 128)),
+    ("seamless-m4t-large-v2", "params/enc_norm_scale", (64,)),
+    ("chameleon-34b", "params/blocks/attn/k_norm_scale", (2, 16)),
 ])
 def test_reads_the_reference_checkpoint_of_each_family(tmp_path, arch, path,
                                                        shape):
   """The reference's own ``zoo.init`` tree, written by the reference's
   checkpointer (MoE experts stacked (L, E, D, F); a hybrid's shared block
-  with no layer axis), restores into a port model's tree equal to
+  with no layer axis; an enc-dec model's ``enc`` and ``dec`` stacked
+  apart; a VLM's q/k norm scales), restores into a port model's tree equal to
   ``convert.from_reference`` of the same tree; the port writes it back in
   the same layout."""
   from repro import configs as jconfigs

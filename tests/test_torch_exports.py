@@ -71,6 +71,21 @@ def test_module_exports_are_modules(package, module):
   assert isinstance(getattr(port, module), types.ModuleType)
 
 
+def test_every_reference_model_module_has_a_counterpart():
+  """Each module of the reference's ``models`` package (the enc-dec, VLM
+  and pipeline ones included) has a module of the same name in the
+  port's."""
+  from pathlib import Path
+  src = Path(__file__).resolve().parents[1] / "src"
+  ref = {p.stem for p in (src / "repro" / "models").glob("*.py")}
+  port = {p.stem for p in (src / "repro_torch" / "models").glob("*.py")}
+  assert {"encdec", "vlm", "pipeline"} <= ref
+  assert ref <= port
+  for name in ref - {"__init__"}:
+    assert isinstance(importlib.import_module(f"repro_torch.models.{name}"),
+                      types.ModuleType)
+
+
 def test_public_entry_points_import():
   from repro_torch.core import mmo
   from repro_torch.kernels import semiring_mmo

@@ -37,6 +37,7 @@ FA_CASES = [
     (1, 2, 2, 64, 256, 128, True, None),
     (1, 4, 4, 160, 160, 80, True, None),   # non-128-aligned head dim
     (1, 4, 4, 96, 160, 112, True, None),   # zamba2's head dim, Sq ≠ Skv
+    (2, 4, 4, 64, 256, 64, False, None),   # cross-attention: Sq < Skv, no mask
 ]
 BQ, BKV = fa.TILE
 

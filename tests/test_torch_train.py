@@ -40,6 +40,8 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 ARCHS = ["tinyllama-1.1b", "mamba2-780m"]
 # the MoE and hybrid families: the aux loss is the mean over the MoE layers
 NEW_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "zamba2-7b"]
+# the enc-dec and VLM families: the batch carries seamless's source frames
+ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "chameleon-34b"]
 
 
 def _cfgs(arch, dtype="f32"):
@@ -56,11 +58,18 @@ def _models(arch, dtype="f32", key=0):
   return jcfg, tcfg, jparams, model
 
 
-def _batch(vocab, b=4, s=24, seed=0):
-  toks = np.random.default_rng(seed).integers(0, vocab, (b, s),
-                                              dtype=np.int32)
-  return ({"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)},
-          {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)})
+def _batch(vocab, b=4, s=24, seed=0, cfg=None):
+  """A batch of both packages; an enc-dec ``cfg`` adds source frames."""
+  rng = np.random.default_rng(seed)
+  toks = rng.integers(0, vocab, (b, s), dtype=np.int32)
+  jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+  tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
+  if cfg is not None and cfg.family == "encdec":
+    src = rng.standard_normal((b, cfg.src_len, cfg.d_model)).astype(
+        np.float32)
+    jb["src_embeds"], tb["src_embeds"] = jnp.asarray(src), torch.from_numpy(
+        src)
+  return jb, tb
 
 
 def _stacked(model):
@@ -108,7 +117,7 @@ def test_lr_schedule_matches_reference(step):
 
 
 def test_decay_mask_and_paths_match_reference():
-  for arch in ARCHS + NEW_ARCHS:
+  for arch in ARCHS + NEW_ARCHS + ENCDEC_VLM_ARCHS:
     _, _, jparams, model = _models(arch)
     want = sorted((p, jopt._decay_mask(p))
                   for p in jax.tree.leaves(jopt._paths(jparams)))
@@ -238,7 +247,7 @@ def _steps(arch, dtype, *, accum=1, remat="none", lr=1e-3, ref=True):
   jcfg, tcfg, jparams, model = _models(arch, dtype)
   joc = jopt.AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
   toc = topt.AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
-  jb, tb = _batch(tcfg.vocab)
+  jb, tb = _batch(tcfg.vocab, cfg=tcfg)
   jnew = jm = None
   if ref:
     (jnew, _), jm = jax.jit(jmake_train_step(jcfg, joc, accum=accum))(
@@ -296,7 +305,10 @@ def test_grad_accum_matches_full_batch_and_reference(arch):
                                         ("mixtral-8x7b", "full"),
                                         ("mixtral-8x7b", "dots"),
                                         ("zamba2-7b", "full"),
-                                        ("zamba2-7b", "dots")])
+                                        ("zamba2-7b", "dots"),
+                                        ("seamless-m4t-large-v2", "full"),
+                                        ("chameleon-34b", "full"),
+                                        ("chameleon-34b", "dots")])
 def test_remat_matches_none(arch, remat):
   lr = 1e-3
   _, _, m0, _, t0 = _steps(arch, "f32", lr=lr, ref=False)
@@ -324,6 +336,43 @@ def test_moe_and_hybrid_train_step_matches_reference(arch):
   assert (float(tm["aux_loss"]) > 0) == arch.startswith(("mixtral", "phi"))
   for a, b in zip(jax.tree.leaves(jnew), jax.tree.leaves(_stacked(model))):
     np.testing.assert_allclose(b, np.asarray(a, np.float32), atol=2 * lr)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ENCDEC_VLM_ARCHS)
+def test_encdec_and_vlm_train_step_matches_reference(arch, dtype):
+  """One step with seamless's source frames in the batch (chameleon's
+  from token ids): loss and grad norm against the reference's at the
+  dense tolerances (f32 1e-5; bf16 2e-2 and 5e-2), aux 0, the updated
+  parameters within 2·lr, the master f32."""
+  lr = 1e-3
+  jnew, jm, model, tstate, tm = _steps(arch, dtype, lr=lr)
+  loss_tol, norm_tol = (1e-5, 1e-5) if dtype == "f32" else (2e-2, 5e-2)
+  np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                             rtol=loss_tol)
+  np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                             rtol=norm_tol)
+  assert float(tm["aux_loss"]) == float(jm["aux_loss"]) == 0.0
+  for a, b in zip(jax.tree.leaves(jnew), jax.tree.leaves(_stacked(model))):
+    np.testing.assert_allclose(b, np.asarray(a, np.float32), atol=2 * lr)
+  assert int(tstate["step"]) == 1
+  assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", ENCDEC_VLM_ARCHS)
+def test_encdec_and_vlm_grad_accum(arch):
+  """accum=2 against the reference's accum=2 and against accum=1 on the
+  same global batch (the source frames split with their rows)."""
+  lr = 1e-3
+  _, jm, _, _, tm2 = _steps(arch, "f32", accum=2, lr=lr)
+  _, _, _, _, tm1 = _steps(arch, "f32", accum=1, lr=lr, ref=False)
+  for key in ("loss", "grad_norm"):
+    np.testing.assert_allclose(float(tm2[key]), float(jm[key]), rtol=1e-5,
+                               err_msg=key)
+  np.testing.assert_allclose(float(tm2["loss"]), float(tm1["loss"]),
+                             rtol=1e-5)
+  np.testing.assert_allclose(float(tm2["grad_norm"]),
+                             float(tm1["grad_norm"]), rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-7b"])
@@ -361,7 +410,8 @@ def test_remat_dots_saves_only_the_projections():
     ttf.run_layer(lambda x: x, "everything", torch.zeros(1))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x7b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x7b", "zamba2-7b"]
+                         + ENCDEC_VLM_ARCHS)
 def test_pallas_is_refused_in_training(arch):
   _, tcfg, _, model = _models(arch)
   oc = topt.AdamWConfig()
@@ -370,7 +420,7 @@ def test_pallas_is_refused_in_training(arch):
   # and the kernels' arms refuse operands that need gradients
   for p in topt._leaves(tzoo.param_tree(model)):
     p.requires_grad_(True)
-  _, tb = _batch(tcfg.vocab)
+  _, tb = _batch(tcfg.vocab, cfg=tcfg)
   with pytest.raises(RuntimeError, match="has no backward"):
     tzoo.forward(model, tcfg, tb, mode="train", impl="pallas")
   with torch.no_grad():  # serving on the same weights is untouched

@@ -231,7 +231,21 @@ Phases (any failure exits non-zero):
      tanh layers, D 4096, 8 microbatches of 512 rows split over "data", f32:
      forward and gradients against the sequential layers and float64, the
      bubble fraction and ms per call against the sequential call (a
-     virtual mesh measures the schedule, not an interconnect).
+     virtual mesh measures the schedule, not an interconnect);
+  16. the dry run (lines ``[dryrun]``) — (a) on the host, with no device
+     memory allocated: ``launch.dryrun.run_cell`` for seven single-pod
+     cells (tinyllama-1.1b × decode_32k, mixtral-8x7b × prefill_32k,
+     mamba2-780m × long_500k, zamba2-7b × train_4k, seamless-m4t-large-v2 ×
+     prefill_32k, chameleon-34b × decode_32k: status "ok"; granite-8b ×
+     long_500k: "skipped") and tinyllama's decode_32k on the multi-pod
+     mesh; (b) the rows of a (1, 1) mesh at two shapes the card ran, printed
+     beside phase 6's prefill and phase 10's train step as measured ÷ bound;
+     (c) the APSP anchor: one min-plus squaring C ← C ⊕ (C ⊗ C) at |V| =
+     16384 (f32, 1 GiB) through ``core.distributed.summa_mmo`` on a virtual
+     2 × 2 mesh of the card, 4 K1 launches, rows 0–255 bit for bit equal to
+     local K1 and to its plain version on those rows, its CUDA-event time
+     against ``launch.dryrun_apsp``'s K1 bound for that mesh and the
+     production mesh's row.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -3567,6 +3581,159 @@ def phase_pipeline(torch, card: str) -> dict:
   return out
 
 
+# Phase 16: the dry run's cells (arch, shape, mesh), one call each
+DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k", "single"),
+                ("mixtral-8x7b", "prefill_32k", "single"),
+                ("mamba2-780m", "long_500k", "single"),
+                ("zamba2-7b", "train_4k", "single"),
+                ("seamless-m4t-large-v2", "prefill_32k", "single"),
+                ("chameleon-34b", "decode_32k", "single"),
+                ("granite-8b", "long_500k", "single"),
+                ("tinyllama-1.1b", "decode_32k", "multi"))
+# the APSP anchor: Table 4's "large" |V|, phase 4's density, the rows held
+# bit for bit against local K1
+APSP_V, APSP_DENSITY, APSP_ROWS = 16384, 0.05, 256
+
+
+def device_allocations(torch) -> int:
+  return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+
+def apsp_graph(torch, v: int, seed: int):
+  """``apps.graphs.weighted_digraph``'s distribution drawn on the card:
+  weights uniform in [1, 10), no edge (inf) where a second draw is at or
+  above the density, 0 on the diagonal."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  w = torch.rand(v, v, generator=g, device="cuda") * 9.0 + 1.0
+  w = w.masked_fill_(torch.rand(v, v, generator=g, device="cuda")
+                     >= APSP_DENSITY, float("inf"))
+  return w.fill_diagonal_(0.0)
+
+
+def phase_dryrun(sm, torch, card: str, lm: dict, train: dict) -> dict:
+  """Phase 16: (a) the dry run's rows on the host, (b) its bound against
+  two measurements of this run, (c) the APSP squaring at |V| = 16384 on a
+  virtual 2 × 2 mesh of the card against the dry run's K1 bound."""
+  from repro_torch import configs
+  from repro_torch.configs import Shape
+  from repro_torch.core import distributed as dist
+  from repro_torch.launch import dryrun, dryrun_apsp
+  from repro_torch.launch.mesh import AbstractMesh, make_host_mesh
+  t_phase = time.perf_counter()
+  out = {"card": card, "hbm_bytes": torch.cuda.get_device_properties(
+      0).total_memory, "hw_hbm_bytes": hw.HBM_BYTES}
+  # -- (a) the rows, on the host ---------------------------------------------
+  allocs = device_allocations(torch)
+  t0 = time.perf_counter()
+  rows = []
+  for arch, shape, mesh in DRYRUN_CELLS:
+    row = dryrun.run_cell(arch, shape, mesh)
+    log(f"[dryrun] {json.dumps(row, default=float)}")
+    want = "skipped" if configs.skip_reason(arch, shape) else "ok"
+    if row["status"] != want:
+      raise AssertionError(f"dry run {arch} × {shape} on {mesh}: status "
+                           f"{row['status']}, want {want}")
+    if want == "ok" and not row["peak_mem_per_dev"] < hw.HBM_BYTES:
+      raise AssertionError(f"dry run {arch} × {shape}: "
+                           f"{row['peak_mem_per_dev']} bytes per device")
+    rows.append(row)
+  out["a_s"] = time.perf_counter() - t0
+  if device_allocations(torch) != allocs:
+    raise AssertionError("the dry run allocated device memory")
+  out["rows"] = rows
+  log(f"[dryrun] (a) {len(rows)} rows in {out['a_s']:.1f}s on the host, "
+      f"no device allocation; the card's memory "
+      f"{out['hbm_bytes']} bytes (hw.HBM_BYTES {hw.HBM_BYTES}) {card}")
+  # -- (b) the bound against this run's measurements --------------------------
+  one = AbstractMesh((1, 1), ("data", "model"))
+  pre = dryrun.run_cell(LM_ARCH, Shape("prefill_2k", LM_PROMPT, LM_BATCH,
+                                       "prefill"), one)
+  trn = dryrun.run_cell(LM_ARCH, Shape("train_2k", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), one, remat="none", accum=1)
+  if device_allocations(torch) != allocs:
+    raise AssertionError("the dry run allocated device memory")
+  bound = {"prefill": max(pre["t_compute_s"], pre["t_memory_s"],
+                          pre["t_collective_s"]),
+           "train": max(trn["t_compute_s"], trn["t_memory_s"],
+                        trn["t_collective_s"])}
+  measured = {"prefill": lm["prefill_ms"] / 1e3,
+              "train": train["tinyllama"]["step_ms_median"] / 1e3}
+  out["vs_card"] = {k: {"measured_s": measured[k], "bound_s": bound[k],
+                        "bottleneck": r["bottleneck"],
+                        "measured_over_bound": measured[k] / bound[k]}
+                    for k, r in (("prefill", pre), ("train", trn))}
+  log(f"[dryrun] (b) {LM_ARCH} on a (1, 1) mesh, {LM_BATCH} × {LM_PROMPT}: "
+      f"measured ÷ the dry run's bound {json.dumps(out['vs_card'])} (the "
+      f"prefill measured on 'pallas' with K3 in phase 6, host clock; the "
+      f"row counts the 'xla' arm; the train step phase 10's CUDA-event "
+      f"median, remat none) {card}")
+  # -- (c) the APSP anchor ----------------------------------------------------
+  v = APSP_V
+  mesh = make_host_mesh(4, model=2, devices=["cuda:0"] * 4)
+  c = apsp_graph(torch, v, 16)
+  torch.cuda.synchronize()
+
+  def squaring():
+    return dist.summa_mmo(c, c, c, op="minplus", mesh=mesh,
+                          backend="pallas")
+  sm.semiring_mmo.launches = 0     # the main path: counted just around it
+  got = squaring()
+  torch.cuda.synchronize()
+  launches = sm.semiring_mmo.launches
+  if launches != mesh.size:
+    raise AssertionError(f"SUMMA at {v}: {launches} K1 launches, want "
+                         f"{mesh.size}")
+  rows_a = c[None, :APSP_ROWS].contiguous()
+  local = sm.semiring_mmo(rows_a, c[None], rows_a, op="minplus")[0]
+  plain = sm.semiring_mmo_plain(rows_a, c[None], rows_a, op="minplus")[0]
+  if not (torch.equal(got[:APSP_ROWS], local) and torch.equal(local, plain)):
+    raise AssertionError(f"SUMMA at {v}: rows 0-{APSP_ROWS - 1} differ from "
+                         f"local K1 or its plain version")
+  # a squaring only shortens: no NaN, no entry above C's, 0 on the diagonal
+  if not (got.shape == (v, v) and not bool(torch.isnan(got).any())
+          and bool((got <= c).all()) and not bool(got.diagonal().any())):
+    raise AssertionError(f"SUMMA at {v}: not a squaring of C")
+  ms = cuda_time_ms(squaring, 3)
+  local_ms = cuda_time_ms(
+      lambda: sm.semiring_mmo(rows_a, c[None], rows_a, op="minplus"), 3)
+  plain_ms = cuda_time_ms(
+      lambda: sm.semiring_mmo_plain(rows_a, c[None], rows_a, op="minplus"),
+      1)
+  del got, local, plain, rows_a, c
+  small = dryrun_apsp.run(v, AbstractMesh((2, 2), ("data", "model")))
+  prod = dryrun_apsp.run(v, "single")
+  b_ms, b_by = bound_ms("minplus", "float32", 1, v, v, v, v, True)
+  per_chip_ms = small["t_step_pallas_vpu"] * 1e3
+  out["apsp"] = {
+      "case": f"minplus {v}³ squaring as {mesh.size} SUMMA shards of "
+              f"{v // 2} × {v} × {v // 2} (virtual 2 × 2 mesh of cuda:0; "
+              f"plain_ms: rows 0-{APSP_ROWS - 1}, 1/{v // APSP_ROWS} of the "
+              f"work)",
+      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+      "share_of_bound": b_ms / ms, "library_ms": None, "max_abs_err": 0.0,
+      "launches": launches, "local_rows_ms": local_ms,
+      "dryrun_t_step_pallas_vpu_ms": per_chip_ms,
+      "measured_over_dryrun_one_card": ms / (mesh.size * per_chip_ms),
+      "dryrun_2x2": small, "dryrun_single_pod": prod}
+  log(f"[dryrun] (c) APSP |V| = {v}: one SUMMA squaring {ms!r} ms on the "
+      f"card ({launches} K1 launches; rows 0-{APSP_ROWS - 1} bit for bit "
+      f"equal to local K1, {local_ms!r} ms, and its plain version); the dry "
+      f"run's K1 bound on the (2, 2) mesh {per_chip_ms!r} ms per chip, "
+      f"{mesh.size * per_chip_ms!r} ms for the four shards on one card "
+      f"(measured ÷ that {out['apsp']['measured_over_dryrun_one_card']!r}); "
+      f"the single pod's row: t_step_pallas_vpu "
+      f"{prod['t_step_pallas_vpu'] * 1e3!r} ms, t_step_xla_vector "
+      f"{prod['t_step_xla_vector'] * 1e3!r} ms, t_step_simd2_unit "
+      f"{prod['t_step_simd2_unit'] * 1e3!r} ms, solve bound "
+      f"{prod['solve_bound_s']!r} s {card}")
+  k1_row = {k: x for k, x in out["apsp"].items()
+            if k not in ("dryrun_2x2", "dryrun_single_pod")}
+  log(f"[time] K1 {json.dumps(k1_row)}")
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[dryrun] phase 16 in {out['s']:.1f}s")
+  return out
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -4107,6 +4274,11 @@ def main() -> int:
       f"12 {hyb['s']:.1f}s, phase 13 {encdec_run['s']:.1f}s, phase 14 "
       f"{vlm_run['s']:.1f}s, phase 15 {pipe['s']:.1f}s")
 
+  # -- phase 16: the dry run and its APSP anchor --------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  dry = phase_dryrun(sm, torch, card, lm, train)
+
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
@@ -4114,13 +4286,15 @@ def main() -> int:
       "source": "src/repro_torch/kernels/csrc/semiring_mmo.cu",
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
       "launches": launches + qos["k1"] + ops["k1"] + apps["k1"]
-                  + mesh["k1"] + vlm_run["launches"]["semiring_mmo"],
+                  + mesh["k1"] + vlm_run["launches"]["semiring_mmo"]
+                  + dry["apsp"]["launches"],
       "max_abs_err": big_err,
       "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
       "bound_by": head["bound_by"], "library_ms": head["library_ms"],
       "instances": [dtype_instance(row) for row in k1_dtype_rows]
-                   + [served_instance(vlm_run["k1_row"])]}, {
+                   + [served_instance(vlm_run["k1_row"]),
+                      served_instance(dry["apsp"])]}, {
       "name": "closure_megakernel", "design": K2_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/closure_megakernel.cu",
       "replaces": "src/repro/kernels/closure_megakernel.py:164",

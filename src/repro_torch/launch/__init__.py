@@ -1,8 +1,10 @@
-"""Launch layer: the device mesh (``mesh``), the serving drivers (``serve``
-for the LMs, ``serve_mmo`` for semiring problems) and the training driver
-(``train``, one device).
+"""Launch layer: the device mesh and the production layout (``mesh``), the
+serving entry points (``serve`` for the LMs, ``serve_mmo`` for semiring
+problems), training (``train``, one device), the dry run of
+every (architecture × shape × mesh) cell and of the pod-scale APSP
+squaring (``dryrun``, ``dryrun_apsp``, with ``specs``), and the elastic
+control plane (``elastic``).
 
-Counterpart of ``repro.launch``.  The dry run, the elasticity driver, the
-production mesh and the LM's sharding come with ROADMAP Queue 1 item 13
-(steps 5 and 6).
+Counterpart of ``repro.launch``.  Training on a mesh comes with ROADMAP
+Queue 1 item 13, step 6.2.
 """

@@ -10,16 +10,24 @@ shards in the tests, on shards of one card and on several cards joined by
 NVLink.
 
 A mesh whose shards share a device is built only from an explicit
-``devices=`` list: nothing picks one on its own.  ``make_production_mesh``
-and ``make_parallelism`` (the LM's TPU-pod layout) come with the LM
-sharding, ROADMAP Queue 1 item 13.
+``devices=`` list: nothing picks one on its own.
+
+The production layout (``make_production_mesh``, ``make_parallelism``) is
+the reference's: single pod (data 16, model 16) = 256 chips, multi-pod
+(pod 2, data 16, model 16) = 512, the batch sharded over (pod, data).  The
+dry run (``launch/dryrun.py``) reads it without the machines, so it is an
+``AbstractMesh``: axis names and sizes with no devices, as
+``jax.sharding.AbstractMesh`` is.  A runnable ``Mesh`` stays two-dimensional.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.models.common import Parallelism
 
 AXIS_NAMES = ("data", "model")
 
@@ -41,7 +49,9 @@ class Mesh:
     grid = tuple(tuple(torch.device(d) for d in row) for row in self.devices)
     names = tuple(str(a) for a in self.axis_names)
     if len(names) != 2 or len(set(names)) != 2:
-      raise ValueError(f"a mesh has two distinct axis names, got {names}")
+      raise ValueError(
+          f"a mesh has two distinct axis names, got {names}; a layout of "
+          f"other axes with no devices behind it is an AbstractMesh")
     if not grid or not grid[0] or len({len(row) for row in grid}) != 1:
       raise ValueError("mesh devices must form a non-empty (rows, cols) grid")
     kinds = {d.type for row in grid for d in row}
@@ -107,3 +117,63 @@ def make_host_mesh(n_devices: int = 0, model: int = 2, *,
   pool = pool[:n]
   return Mesh(tuple(tuple(pool[r * model:(r + 1) * model])
                     for r in range(n // model)), tuple(axis_names))
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+  """Axis names and sizes with no devices: ``shape`` maps each name to its
+  size (in axis order), ``size`` is the number of chips."""
+
+  axis_sizes: tuple
+  axis_names: tuple
+
+  def __post_init__(self):
+    sizes = tuple(int(n) for n in self.axis_sizes)
+    names = tuple(str(a) for a in self.axis_names)
+    if len(sizes) != len(names) or len(set(names)) != len(names):
+      raise ValueError(f"one distinct name per axis, got {names} for "
+                       f"{sizes}")
+    if not sizes or min(sizes) < 1:
+      raise ValueError(f"axis sizes must be positive, got {sizes}")
+    object.__setattr__(self, "axis_sizes", sizes)
+    object.__setattr__(self, "axis_names", names)
+
+  @property
+  def shape(self) -> dict:
+    return dict(zip(self.axis_names, self.axis_sizes))
+
+  @property
+  def size(self) -> int:
+    return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+  """The production layout as an ``AbstractMesh``."""
+  if multi_pod:
+    return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+  return AbstractMesh((16, 16), ("data", "model"))
+
+
+def as_abstract_mesh(mesh) -> tuple:
+  """(AbstractMesh, label) of "single", "multi" (the production layouts)
+  or an ``AbstractMesh`` (labelled by its sizes, e.g. "2x2")."""
+  if isinstance(mesh, AbstractMesh):
+    return mesh, "x".join(map(str, mesh.axis_sizes))
+  if mesh not in ("single", "multi"):
+    raise ValueError(f"mesh must be 'single', 'multi' or an AbstractMesh, "
+                     f"got {mesh!r}")
+  return make_production_mesh(multi_pod=mesh == "multi"), mesh
+
+
+def make_parallelism(*, multi_pod: bool = False, fsdp: bool = True,
+                     seq_shard_decode: bool = True,
+                     remat: str = "none") -> Parallelism:
+  return Parallelism(
+      data_axes=("pod", "data") if multi_pod else ("data",),
+      model_axis="model",
+      tp_size=16,
+      dp_size=32 if multi_pod else 16,
+      fsdp=fsdp,
+      seq_shard_decode=seq_shard_decode,
+      remat=remat,
+  )

@@ -36,7 +36,7 @@ FLASH_CHUNK = 2048
 def attn_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
   """One layer's attention weights in the reference's layout."""
   hd, h, kv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
-  dev = generator.device
+  dev = cm.init_device(generator)
   p = {
       "wq": cm.dense_init(generator, (d, h, hd), in_axis=-3,
                           dtype=cfg.param_dtype),

@@ -37,11 +37,11 @@ def init_encdec_params(generator: torch.Generator,
                        cfg: cm.ModelConfig) -> dict:
   """Random weights in the reference's layout, one dict per layer under
   ``enc`` and ``dec``, drawn from ``generator`` on its device."""
-  vp, d, dev = tf_mod.padded_vocab(cfg), cfg.d_model, generator.device
+  vp, d = tf_mod.padded_vocab(cfg), cfg.d_model
+  dev = cm.init_device(generator)
 
   def normal(shape, std):
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(
-        cfg.param_dtype)
+    return (cm.randn(generator, shape) * std).to(cfg.param_dtype)
 
   def ones():
     return torch.ones(d, dtype=cfg.param_dtype, device=dev)
@@ -104,6 +104,7 @@ class DecoderLayer(nn.Module):
               mode: str, cache: Optional[dict], cache_len: Optional[Tensor],
               impl: str):
     eps = self.cfg.norm_eps
+    x = cm.constrain_acts(x)
     h = cm.rms_norm(x, self.ln1_norm_scale, eps)
     a, kv = self.attn(h, positions, mode=mode, layer_cache=cache,
                       cache_len=cache_len, impl=impl)

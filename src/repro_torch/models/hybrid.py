@@ -44,11 +44,11 @@ def init_hybrid_params(generator: torch.Generator,
   """Random weights in the reference's layout (``blocks`` one dict per SSM
   layer, ``shared`` one attention + MLP block), drawn from ``generator``
   on its device."""
-  vp, d, dev = tf_mod.padded_vocab(cfg), cfg.d_model, generator.device
+  vp, d = tf_mod.padded_vocab(cfg), cfg.d_model
+  dev = cm.init_device(generator)
 
   def normal(shape, std):
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(
-        cfg.param_dtype)
+    return (cm.randn(generator, shape) * std).to(cfg.param_dtype)
 
   def ones(shape):
     return torch.ones(shape, dtype=cfg.param_dtype, device=dev)
@@ -97,6 +97,7 @@ class HybridLM(nn.Module):
     place."""
     st = (None if stacked is None else
           {name: t[i] for name, t in stacked.items()})
+    x = cm.constrain_acts(x)
     x, new_st = self.blocks[i](x, mode=mode, state=st, impl=impl)
     if mode == "decode":
       for name, t in new_st.items():

@@ -101,6 +101,8 @@ def _experts(w: dict, cfg: cm.ModelConfig, buf: Tensor) -> Tensor:
   xs = buf.reshape(e, b * c, d)
   h = torch.matmul(xs, w["w1"].to(dt))
   h = nn.functional.silu(h) * torch.matmul(xs, w["w3"].to(dt))
+  dp, tp = cm.act_axes()
+  h = cm.constrain(h, (None, dp, tp))            # rows b-major: B over dp
   return torch.matmul(h, w["w2"].to(dt)).view(e, b, c, d)
 
 
@@ -110,7 +112,12 @@ def moe_block(p: dict, cfg: cm.ModelConfig, x: Tensor):
   e, cap, dt = cfg.n_experts, capacity(cfg, s), cfg.dtype
   gate, idx, aux = _route(p["router"], cfg, x)
   buf, slot_e, slot_p, keep = _dispatch(x, idx, e, cap)
-  out = _experts(p["experts"], cfg, buf).reshape(e * b * cap, d)
+  # the reference pins its (B, E, C, ·) buffers to the batch and model
+  # axes; here the batch is the second axis
+  dp, _ = cm.act_axes()
+  buf = cm.constrain(buf, (None, dp, None, None))
+  out = cm.constrain(_experts(p["experts"], cfg, buf), (None, dp, None, None))
+  out = out.reshape(e * b * cap, d)
   rows = torch.arange(b, device=x.device)[:, None, None]
   tok = out[(slot_e * b + rows) * cap + slot_p]             # (B, S, k, D)
   w = gate.to(dt) * keep.to(dt)

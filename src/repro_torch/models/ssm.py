@@ -34,10 +34,10 @@ def ssm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
   """One layer's SSM weights in the reference's layout."""
   d, din = cfg.d_model, cfg.d_inner
   g, n, h = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
-  k, pd, dev = cfg.conv_kernel, cfg.param_dtype, generator.device
+  k, pd, dev = cfg.conv_kernel, cfg.param_dtype, cm.init_device(generator)
 
   def normal(shape, std):
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(pd)
+    return (cm.randn(generator, shape) * std).to(pd)
 
   return {
       "in_proj_z": cm.dense_init(generator, (d, din), dtype=pd),

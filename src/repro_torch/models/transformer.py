@@ -69,11 +69,11 @@ def check_family(cfg: cm.ModelConfig) -> None:
 def init_lm_params(generator: torch.Generator, cfg: cm.ModelConfig) -> dict:
   """Random weights in the reference's layout, one dict per layer under
   ``blocks``, drawn from ``generator`` on its device."""
-  vp, d, dev = padded_vocab(cfg), cfg.d_model, generator.device
+  vp, d = padded_vocab(cfg), cfg.d_model
+  dev = cm.init_device(generator)
 
   def normal(shape, std):
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(
-        cfg.param_dtype)
+    return (cm.randn(generator, shape) * std).to(cfg.param_dtype)
 
   p = {
       "embed": normal((vp, d), 0.02),
@@ -110,6 +110,7 @@ class Block(nn.Module):
 
   def forward(self, x: Tensor, positions: Tensor, *, mode: str,
               cache: Optional[dict], cache_len: Optional[Tensor], impl: str):
+    x = cm.constrain_acts(x)
     h = cm.rms_norm(x, self.ln1_norm_scale, self.cfg.norm_eps)
     a, kv = self.attn(h, positions, mode=mode, layer_cache=cache,
                       cache_len=cache_len, impl=impl)

@@ -38,11 +38,11 @@ def init_ssm_lm_params(generator: torch.Generator,
                        cfg: cm.ModelConfig) -> dict:
   """Random SSM-LM weights in the reference's layout, one dict per layer
   under ``blocks``, drawn from ``generator`` on its device."""
-  vp, d, dev = tf_mod.padded_vocab(cfg), cfg.d_model, generator.device
+  vp, d = tf_mod.padded_vocab(cfg), cfg.d_model
+  dev = cm.init_device(generator)
 
   def normal(shape, std):
-    return (torch.randn(shape, generator=generator, device=dev) * std).to(
-        cfg.param_dtype)
+    return (cm.randn(generator, shape) * std).to(cfg.param_dtype)
 
   def ones(shape):
     return torch.ones(shape, dtype=cfg.param_dtype, device=dev)
@@ -99,6 +99,7 @@ class SSMLM(nn.Module):
     for i, layer in enumerate(self.blocks):
       st = (None if stacked is None else
             {name: t[i] for name, t in stacked.items()})
+      x = cm.constrain_acts(x)
       x, new_st = tf_mod.run_layer(layer, "full" if remat == "full" else
                                    "none", x, mode=mode, state=st, impl=impl)
       if mode == "decode":
@@ -120,10 +121,17 @@ class SSMLM(nn.Module):
     return logits, new_cache, torch.zeros((), device=x.device)
 
 
-def init(cfg: cm.ModelConfig, generator: torch.Generator,
+def init(cfg: cm.ModelConfig, generator: Optional[torch.Generator],
          device=DEFAULT_DEVICE) -> nn.Module:
-  """Random weights from ``generator`` (drawn on its device), on ``device``."""
+  """Random weights from ``generator`` (drawn on its device), on ``device``.
+
+  ``generator=None`` with ``device="meta"`` builds the module with every
+  parameter an empty meta tensor of its shape: nothing is drawn or
+  allocated, at any size (the dry run's models)."""
   dev = resolve_device(device)
+  if generator is None and dev.type != "meta":
+    raise ValueError("with no generator the weights are not drawn: only "
+                     "device='meta' builds such a model")
   if cfg.family == "ssm":
     return SSMLM(cfg, init_ssm_lm_params(generator, cfg)).to(dev)
   if cfg.family == "hybrid":

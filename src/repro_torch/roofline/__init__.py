@@ -1,10 +1,11 @@
-"""Roofline constants of the card the port runs on (``hw``) and the ring
-model of one collective (``collectives``).
+"""Roofline constants of the card the port runs on (``hw``), the ring model
+of one collective and the reference's HLO collective parser
+(``collectives``), the three-term roofline of a dry-run cell
+(``analysis``) and the dispatch-time counter of FLOPs, bytes and live
+memory that takes the place of the reference's HLO walk (``flops``).
 
-Counterpart of ``repro/roofline``.  The dry-run analysis (``analysis``,
-``hlo_walk`` and ``collectives.collective_bytes``, which read XLA's HLO)
-comes with ROADMAP Queue 1 item 13.
+Counterpart of ``repro/roofline``.
 """
-from repro_torch.roofline import collectives, hw
+from repro_torch.roofline import analysis, collectives, flops, hw
 
-__all__ = ["collectives", "hw"]
+__all__ = ["analysis", "collectives", "flops", "hw"]

@@ -21,6 +21,15 @@ PEAK_BYTES_S = 3.35e12
 # traffic at the one-way rate.  The TPU model's ICI_BW_PER_LINK has no
 # counterpart here.
 NVLINK_BYTES_S = 450e9
+# Between hosts: one 400 Gb/s ConnectX-7 InfiniBand port per card in a DGX
+# H100 (eight per host; NVIDIA DGX H100 user guide), 50e9 bytes/s each way.
+# A collective whose group spans hosts runs at this rate per card.
+INTERHOST_BYTES_S = 50e9
+CARDS_PER_HOST = 8
+# Device memory a program gets on an H100 80GB HBM3:
+# torch.cuda.get_device_properties(0).total_memory as chip_smoke.py phase
+# 16 reads and prints it (79.18 GiB of the 80 GiB the card carries).
+HBM_BYTES = 85_017_493_504
 
 # CUDA-core instruction issue: 132 SMs × 128 lanes, one instruction per lane
 # per clock at the SM clock.  A min/max ring term is two instructions (an

@@ -18,13 +18,13 @@ UNPORTED = {
     "apps": {},
     "kernels": {},
     "tuning": {},
-    "models": {"Parallelism": 13, "specs_like": 13},
+    "models": {},
     "train": {},
     "serve_mmo": {},
     "analysis": {},
     "data": {},
 }
-ROADMAP_ITEMS = {13, 14}
+ROADMAP_ITEMS = {14}
 
 
 def _reference_all(package: str) -> list:

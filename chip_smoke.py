@@ -245,7 +245,32 @@ Phases (any failure exits non-zero):
      2 × 2 mesh of the card, 4 K1 launches, rows 0–255 bit for bit equal to
      local K1 and to its plain version on those rows, its CUDA-event time
      against ``launch.dryrun_apsp``'s K1 bound for that mesh and the
-     production mesh's row.
+     production mesh's row;
+  17. training on a mesh (lines ``[mesh-train]``; a virtual 2 × 2 mesh of
+     four shards of the card, ``make_host_mesh(devices=["cuda:0"] * 4)``:
+     its collectives are on-card copies, so no interconnect is measured) —
+     (a) tinyllama-1.1b at its published width and depth, bf16 compute,
+     4 × 2048 SyntheticLM tokens per step, the f32 master and both moments
+     cut by ``specs_like`` (``train/sharded.py``): three steps on the
+     one-device step and three on the mesh from the same weights and
+     batches, the first step's loss within rtol 1e-3 and grad norm within
+     1e-2 of the one-device step's (each data line's bf16 GEMMs see 2 rows,
+     not 4), step ms by CUDA events beside the one-device step's here and
+     phase 10(b)'s, peak memory, a profile of one more mesh step; (b)
+     one step each with ``grad_specs``, with ``grad_specs`` + ``zero2``
+     (and a profile of a second one) and with all three knobs, from the
+     same weights, held to the same limits; (c) the train driver with
+     ``--shards 4 --smoke --deterministic`` killed at step 20 and resumed,
+     as 10(d): the final loss within rtol 1e-5 of the uninterrupted run's.
+     No K1–K4 launch (impl="xla");
+  18. the examples (lines ``[examples]``) — each of the nine
+     ``examples/torch_*.py`` in a subprocess on ``cuda`` at the reference
+     examples' sizes (``torch_train_lm.py`` 40 steps of llama-100m at
+     8 × 512 tokens, ``torch_apsp_pod_scale.py`` on a virtual mesh of 16
+     shards), three at a time: each must exit 0 with every printed check
+     passing; its seconds and its K1–K4 launches (read from the wrappers'
+     counters inside the subprocess) are printed, and torch_quickstart and
+     torch_vq_retrieval must launch K1, torch_serve_lm K3.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -263,6 +288,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 # The H100's published peaks and the CUDA-core issue rate live with the
@@ -2948,15 +2974,16 @@ TRAIN_CLI = [sys.executable, "-m", "repro_torch.launch.train", "--device",
              "cuda", "--deterministic"]
 
 
-def phase_kill_resume(tmp: Path) -> dict:
-  """Phase 10(d): the train driver killed at step 20 of 30 (exit 42) and
-  restarted from its checkpoint ends at the uninterrupted run's loss
-  (rtol 1e-5, the reference's test); the uninterrupted and the crashing run
-  go at once."""
+def phase_kill_resume(tmp: Path, extra=(), tag: str = "[train] (d)"
+                      ) -> dict:
+  """Phase 10(d), and 17(c) with ``extra`` = --shards 4: the train driver
+  killed at step 20 of 30 (exit 42) and restarted from its checkpoint ends
+  at the uninterrupted run's loss (rtol 1e-5, the reference's test); the
+  uninterrupted and the crashing run go at once."""
   env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
   common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "30",
             "--batch", "4", "--seq", "32", "--lr", "1e-3", "--ckpt-every",
-            "10", "--log-every", "30"]
+            "10", "--log-every", "30", *extra]
   t0 = time.perf_counter()
   runs = [subprocess.Popen(
       TRAIN_CLI + common + extra, stdout=subprocess.PIPE,
@@ -2981,7 +3008,7 @@ def phase_kill_resume(tmp: Path) -> dict:
   want, got = loss_of(ref_out), loss_of(r2.stdout)
   out = {"crash_exit": runs[1].returncode, "uninterrupted_loss": want,
          "resumed_loss": got, "s": time.perf_counter() - t0}
-  log(f"[train] (d) kill at step 20 (exit 42) and resume: final loss "
+  log(f"{tag} kill at step 20 (exit 42) and resume: final loss "
       f"{got!r}, uninterrupted {want!r}, {out['s']:.1f}s")
   if abs(got - want) > 1e-5 * abs(want):
     raise AssertionError("the resumed run's loss differs from the "
@@ -3734,6 +3761,219 @@ def phase_dryrun(sm, torch, card: str, lm: dict, train: dict) -> dict:
   return out
 
 
+# Phase 17: training on a virtual 2 × 2 mesh of the card.  The first
+# step's loss and grad norm against the one-device step on the same
+# weights and batch: each data line's bf16 GEMMs see 2 of the 4 rows, so
+# they sum in other orders and round elsewhere (loss rtol 1e-3, grad norm
+# rtol 1e-2, the stated limits).
+MESH_TRAIN_SHARDS, MESH_TRAIN_STEPS = 4, 3
+MESH_LOSS_RTOL, MESH_NORM_RTOL = 1e-3, 1e-2
+
+
+def mesh_train_state(torch, cfg, mesh):
+  """tinyllama's seeded weights (phase 10's seed) cut onto ``mesh`` by
+  ``specs_like``: (ShardedState, specs)."""
+  from repro_torch.models import common as cm
+  from repro_torch.models import zoo
+  from repro_torch.train.sharded import shard_state
+  params = zoo.param_tree(zoo.init(
+      cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+  specs = cm.specs_like(params, cfg, cm.Parallelism(
+      data_axes=("data",), tp_size=mesh.shape["model"]))
+  return shard_state(params, specs, mesh), specs
+
+
+def timed_steps(torch, step, state, data, n: int) -> tuple:
+  """(state, [(loss, grad norm)], [CUDA-event ms]) of ``n`` steps on
+  batches 0..n-1."""
+  metrics, times = [], []
+  for i in range(n):
+    batch = data.batch_at(i)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, m = step(state, batch)
+    e1.record()
+    metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    times.append(e0.elapsed_time(e1))
+  return state, metrics, times
+
+
+def close_to(got: tuple, want: tuple) -> bool:
+  return (abs(got[0] - want[0]) <= MESH_LOSS_RTOL * abs(want[0])
+          and abs(got[1] - want[1]) <= MESH_NORM_RTOL * abs(want[1]))
+
+
+def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
+                        ) -> dict:
+  """Phase 17: (a) tinyllama-1.1b uncut on a virtual 2 × 2 mesh against
+  the one-device step, (b) the three knobs, (c) kill and resume through
+  the driver with --shards 4."""
+  import tempfile
+  from repro_torch import configs
+  from repro_torch.data import DataConfig, SyntheticLM
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.models import zoo
+  from repro_torch.train import optimizer as opt_mod
+  from repro_torch.train.sharded import positions
+  from repro_torch.train.steps import make_train_step
+  t_phase = time.perf_counter()
+  before = [k.launches for k in kernels]
+  cfg = configs.get_config(LM_ARCH)
+  data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0))
+  oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+  # the one-device step on the same weights and batches
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  state = (model, opt_mod.init_opt_state(zoo.param_tree(model)))
+  state, want, one_ms = timed_steps(torch, make_train_step(cfg, oc), state,
+                                    data, MESH_TRAIN_STEPS)
+  del state, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  mesh = make_host_mesh(MESH_TRAIN_SHARDS, model=2,
+                        devices=["cuda:0"] * MESH_TRAIN_SHARDS)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  ss, specs = mesh_train_state(torch, cfg, mesh)
+  held = {str(pos): ss.local_bytes(pos) for pos in positions(mesh)}
+  step = make_train_step(cfg, oc, mesh=mesh)
+  ss, got, mesh_ms = timed_steps(torch, step, ss, data, MESH_TRAIN_STEPS)
+  peak = torch.cuda.max_memory_allocated()
+  ss = profile_train_step(torch, step, ss, data.batch_at(MESH_TRAIN_STEPS),
+                          sorted(mesh_ms)[1], "(17a, the mesh step)")
+  row = {"arch": cfg.name, "mesh": mesh.shape, "batch": TRAIN_BATCH,
+         "seq": TRAIN_SEQ, "one_device": want, "mesh_steps": got,
+         "one_device_ms": one_ms, "mesh_ms": mesh_ms,
+         "phase10_step_ms": phase10_ms,
+         "mesh_over_one_device": sorted(mesh_ms)[1] / sorted(one_ms)[1],
+         "state_bytes_per_position": held,
+         "max_memory_allocated_gib": peak / 2 ** 30, "card": card}
+  log(f"[mesh-train] (a) {json.dumps(row)}")
+  if not all(x == x and abs(x) < float("inf") for m in got for x in m):
+    raise AssertionError(f"a mesh loss or grad norm is not finite: {got}")
+  if not close_to(got[0], want[0]):
+    raise AssertionError(f"the mesh step's first loss and grad norm "
+                         f"{got[0]} differ from the one-device step's "
+                         f"{want[0]}")
+  del ss, step
+  gc.collect()
+  torch.cuda.empty_cache()
+  knobs = {}
+  for label, kw in (("grad_specs", {}),
+                    ("grad_specs+zero2", {"zero2": True}),
+                    ("grad_specs+zero2+grad_comm_bf16",
+                     {"zero2": True, "grad_comm_bf16": True})):
+    ss, specs = mesh_train_state(torch, cfg, mesh)
+    step = make_train_step(cfg, oc, mesh=mesh, grad_specs=specs, **kw)
+    ss, m, ms = timed_steps(torch, step, ss, data, 1)
+    if label == "grad_specs+zero2":  # where its time differs from (a)'s
+      ss = profile_train_step(torch, step, ss, data.batch_at(1), ms[0],
+                              "(17b, grad_specs+zero2)")
+    knobs[label] = {"loss": m[0][0], "grad_norm": m[0][1], "ms": ms[0]}
+    log(f"[mesh-train] (b) {label}: {json.dumps(knobs[label])} "
+        f"(one-device first step {want[0]!r})")
+    if not close_to(m[0], want[0]):
+      raise AssertionError(f"{label}: {m[0]} differs from the one-device "
+                           f"step's {want[0]}")
+    del ss, step
+    gc.collect()
+    torch.cuda.empty_cache()
+  (ROOT / "build").mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    resume = phase_kill_resume(Path(tmp), ["--shards",
+                                           str(MESH_TRAIN_SHARDS)],
+                               "[mesh-train] (c)")
+  if [k.launches for k in kernels] != before:
+    raise AssertionError("training on a mesh launched a hand-written kernel")
+  out = {"tinyllama": row, "knobs": knobs, "kill_resume": resume,
+         "s": time.perf_counter() - t_phase}
+  log(f"[mesh-train] phase 17 in {out['s']:.1f}s")
+  return out
+
+
+# Phase 18: the port's examples at the reference examples' sizes, each in
+# its own process; a runner reads the kernels' launch counters in there.
+EXAMPLES = (
+    ("torch_quickstart", []),
+    ("torch_serve_graphs", []),
+    ("torch_serve_qos", []),
+    ("torch_serve_adaptive", []),
+    ("torch_serve_sharded", []),
+    ("torch_apsp_pod_scale", ["--shards", "16"]),
+    ("torch_serve_lm", []),
+    ("torch_train_lm", ["--steps", "40"]),
+    ("torch_vq_retrieval", []),
+)
+EXAMPLE_MUST_LAUNCH = {"torch_quickstart": "K1", "torch_vq_retrieval": "K1",
+                       "torch_serve_lm": "K3"}
+EXAMPLE_RUNNER = """
+import importlib, json, runpy, sys
+path, args = sys.argv[1], sys.argv[2:]
+kernels = {"K1": importlib.import_module("repro_torch.kernels.semiring_mmo"
+                                         ).semiring_mmo,
+           "K2": importlib.import_module(
+               "repro_torch.kernels.closure_megakernel").fixpoint_chunk,
+           "K3": importlib.import_module(
+               "repro_torch.kernels.flash_attention").flash_attention,
+           "K4": importlib.import_module("repro_torch.kernels.ssd"
+                                         ).ssd_intra_chunk}
+sys.argv = [path] + args
+rc = 0
+try:
+  runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+  rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+print("[launches] " + json.dumps({k: f.launches for k, f in kernels.items()}))
+sys.exit(rc)
+"""
+
+
+def phase_examples(tmp: Path) -> dict:
+  """Phase 18: the nine examples on the card, three at a time."""
+  import re
+  env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+  t_phase = time.perf_counter()
+  out = {}
+  pending = list(EXAMPLES)
+  while pending:
+    wave, pending = pending[:3], pending[3:]
+    runs = []
+    for name, flags in wave:
+      if name == "torch_train_lm":
+        flags = flags + ["--ckpt-dir", str(tmp / "train_lm")]
+      runs.append((name, time.perf_counter(), subprocess.Popen(
+          [sys.executable, "-c", EXAMPLE_RUNNER,
+           str(ROOT / "examples" / f"{name}.py"), "--device", "cuda",
+           *flags], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+          text=True, cwd=tmp, env=env)))
+    for name, t0, proc in runs:
+      stdout, stderr = proc.communicate(timeout=600)
+      secs = time.perf_counter() - t0
+      checks = re.findall(r"^\[checks\] (\d+) of (\d+) passed$", stdout,
+                          re.M)
+      launches = [json.loads(line.split(" ", 1)[1])
+                  for line in stdout.splitlines()
+                  if line.startswith("[launches] ")]
+      row = {"s": secs, "exit": proc.returncode, "checks": checks,
+             "launches": launches[-1] if launches else None}
+      out[name] = row
+      log(f"[examples] {name}: {json.dumps(row)}")
+      ok = (proc.returncode == 0 and len(checks) == 1
+            and checks[0][0] == checks[0][1] and launches
+            and not re.search(r"(:|match) False$", stdout, re.M))
+      if not ok:
+        raise AssertionError(f"example {name} failed:\n{stdout[-3000:]}"
+                             f"{stderr[-3000:]}")
+      need = EXAMPLE_MUST_LAUNCH.get(name)
+      if need and row["launches"][need] <= 0:
+        raise AssertionError(f"example {name} launched no {need}")
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[examples] phase 18 in {out['s']:.1f}s")
+  return out
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -4278,6 +4518,26 @@ def main() -> int:
   gc.collect()
   torch.cuda.empty_cache()
   dry = phase_dryrun(sm, torch, card, lm, train)
+
+  # -- phase 17: training on a mesh -----------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  mesh_train = phase_mesh_training(
+      torch, card, (sm.semiring_mmo, mk.fixpoint_chunk, fa.flash_attention,
+                    ssd.ssd_intra_chunk),
+      train["tinyllama"]["step_ms_median"])
+
+  # -- phase 18: the examples ----------------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  import tempfile
+  with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    examples = phase_examples(Path(tmp))
+  log(f"[summary] phases 17-18 {card}: mesh step ms "
+      f"{mesh_train['tinyllama']['mesh_ms']!r} against one device "
+      f"{mesh_train['tinyllama']['one_device_ms']!r}; phase 17 "
+      f"{mesh_train['s']:.1f}s, phase 18 {examples['s']:.1f}s; whole script "
+      f"{time.perf_counter() - T_START:.1f}s")
 
   head = rows_out[0]
   k2 = k2_rows[0]

@@ -65,13 +65,15 @@ executable and have no counterpart.  The values:
     The data terms run over the data axes' group, the others over the
     model axis; ``analysis.axis_group_rate`` gives each group's link rate.
 
-A train cell with accum > 1 runs one microbatch (``global_batch / accum``
-rows) through ``make_train_step(accum=1)`` and counts accum × (that step
-less AdamW) + AdamW + the accumulation's sums, which is what the step with
-``accum`` microbatches dispatches.  ``make_train_step`` refuses
-``grad_specs``, ``zero2`` and ``grad_comm_bf16`` (one device): the dry run
-passes none of them and applies ``--zero2`` and ``--grad-comm-bf16`` in
-its collective model only.
+A train cell's step gets the reference cell's knobs: ``grad_specs`` (the
+parameters' specs), ``zero2`` and ``grad_comm_bf16``, so the bf16 compute
+copy of ``--zero2`` and the gradients' bf16 rounding casts of
+``--grad-comm-bf16`` are counted, and the collective model above applies
+both.  A train cell with accum > 1 runs one microbatch (``global_batch /
+accum`` rows) through ``make_train_step(accum=1)`` and counts accum × (that
+step less AdamW and the compute copy) + AdamW + the compute copy + the
+accumulation's sums, which is what the step with ``accum`` microbatches
+dispatches.
 """
 from __future__ import annotations
 
@@ -364,7 +366,10 @@ def count_cell(cell: Cell) -> tuple:
     return c.flops, c.bytes, c.peak, outs
   oc = opt_mod.AdamWConfig()
   step = steps_mod.make_train_step(cfg, oc, accum=1, impl="xla",
-                                   remat=cell.remat)
+                                   remat=cell.remat,
+                                   grad_specs=cell.param_specs,
+                                   zero2=cell.zero2,
+                                   grad_comm_bf16=cell.grad_comm_bf16)
   outs, c = _counted(lambda: step(*cell.args))
   if cell.accum == 1:
     return c.flops, c.bytes, c.peak, outs
@@ -376,9 +381,16 @@ def count_cell(cell: Cell) -> tuple:
                                                    cell.args[0][1]))
   _, c_acc = _counted(lambda: _accumulate(opt_mod._leaves(grads),
                                           cell.accum))
+  # zero2's compute copy is made once per step, not per microbatch
+  once = [c_opt]
+  if cell.zero2:
+    once.append(_counted(lambda: steps_mod.compute_copy(params,
+                                                        cfg.dtype))[1])
   a = cell.accum
-  flops = a * (c.flops - c_opt.flops) + c_opt.flops + c_acc.flops
-  nbytes = a * (c.bytes - c_opt.bytes) + c_opt.bytes + c_acc.bytes
+  flops = (a * (c.flops - sum(o.flops for o in once))
+           + sum(o.flops for o in once) + c_acc.flops)
+  nbytes = (a * (c.bytes - sum(o.bytes for o in once))
+            + sum(o.bytes for o in once) + c_acc.bytes)
   grad_bytes = sum(g.numel() * 4 for g in opt_mod._leaves(grads))
   return flops, nbytes, c.peak + grad_bytes, outs
 

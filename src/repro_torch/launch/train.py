@@ -1,19 +1,26 @@
-"""Training driver: config → model → train loop with checkpointing, fault
-tolerance and deterministic resume, on one device.
+"""Training driver: config → mesh → sharded train loop with checkpointing,
+fault tolerance and deterministic resume.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 200 --batch 8 --seq 256 --smoke --ckpt-dir run1
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --smoke \
+        --steps 30 --batch 8 --seq 32 --device cpu --shards 8
     python -m repro_torch.launch.train --arch mixtral-8x7b --smoke \
-        --steps 30 --batch 4 --seq 32 --device cpu
-    python -m repro_torch.launch.train --arch zamba2-7b --smoke \
         --steps 30 --batch 4 --seq 32 --device cpu
 
 Counterpart of ``repro/launch/train.py``, with its flags plus ``--device``
-(default ``cuda``; ``cpu`` for the CPU) and ``--deterministic``.  It runs
-with no mesh: the reference's host mesh and parameter shardings come with
-the LM's sharding (ROADMAP item 13.6).  Every ``--ckpt-every`` steps the
-full train state is committed atomically; on restart the driver resumes
-from LATEST and the stateless data pipeline replays the exact stream.
+(default ``cuda``; ``cpu`` for the CPU), ``--shards`` and
+``--deterministic``.  As the reference does, it builds a host mesh over
+the devices of ``--device``'s type that exist (``model`` 2 when there are
+more than one), ``Parallelism(data_axes=("data",), tp_size=<model>)``, and
+places the f32 master and both AdamW moments by ``specs_like``
+(``train/sharded.py``); the step gets none of the mesh knobs.
+``--shards N`` builds a virtual mesh of N shards of ``--device`` instead
+(the counterpart of the reference's
+``XLA_FLAGS=--xla_force_host_platform_device_count``).  Every
+``--ckpt-every`` steps the full train state is gathered and committed
+atomically; on restart the driver resumes from LATEST, on whatever mesh it
+runs, and the stateless data pipeline replays the exact stream.
 ``--fail-at`` kills the process (exit code 42) at that step so tests can
 exercise the restart path.  ``--deterministic`` makes every kernel pick a
 deterministic algorithm (on the card the embedding's backward accumulates
@@ -48,6 +55,9 @@ def main(argv=None):
   ap.add_argument("--seed", type=int, default=0)
   ap.add_argument("--device", default="cuda",
                   help="torch device to train on (default: cuda)")
+  ap.add_argument("--shards", type=int, default=0,
+                  help="a virtual mesh of this many shards of --device "
+                       "(default: one shard per device present)")
   ap.add_argument("--deterministic", action="store_true",
                   help="deterministic kernels only, so a resumed run "
                        "repeats the uninterrupted one")
@@ -61,10 +71,12 @@ def main(argv=None):
   from repro_torch.analysis.sanitize import maybe_enable_sanitize
   from repro_torch.data import DataConfig, make_source
   from repro_torch.device import resolve_device
+  from repro_torch.launch import mesh as mesh_mod
+  from repro_torch.models import common as cm
   from repro_torch.models import zoo
   from repro_torch.train import (AdamWConfig, checkpoint as ckpt,
-                                 init_opt_state, make_train_step)
-  from repro_torch.train.optimizer import _leaves
+                                 make_train_step)
+  from repro_torch.train.sharded import shard_state
   if args.deterministic:
     torch.use_deterministic_algorithms(True)
   maybe_enable_sanitize()  # REPRO_SANITIZE=1: NaN checks, anomaly mode
@@ -78,25 +90,28 @@ def main(argv=None):
                                 corpus_path=args.corpus),
                      prefetch=args.prefetch)
 
-  start = 0
-  model = zoo.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                   device)
-  params = zoo.param_tree(model)
-  opt = init_opt_state(params)
-  if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-    restored, start = ckpt.restore(args.ckpt_dir,
-                                   template={"params": params, "opt": opt})
-    with torch.no_grad():
-      for dst, src in ((params, restored["params"]),
-                       (opt["m"], restored["opt"]["m"]),
-                       (opt["v"], restored["opt"]["v"])):
-        for d, s in zip(_leaves(dst), _leaves(src)):
-          d.copy_(s)
-    opt["step"] = restored["opt"]["step"]
-    print(f"[train] resumed from step {start}")
+  if args.shards:
+    mesh = mesh_mod.make_host_mesh(model=2 if args.shards > 1 else 1,
+                                   devices=[device] * args.shards)
+  else:
+    n_dev = len(mesh_mod.available_devices(args.device))
+    mesh = mesh_mod.make_host_mesh(model=2 if n_dev > 1 else 1,
+                                   device=args.device)
+  par = cm.Parallelism(data_axes=("data",), tp_size=mesh.shape["model"])
 
-  step_fn = make_train_step(cfg, oc, accum=args.accum)
-  state = (model, opt)
+  start = 0
+  home = mesh.devices[0][0]
+  params = zoo.param_tree(zoo.init(
+      cfg, torch.Generator(device=home).manual_seed(args.seed), home))
+  state = shard_state(params, cm.specs_like(params, cfg, par), mesh)
+  del params
+  if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+    state, start = ckpt.restore(args.ckpt_dir, template=state)
+    print(f"[train] resumed from step {start}")
+  print(f"[train] mesh data={mesh.shape['data']} x "
+        f"model={mesh.shape['model']} on {mesh.device_type}", flush=True)
+
+  step_fn = make_train_step(cfg, oc, accum=args.accum, mesh=mesh)
   checkpointer = (ckpt.AsyncCheckpointer(args.ckpt_dir)
                   if args.ckpt_dir and args.async_ckpt else None)
   t0 = time.time()
@@ -116,11 +131,10 @@ def main(argv=None):
             f"gnorm={float(metrics['grad_norm']):.2f} tok/s={tok_s:,.0f}",
             flush=True)
     if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-      payload = {"params": zoo.param_tree(state[0]), "opt": state[1]}
       if checkpointer is not None:
-        checkpointer.save(step + 1, payload)
+        checkpointer.save(step + 1, state)
       else:
-        ckpt.save(args.ckpt_dir, step + 1, payload)
+        ckpt.save(args.ckpt_dir, step + 1, state)
   if checkpointer is not None:
     checkpointer.wait()
   print("[train] done")

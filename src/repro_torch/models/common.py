@@ -8,13 +8,16 @@ draw helpers (``randn``, ``dense_init``) give empty meta tensors: a model
 built so (``zoo.init(cfg, None, device="meta")``) has every shape and
 draws and allocates nothing.
 
-The sharding rules are metadata: ``Parallelism`` assigns mesh axes,
+The sharding rules: ``Parallelism`` assigns mesh axes, and
 ``spec_for``/``specs_like`` give each parameter a spec — a plain tuple with
 one entry per dimension, each an axis name, a tuple of names or ``None``,
-as ``models/pipeline.py`` takes them — and the dry run
-(``launch/dryrun.py``) reads them to size each device's share.  The port's
-runnable mesh is single-controller and no tensor carries a sharding, so
-``constrain_acts`` and ``constrain`` return their input unchanged.
+as ``models/pipeline.py`` takes them.  The dry run (``launch/dryrun.py``)
+reads them to size each device's share, and training on a mesh
+(``train/sharded.py``) cuts the f32 master, both AdamW moments and the
+gradient sums by them over the data and model axes.  The model axis
+shards storage only: a data line runs its forward and backward whole on
+one device, so no activation is sharded, and ``constrain_acts`` and
+``constrain`` return their input unchanged.
 """
 from __future__ import annotations
 
@@ -119,9 +122,10 @@ class Parallelism:
 # ---------------------------------------------------------------------------
 # activation-sharding constraint (Megatron-style sequence parallelism): the
 # dry run installs a spec for the residual stream; every block body calls
-# constrain_acts where the reference does.  Nothing in the port shards a
-# tensor, so both constraints return their input unchanged, installed spec
-# or not; ``act_axes`` reads the installed spec back.
+# constrain_acts where the reference does.  The port shards no activation
+# (a data line computes whole on one device), so both constraints return
+# their input unchanged, installed spec or not; ``act_axes`` reads the
+# installed spec back.
 # ---------------------------------------------------------------------------
 
 _ACT_SPEC: list = [None]

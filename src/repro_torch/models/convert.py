@@ -19,9 +19,6 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models import encdec as encdec_mod
-from repro_torch.models import hybrid as hybrid_mod
-from repro_torch.models import transformer as tf_mod
 from repro_torch.models import zoo
 
 
@@ -56,13 +53,10 @@ def from_reference(tree: dict, cfg: cm.ModelConfig, device=DEFAULT_DEVICE):
   if cfg.family == "encdec":
     params["enc"] = _layers(tree["enc"], cfg.enc_layers, cfg, dev)
     params["dec"] = _layers(tree["dec"], cfg.dec_layers, cfg, dev)
-    return encdec_mod.EncDecLM(cfg, params)
+    return zoo.from_params(cfg, params)
   params["blocks"] = _layers(
       tree["blocks"], cfg.n_layers, cfg, dev,
       "ln_norm_scale" if cfg.family in ("ssm", "hybrid") else "ln1_norm_scale")
   if cfg.family == "hybrid":
     params["shared"] = _layer(tree["shared"], None, cfg, dev)
-    return hybrid_mod.HybridLM(cfg, params)
-  if cfg.family == "ssm":
-    return zoo.SSMLM(cfg, params)
-  return tf_mod.TransformerLM(cfg, params)
+  return zoo.from_params(cfg, params)

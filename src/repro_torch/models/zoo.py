@@ -133,16 +133,29 @@ def init(cfg: cm.ModelConfig, generator: Optional[torch.Generator],
     raise ValueError("with no generator the weights are not drawn: only "
                      "device='meta' builds such a model")
   if cfg.family == "ssm":
-    return SSMLM(cfg, init_ssm_lm_params(generator, cfg)).to(dev)
+    params = init_ssm_lm_params(generator, cfg)
+  elif cfg.family == "hybrid":
+    params = hybrid_mod.init_hybrid_params(generator, cfg)
+  elif cfg.family == "encdec":
+    params = encdec_mod.init_encdec_params(generator, cfg)
+  else:
+    tf_mod.check_family(cfg)
+    params = tf_mod.init_lm_params(generator, cfg)
+  return from_params(cfg, params).to(dev)
+
+
+def from_params(cfg: cm.ModelConfig, params: dict) -> nn.Module:
+  """The module of ``cfg``'s family over ``params`` (``param_tree``'s
+  layout): its parameters are those tensors themselves, not copies, on
+  whatever device they lie."""
+  if cfg.family == "ssm":
+    return SSMLM(cfg, params)
   if cfg.family == "hybrid":
-    return hybrid_mod.HybridLM(
-        cfg, hybrid_mod.init_hybrid_params(generator, cfg)).to(dev)
+    return hybrid_mod.HybridLM(cfg, params)
   if cfg.family == "encdec":
-    return encdec_mod.EncDecLM(
-        cfg, encdec_mod.init_encdec_params(generator, cfg)).to(dev)
+    return encdec_mod.EncDecLM(cfg, params)
   tf_mod.check_family(cfg)
-  params = tf_mod.init_lm_params(generator, cfg)
-  return tf_mod.TransformerLM(cfg, params).to(dev)
+  return tf_mod.TransformerLM(cfg, params)
 
 
 def forward(model: nn.Module, cfg: cm.ModelConfig, batch: dict, *,

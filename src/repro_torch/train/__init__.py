@@ -1,4 +1,5 @@
-"""Training substrate: optimizer, steps, checkpointing (one device)."""
+"""Training substrate: optimizer, steps, checkpointing, on one device or a
+mesh (``sharded``)."""
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.train.steps import (make_decode_step, make_prefill_step,
                                      make_train_step, xent_loss)

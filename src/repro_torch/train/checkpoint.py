@@ -15,8 +15,12 @@ per-layer dicts (the port's ``blocks``, an enc-dec model's ``enc`` and
 ``dec``) is written as the reference's
 stacked leaves (``params/blocks/attn/wq`` of shape (L, ...)), so either
 package reads the other's checkpoint of the same arrays.  The port runs
-one process and writes ``shard_p0.npz``.  The data pipeline is stateless
-(step-indexed), so params + optimizer state + step is the whole state.
+one process and writes ``shard_p0.npz``.  A ``train.sharded.ShardedState``
+is saved as the same tree ({'params', 'opt': {'m', 'v', 'step'}}), each
+leaf gathered to the host, so a checkpoint does not depend on the mesh it
+was written from; restoring with a sharded template cuts the leaves onto
+that template's mesh.  The data pipeline is stateless (step-indexed), so
+params + optimizer state + step is the whole state.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.train import sharded
+from repro_torch.train.optimizer import tree_map
+
 
 def _host(v) -> np.ndarray:
   if isinstance(v, torch.Tensor):
@@ -38,6 +45,8 @@ def _host(v) -> np.ndarray:
 
 def _flatten(tree, prefix: str = "") -> dict:
   """path → array; a list of layer dicts becomes stacked leaves."""
+  if isinstance(tree, sharded.ShardedState):
+    tree = tree.gathered("cpu")
   if isinstance(tree, dict):
     out = {}
     for k, v in tree.items():
@@ -61,18 +70,23 @@ def _unflatten(flat: dict) -> dict:
   return root
 
 
-def _fit(template, value):
+def _fit(template, value, device=None):
   """``value`` (the reference's layout, numpy) in ``template``'s shape: a
   list of layers is split along the leading axis, a tensor leaf becomes a
-  tensor of the template's dtype on its device."""
+  tensor of the template's dtype on its device (or on ``device``)."""
   if isinstance(template, dict):
-    return {k: _fit(t, value[k]) for k, t in template.items()}
+    return {k: _fit(t, value[k], device) for k, t in template.items()}
   if isinstance(template, (list, tuple)):
-    return [_fit(t, _layer(value, i)) for i, t in enumerate(template)]
+    return [_fit(t, _layer(value, i), device)
+            for i, t in enumerate(template)]
   if isinstance(template, torch.Tensor):
-    return torch.as_tensor(np.asarray(value)).to(template.device,
+    return torch.as_tensor(np.asarray(value)).to(device or template.device,
                                                  template.dtype)
   return np.asarray(value, getattr(template, "dtype", None))
+
+
+def _shapes(x: "sharded.Sharded") -> torch.Tensor:
+  return torch.empty(x.shape, dtype=x.dtype, device="meta")
 
 
 def _layer(tree, i: int):
@@ -152,8 +166,9 @@ class AsyncCheckpointer:
 
 def restore(ckpt_dir: str, template: Any = None, step: Optional[int] = None):
   """Returns (state, step).  ``template`` (a matching tree, layer lists
-  included) restores its layout, dtypes and devices; without it, numpy
-  arrays in the reference's stacked layout are returned."""
+  included) restores its layout, dtypes and devices, or a ``ShardedState``
+  its mesh and specs; without it, numpy arrays in the reference's stacked
+  layout are returned."""
   if step is None:
     step = latest_step(ckpt_dir)
     if step is None:
@@ -164,6 +179,14 @@ def restore(ckpt_dir: str, template: Any = None, step: Optional[int] = None):
   with np.load(os.path.join(path, "shard_p0.npz")) as z:
     flat = {k: z[k] for k in z.files}
   state = _unflatten(flat)
+  if isinstance(template, sharded.ShardedState):
+    shapes = {"params": tree_map(_shapes, template.master),
+              "opt": {"m": tree_map(_shapes, template.m),
+                      "v": tree_map(_shapes, template.v),
+                      "step": template.step}}
+    host = _fit(shapes, state, "cpu")
+    return sharded.shard_state(host["params"], template.specs, template.mesh,
+                               host["opt"]), meta["step"]
   if template is not None:
     state = _fit(template, state)
   return state, meta["step"]

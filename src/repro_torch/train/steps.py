@@ -9,16 +9,31 @@ Counterpart of ``repro/train/steps.py``.  ``make_train_step`` builds a
     — the compute/memory knob at fixed global batch),
   * AdamW with global-norm clip (``train.optimizer``).
 
-The state is (model, opt_state): the model's parameters are the f32
-master, the forward computes in ``cfg.dtype`` by casting them at each use,
-and the gradients come back through those casts in f32.  The step runs on
-one device; the reference's mesh knobs (``grad_specs``, ``zero2``,
-``grad_comm_bf16``) are ROADMAP item 13.6 and accepted only at their
-no-mesh defaults.  ``make_prefill_step`` / ``make_decode_step`` are the
-two serving steps, for every family's cache (dense, MoE, VLM and the
-enc-dec decoder's KV, SSM state, hybrid both).  A batch carries
-``src_embeds`` for the enc-dec family (its source frames) and, in an
-enc-dec decode, the encoder output ``enc_out``.
+The state is (model, opt_state) on one device: the model's parameters are
+the f32 master, the forward computes in ``cfg.dtype`` by casting them at
+each use, and the gradients come back through those casts in f32.  The
+reference's mesh knobs keep its semantics there: ``grad_specs`` changes
+nothing (a sharding constraint on one device), ``zero2`` (only with
+``grad_specs``) differentiates with respect to ``cfg.dtype`` casts of the
+master made once per step, and ``grad_comm_bf16`` rounds each
+microbatch's gradients to bf16 and back before they are added up.
+
+On a mesh (``mesh=``) the state is a ``train.sharded.ShardedState``: the
+f32 master, both moments and the gradient sums are cut by the parameters'
+specs over both axes.  Each microbatch's rows split over the ``data``
+axis, and line i runs its rows forward and backward whole on its first
+shard, ``mesh.devices[i][0]`` — the ``model`` axis shards storage, not
+compute.  The line gathers the f32 master for every microbatch (ZeRO-3),
+or under ``zero2`` the ``cfg.dtype`` copy once per step; its gradients are
+reduce-scattered into the master's pieces and summed in f32 on their
+owners (rounded to bf16 for the copy under ``grad_comm_bf16``); AdamW runs
+piece by piece.  The loss is the global masked mean; the MoE aux is the
+mean of the lines' (the reference takes its fractions over the whole
+batch).  ``make_prefill_step`` / ``make_decode_step`` are the two serving
+steps, for every family's cache (dense, MoE, VLM and the enc-dec decoder's
+KV, SSM state, hybrid both).  A batch carries ``src_embeds`` for the
+enc-dec family (its source frames) and, in an enc-dec decode, the encoder
+output ``enc_out``.
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import torch
 from repro_torch.models import common as cm
 from repro_torch.models import zoo
 from repro_torch.train import optimizer as opt_mod
+from repro_torch.train import sharded
 
 Tensor = torch.Tensor
 
@@ -36,15 +52,24 @@ Tensor = torch.Tensor
 TRAIN_IMPLS = ("xla", "xla_autodiff")
 
 
-def xent_loss(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
-  """Mean next-token cross-entropy in f32; labels outside [0, vocab) (pad
-  ids) are masked."""
+def _mask(labels: Tensor, vocab: int) -> Tensor:
+  return ((labels >= 0) & (labels < vocab)).float()
+
+
+def xent_sum(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
+  """Σ next-token cross-entropy · mask in f32; labels outside [0, vocab)
+  (pad ids) are masked."""
   logits = logits.float()
   logz = torch.logsumexp(logits, dim=-1)
   idx = labels.long().clamp(0, logits.shape[-1] - 1)
   gold = torch.gather(logits, -1, idx[..., None])[..., 0]
-  mask = ((labels >= 0) & (labels < vocab)).float()
-  return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+  return torch.sum((logz - gold) * _mask(labels, vocab))
+
+
+def xent_loss(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
+  """Mean next-token cross-entropy in f32 over the unmasked labels."""
+  return xent_sum(logits, labels, vocab) / torch.clamp(
+      _mask(labels, vocab).sum(), min=1.0)
 
 
 def loss_fn(model, cfg: cm.ModelConfig, batch: dict, *, impl: str = "xla",
@@ -57,34 +82,53 @@ def loss_fn(model, cfg: cm.ModelConfig, batch: dict, *, impl: str = "xla",
   return loss + 0.01 * aux, (loss, aux)
 
 
+def compute_copy(params, dtype: torch.dtype):
+  """``dtype`` casts of the floating leaves of a parameter tree, detached
+  (``zero2``'s compute copy)."""
+  return opt_mod.tree_map(
+      lambda p: p.detach().to(dtype) if p.is_floating_point() else p.detach(),
+      params)
+
+
 def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
                     accum: int = 1, impl: str = "xla", remat: str = "none",
                     grad_specs=None, zero2: bool = False,
-                    grad_comm_bf16: bool = False):
-  """Returns train_step((model, opt_state), batch) → (state, metrics).
+                    grad_comm_bf16: bool = False, mesh=None):
+  """Returns train_step(state, batch) → (state, metrics).
 
-  The step turns gradients on for the model's parameters (the f32 master),
-  moves the batch to the model's device, runs ``accum`` microbatches of
+  With no ``mesh`` the state is (model, opt_state): the step turns
+  gradients on for the model's parameters (the f32 master), moves the
+  batch to the model's device, runs ``accum`` microbatches of
   ``batch_size / accum`` rows one after another, summing their f32
   gradients, then averages them and applies ``adamw_update`` in place.
-  Metrics are device tensors: ``loss``, ``aux_loss``, ``grad_norm``,
-  ``lr``.
+  On a ``launch.mesh.Mesh`` the state is a ``ShardedState`` on that mesh
+  (``train.sharded.shard_state``), updated in place; ``grad_specs``, when
+  given, must be its specs.  Metrics are device tensors: ``loss``,
+  ``aux_loss``, ``grad_norm``, ``lr``.
   """
   if impl not in TRAIN_IMPLS:
     raise ValueError(
         f"make_train_step trains on impl in {TRAIN_IMPLS}, got {impl!r}: "
         f"K3 and K4 are forward kernels with no backward, as the "
         f"reference's Pallas arms cannot be differentiated")
-  if grad_specs is not None or zero2 or grad_comm_bf16:
-    raise NotImplementedError(
-        "grad_specs, zero2 and grad_comm_bf16 shard gradients over a mesh: "
-        "the LM's sharding is ROADMAP item 13.6; the port's train step "
-        "runs on one device")
   if accum < 1:
     raise ValueError(f"accum must be >= 1, got {accum}")
+  # as in the reference, zero2 acts only with gradient specs to pin
+  zero2 = zero2 and grad_specs is not None
 
-  def grads_of(model, leaves, mb):
-    tot, (loss, aux) = loss_fn(model, cfg, mb, impl=impl, remat=remat)
+  def grads_of(model, mb, count=None, aux_weight=1.0):
+    """(f32 gradients of the model's leaves, loss, aux) of one batch; the
+    loss is Σ nll·mask over ``count`` (its own mask count by default)."""
+    leaves = opt_mod._leaves(zoo.param_tree(model))
+    for p in leaves:
+      p.requires_grad_(True)
+    if count is None:
+      tot, (loss, aux) = loss_fn(model, cfg, mb, impl=impl, remat=remat)
+    else:
+      logits, _, aux = zoo.forward(model, cfg, mb, mode="train", impl=impl,
+                                   remat=remat)
+      loss = xent_sum(logits[:, :-1], mb["labels"][:, 1:], cfg.vocab) / count
+      tot = loss + 0.01 * aux * aux_weight
     # a leaf the batch does not reach (the embedding, when the batch
     # carries embeddings) has a zero gradient, as under jax.grad
     grads = torch.autograd.grad(tot, leaves, allow_unused=True)
@@ -92,38 +136,76 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
              else g.float() for p, g in zip(leaves, grads)],
             loss.detach(), aux.detach())
 
+  def split(batch, b: int, parts: int, what: str) -> list:
+    if b % parts:
+      raise ValueError(f"batch of {b} rows does not split into {parts} "
+                       f"{what}")
+    n = b // parts
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(parts)]
+
   def train_step(state, batch):
     model, opt_state = state
     params = zoo.param_tree(model)
-    leaves = opt_mod._leaves(params)
-    for p in leaves:
-      p.requires_grad_(True)
-    dev = leaves[0].device
+    dev = opt_mod._leaves(params)[0].device
     batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-    b = batch["tokens"].shape[0]
-    if b % accum:
-      raise ValueError(f"batch of {b} rows does not split into {accum} "
-                       f"microbatches")
-    if accum == 1:
-      grads, loss, aux = grads_of(model, leaves, batch)
-    else:
-      grads = loss = aux = None
-      for i in range(accum):
-        rows = slice(i * (b // accum), (i + 1) * (b // accum))
-        g, l_i, a_i = grads_of(model, leaves,
-                               {k: v[rows] for k, v in batch.items()})
-        if grads is None:
-          grads, loss, aux = g, l_i, a_i
-        else:
-          grads = [x + y for x, y in zip(grads, g)]
-          loss, aux = loss + l_i, aux + a_i
+    # zero2: differentiate wrt the compute copy, made once per step
+    fwd = zoo.from_params(cfg, compute_copy(params, cfg.dtype)) if zero2 \
+        else model
+    grads = loss = aux = None
+    for mb in split(batch, batch["tokens"].shape[0], accum, "microbatches"):
+      g, l_i, a_i = grads_of(fwd, mb)
+      if grad_comm_bf16:
+        g = [x.to(torch.bfloat16).float() for x in g]
+      if grads is None:
+        grads, loss, aux = g, l_i, a_i
+      else:
+        grads = [x + y for x, y in zip(grads, g)]
+        loss, aux = loss + l_i, aux + a_i
+    if accum > 1:
       grads = [g / accum for g in grads]
       loss, aux = loss / accum, aux / accum
     grad_tree = _unflatten_like(params, iter(grads))
     _, new_opt, om = opt_mod.adamw_update(oc, params, grad_tree, opt_state)
     return (model, new_opt), {"loss": loss, "aux_loss": aux, **om}
 
-  return train_step
+  def mesh_step(state, batch):
+    if not isinstance(state, sharded.ShardedState) or state.mesh != mesh:
+      raise TypeError("a train step on a mesh takes a ShardedState on that "
+                      "mesh (train.sharded.shard_state)")
+    if grad_specs is not None and grad_specs != state.specs:
+      raise ValueError("grad_specs must equal the state's specs: the "
+                       "gradients land in the master's layout")
+    lines = [row[0] for row in mesh.devices]
+    dev0 = lines[0]
+    models = ([zoo.from_params(cfg, sharded.gather_tree(state.master, d,
+                                                        cfg.dtype))
+               for d in lines] if zero2 else None)
+    acc = sharded.empty_like_tree(state.master)
+    loss = aux = 0.0
+    for mb in split(batch, batch["tokens"].shape[0], accum, "microbatches"):
+      # the global masked mean: every line divides by the microbatch's count
+      count = torch.clamp(_mask(mb["labels"][:, 1:], cfg.vocab).sum(),
+                          min=1.0)
+      rows = split(mb, mb["tokens"].shape[0], len(lines), "data lines")
+      for i, dev in enumerate(lines):
+        sub = {k: v.to(dev, non_blocking=True) for k, v in rows[i].items()}
+        fwd = models[i] if zero2 else zoo.from_params(
+            cfg, sharded.gather_tree(state.master, dev))  # ZeRO-3
+        g, l_i, a_i = grads_of(fwd, sub, count.to(dev), 1.0 / len(lines))
+        sharded.reduce_scatter(acc, g, bf16=grad_comm_bf16)
+        del g, fwd
+        loss = loss + l_i.to(dev0)
+        aux = aux + a_i.to(dev0) / len(lines)
+    if accum > 1:
+      for x in opt_mod._leaves(acc):
+        for piece in x.pieces.values():
+          piece.div_(accum)
+      loss, aux = loss / accum, aux / accum
+    _, _, om = opt_mod.adamw_update(oc, state, acc)
+    return state, {"loss": loss, "aux_loss": aux, **om}
+
+  return train_step if mesh is None else mesh_step
 
 
 def _unflatten_like(tree, leaves):

@@ -225,3 +225,52 @@ def test_apsp_squaring_closed_forms():
       row["t_step_xla_vector"] / row["t_step_pallas_vpu"])
   single = dryrun_apsp.run(v, "single")
   assert single["chips"] == 256 and math.isfinite(single["solve_bound_s"])
+
+
+@pytest.mark.parametrize("arch", ("tinyllama-1.1b", "mamba2-780m"))
+def test_grad_comm_bf16_counts_the_rounding_casts(arch):
+  """A train cell's counted bytes grow by the rounding casts under
+  --grad-comm-bf16 — each f32 gradient rounded to bf16 (4 bytes read, 2
+  written) and back (2 read, 4 written), once per microbatch — and its
+  FLOPs do not."""
+  plain = _smoke_cell(arch, "train", accum=1, remat="full")
+  dryrun.count_cell(plain)  # warms the RoPE frequency cache
+  f0, b0, _, _ = dryrun.count_cell(plain)
+  comm = _smoke_cell(arch, "train", accum=1, remat="full",
+                     grad_comm_bf16=True)
+  f1, b1, _, _ = dryrun.count_cell(comm)
+  n = sum(t.numel() for t in cm.tree_paths(
+      zoo.param_tree(plain.model)).values())
+  assert f1 == f0
+  assert b1 - b0 == 12 * n
+  accum2 = _smoke_cell(arch, "train", accum=2, remat="full",
+                       grad_comm_bf16=True)
+  plain2 = _smoke_cell(arch, "train", accum=2, remat="full")
+  assert (dryrun.count_cell(accum2)[1] - dryrun.count_cell(plain2)[1]
+          == 2 * 12 * n)
+
+
+def test_knobs_scale_one_microbatch_to_the_whole_step():
+  """With grad_specs, zero2 and grad_comm_bf16, one microbatch scaled to
+  accum 2 (the compute copy counted once) is what make_train_step(accum=2)
+  with the same knobs dispatches on the whole batch."""
+  cell = _smoke_cell("tinyllama-1.1b", "train", accum=2, remat="full",
+                     zero2=True, grad_comm_bf16=True)
+  dryrun.count_cell(cell)
+  flops, nbytes, _, _ = dryrun.count_cell(cell)
+  cfg = cell.cfg
+  model = sp.init_meta(cfg)
+  state = (model, opt_mod.init_opt_state(zoo.param_tree(model)))
+  batch = sp.batch_shapes(cfg, cell.shape)
+  step = steps_mod.make_train_step(cfg, opt_mod.AdamWConfig(), accum=2,
+                                   remat="full",
+                                   grad_specs=cell.param_specs, zero2=True,
+                                   grad_comm_bf16=True)
+  with CostCounter() as c:
+    step(state, batch)
+  assert flops == c.flops
+  assert nbytes == c.bytes
+  # the compute copy: every f32 leaf read once and written in bf16, once
+  plain = _smoke_cell("tinyllama-1.1b", "train", accum=2, remat="full",
+                      grad_comm_bf16=True)
+  assert nbytes != dryrun.count_cell(plain)[1]

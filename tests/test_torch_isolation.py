@@ -1,5 +1,6 @@
 """The port stands alone: no file under src/repro_torch/, nor chip_smoke.py,
-imports JAX or anything of the reference package ``repro``."""
+nor the port's examples (examples/torch_*.py), imports JAX or anything of
+the reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -31,7 +32,8 @@ def test_the_scan_covers_the_port():
   names = {p.name for p in FILES}
   assert {"semiring.py", "mmo.py", "closure.py", "engine.py",
           "attention.py", "flash_attention.py", "serve.py", "ssm.py",
-          "ssd.py", "chip_smoke.py"} <= names
+          "ssd.py", "chip_smoke.py", "sharded.py",
+          "torch_quickstart.py", "torch_train_lm.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

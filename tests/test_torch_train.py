@@ -428,14 +428,6 @@ def test_pallas_is_refused_in_training(arch):
   assert logits.grad_fn is None
 
 
-@pytest.mark.parametrize("knob", [dict(grad_specs={}), dict(zero2=True),
-                                  dict(grad_comm_bf16=True)])
-def test_mesh_knobs_are_refused(knob):
-  _, tcfg = _cfgs("tinyllama-1.1b")
-  with pytest.raises(NotImplementedError, match="13.6"):
-    tsteps.make_train_step(tcfg, topt.AdamWConfig(), **knob)
-
-
 def test_serving_builds_no_autograd_graph():
   _, tcfg, _, model = _models("tinyllama-1.1b")
   _, tb = _batch(tcfg.vocab)

@@ -1,0 +1,646 @@
+"""The port's training on a mesh (``train/sharded.py``, ``make_train_step``
+with ``mesh=`` and the three knobs, sharded AdamW and checkpoints, the
+driver's ``--shards``) on the CPU.
+
+The port runs on ``make_host_mesh(8, model=2, devices=["cpu"] * 8)``, a
+(4, 2) mesh of CPU shards, and is held to the reference's
+``make_train_step`` jitted on a ``jax.sharding.Mesh`` of 8 host devices
+shaped (4, 2) (Auto axes; ``jax.make_mesh``'s Explicit axes are refused by
+the reference under JAX 0.9.0), with the parameters and both moments
+placed by ``specs_like`` and the batch's rows sharded over "data".  The
+reference runs once per module in a subprocess with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8``: tinyllama under
+every knob, and the MoE, SSM, hybrid and enc-dec families with
+``grad_specs``, three steps each on the same weights (the reference's
+``zoo.init``, carried over by ``convert.from_reference``) and the same
+numpy batches.
+
+Tolerances are tests/test_torch_train.py's: the loss rtol 1e-5 in f32 and
+2e-2 in bf16, the grad norm 1e-5 and 5e-2, the parameters after the first
+step within 2·lr.  The MoE aux is the mean of the lines' (a declared
+difference: the reference's router takes its fractions over the whole
+batch), so mixtral's aux, grad norm and later losses are held to the
+port's one-device step at accum = 4, the number of data lines, and its
+first loss to the reference's.
+"""
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import Mesh, PartitionSpec  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import common as jcm  # noqa: E402
+from repro.models import zoo as jzoo  # noqa: E402
+from repro.train import make_train_step as jmake_train_step  # noqa: E402
+from repro.train import optimizer as jopt  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch.dryrun import (_leaves_with_specs,  # noqa: E402
+                                       local_bytes)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import common as tcm  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import zoo as tzoo  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import sharded  # noqa: E402
+from repro_torch.train import steps as tsteps  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+STEPS, ROWS, SEQ, LR = 3, 8, 32, 1e-3
+# name → (arch, dtype, (grad_specs, zero2, grad_comm_bf16), accum)
+CASES = {
+    "tiny_plain": ("tinyllama-1.1b", "bf16", (0, 0, 0), 1),
+    "tiny_specs": ("tinyllama-1.1b", "bf16", (1, 0, 0), 1),
+    "tiny_zero2": ("tinyllama-1.1b", "bf16", (1, 1, 0), 1),
+    "tiny_comm": ("tinyllama-1.1b", "bf16", (1, 0, 1), 1),
+    "tiny_all_accum2": ("tinyllama-1.1b", "bf16", (1, 1, 1), 2),
+    "mixtral": ("mixtral-8x7b", "f32", (1, 0, 0), 1),
+    "mamba2": ("mamba2-780m", "f32", (1, 0, 0), 1),
+    "zamba2": ("zamba2-7b", "f32", (1, 0, 0), 1),
+    "seamless": ("seamless-m4t-large-v2", "f32", (1, 0, 0), 1),
+}
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"f32": (1e-5, 1e-5), "bf16": (2e-2, 5e-2)}  # (loss, grad norm)
+
+_SCRIPT = textwrap.dedent("""
+    import os, sys
+    # two cores: the reference's compiles would take every core the
+    # tier-1 run's other workers are timing on
+    os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:2])
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro import configs
+    from repro.models import common as cm
+    from repro.models import zoo
+    from repro.train import make_train_step, optimizer as jopt
+
+    STEPS, ROWS, SEQ, LR = {steps}, {rows}, {seq}, {lr}
+    CASES = {cases}
+    DT = {{"f32": jnp.float32, "bf16": jnp.bfloat16}}
+
+    def batch(cfg, t):
+      rng = np.random.default_rng(100 + t)
+      toks = rng.integers(0, cfg.vocab, (ROWS, SEQ), dtype=np.int32)
+      b = {{"tokens": toks, "labels": toks}}
+      if cfg.family == "encdec":
+        b["src_embeds"] = rng.standard_normal(
+            (ROWS, cfg.src_len, cfg.d_model)).astype(np.float32)
+      return b
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+    par = cm.Parallelism(data_axes=("data",), tp_size=2)
+    out = {{}}
+    for name, (arch, dt, (gs, z2, cb), accum) in CASES.items():
+      cfg = configs.get_config(arch, smoke=True).replace(dtype=DT[dt])
+      params = zoo.init(cfg, jax.random.PRNGKey(0))
+      specs = cm.specs_like(params, cfg, par)
+      ns = lambda s: jax.tree.map(lambda sp: NamedSharding(mesh, sp), s,
+                                  is_leaf=lambda x: isinstance(x, P))
+      oc = jopt.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
+      step = make_train_step(cfg, oc, accum=accum,
+                             grad_specs=specs if gs else None,
+                             zero2=bool(z2), grad_comm_bf16=bool(cb))
+      with mesh:
+        state = (jax.device_put(params, ns(specs)),
+                 jax.device_put(jopt.init_opt_state(params),
+                                ns({{"m": specs, "v": specs, "step": P()}})))
+        fn = jax.jit(step)
+        for t in range(STEPS):
+          b = jax.device_put(batch(cfg, t), NamedSharding(mesh, P("data")))
+          state, m = fn(state, b)
+          for k in ("loss", "aux_loss", "grad_norm", "lr"):
+            out[f"{{name}}/{{t}}/{{k}}"] = np.asarray(m[k], np.float64)
+          if t == 0:
+            for i, leaf in enumerate(jax.tree.leaves(state[0])):
+              out[f"{{name}}/p/{{i}}"] = np.asarray(leaf, np.float32)
+    np.savez(sys.argv[1], **out)
+""")
+
+
+# the smoke sizes gain nothing from more threads, and the tier-1 run's
+# workers share the host's cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+  out = tmp_path_factory.mktemp("train_mesh") / "ref.npz"
+  script = _SCRIPT.format(steps=STEPS, rows=ROWS, seq=SEQ, lr=LR,
+                          cases=repr(CASES))
+  env = dict(os.environ, PYTHONPATH=SRC, **ONE_THREAD)
+  r = subprocess.run([sys.executable, "-c", script, str(out)],
+                     capture_output=True, text=True, env=env, timeout=900)
+  assert r.returncode == 0, r.stderr[-3000:]
+  with np.load(out) as z:
+    return {k: z[k] for k in z.files}
+
+
+# --- helpers -----------------------------------------------------------------
+
+
+def _mesh():
+  return make_host_mesh(8, model=2, devices=["cpu"] * 8)
+
+
+def _par(mesh):
+  return tcm.Parallelism(data_axes=("data",), tp_size=mesh.shape["model"])
+
+
+def _batch(cfg, t):
+  """The reference script's batch of step ``t``."""
+  rng = np.random.default_rng(100 + t)
+  toks = rng.integers(0, cfg.vocab, (ROWS, SEQ), dtype=np.int32)
+  b = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)}
+  if cfg.family == "encdec":
+    b["src_embeds"] = torch.from_numpy(rng.standard_normal(
+        (ROWS, cfg.src_len, cfg.d_model)).astype(np.float32))
+  return b
+
+
+def _model(arch, dtype="f32"):
+  """(torch cfg, the port model with the reference's zoo.init(key 0)
+  weights, the reference's parameters)."""
+  jd, td = DTYPES[dtype]
+  jcfg = jconfigs.get_config(arch, smoke=True).replace(dtype=jd)
+  tcfg = tconfigs.get_config(arch, smoke=True).replace(dtype=td)
+  jparams = jzoo.init(jcfg, jax.random.PRNGKey(0))
+  model = convert.from_reference(jax.tree.map(np.asarray, jparams), tcfg,
+                                 device="cpu")
+  return tcfg, model, jparams
+
+
+def _oc():
+  return topt.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
+
+
+def _sharded(tcfg, model, mesh):
+  params = tzoo.param_tree(model)
+  specs = tcm.specs_like(params, tcfg, _par(mesh))
+  return sharded.shard_state(params, specs, mesh), specs
+
+
+def _stacked(tree):
+  """A port parameter tree in the reference's stacked layout, as numpy,
+  in jax.tree.leaves order."""
+  def stack(t):
+    if isinstance(t, dict):
+      return {k: stack(v) for k, v in t.items()}
+    if isinstance(t, list):
+      return jax.tree.map(lambda *xs: np.stack(xs), *[stack(x) for x in t])
+    return t.detach().float().numpy()
+  return jax.tree.leaves(stack(tree))
+
+
+def _run(step, state, cfg, steps=STEPS):
+  out = []
+  for t in range(steps):
+    state, m = step(state, _batch(cfg, t))
+    out.append({k: float(v) for k, v in m.items()})
+  return state, out
+
+
+# --- against the reference on a (4, 2) mesh ----------------------------------
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_step_matches_the_reference(reference, name):
+  arch, dtype, (gs, z2, cb), accum = CASES[name]
+  tcfg, model, _ = _model(arch, dtype)
+  mesh = _mesh()
+  state, specs = _sharded(tcfg, model, mesh)
+  step = tsteps.make_train_step(tcfg, _oc(), accum=accum, mesh=mesh,
+                                grad_specs=specs if gs else None,
+                                zero2=bool(z2), grad_comm_bf16=bool(cb))
+  loss_tol, norm_tol = TOL[dtype]
+  first = None
+  for t in range(STEPS):
+    state, m = step(state, _batch(tcfg, t))
+    if t == 0:
+      first = _stacked(sharded.gather_tree(state.master, "cpu"))
+    want = {k: float(reference[f"{name}/{t}/{k}"])
+            for k in ("loss", "aux_loss", "grad_norm", "lr")}
+    np.testing.assert_allclose(float(m["lr"]), want["lr"], rtol=1e-6)
+    # the MoE's aux gradient is the lines' (held to accum = 4 below): its
+    # parameters move otherwise, so only its first loss is the reference's
+    if t == 0 or not tcfg.n_experts:
+      np.testing.assert_allclose(float(m["loss"]), want["loss"],
+                                 rtol=loss_tol, err_msg=f"step {t}")
+    if not tcfg.n_experts:
+      np.testing.assert_allclose(float(m["grad_norm"]), want["grad_norm"],
+                                 rtol=norm_tol, err_msg=f"step {t}")
+      assert float(m["aux_loss"]) == want["aux_loss"] == 0.0
+  for i, got in enumerate(first):
+    np.testing.assert_allclose(got, reference[f"{name}/p/{i}"],
+                               atol=2 * LR, err_msg=f"leaf {i}")
+  assert int(state.step) == STEPS
+
+
+def test_moe_aux_is_the_mean_of_the_lines():
+  """mixtral on the (4, 2) mesh: each line routes its own 2 rows, so the
+  aux (and through it the grad norm) is the port's one-device step's at
+  accum = 4; the loss equals the one-device accum = 1 step's."""
+  tcfg, model, _ = _model("mixtral-8x7b")
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, model, mesh)
+  _, got = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state, tcfg)
+  tcfg, m4, _ = _model("mixtral-8x7b")
+  _, want = _run(tsteps.make_train_step(tcfg, _oc(), accum=4),
+                 (m4, topt.init_opt_state(tzoo.param_tree(m4))), tcfg)
+  tcfg, m1, _ = _model("mixtral-8x7b")
+  _, one = tsteps.make_train_step(tcfg, _oc())(
+      (m1, topt.init_opt_state(tzoo.param_tree(m1))), _batch(tcfg, 0))
+  for g, w in zip(got, want):
+    for k in ("loss", "aux_loss", "grad_norm"):
+      np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=k)
+  assert got[0]["aux_loss"] > 0
+  np.testing.assert_allclose(got[0]["loss"], float(one["loss"]), rtol=1e-5)
+
+
+def test_the_model_axis_shards_storage_not_compute(monkeypatch):
+  """A declared difference: each data line runs its rows forward and
+  backward whole (every parameter at its full shape) on its first shard,
+  once per microbatch; the model axis cuts only the stored state."""
+  tcfg, model, _ = _model("tinyllama-1.1b")
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, model, mesh)
+  whole = {tuple(t.shape) for t in topt._leaves(tzoo.param_tree(model))}
+  calls = []
+  forward = tzoo.forward
+
+  def spy(m, cfg, batch, **kw):
+    shapes = {tuple(t.shape) for t in topt._leaves(tzoo.param_tree(m))}
+    calls.append((batch["tokens"].shape[0], shapes == whole,
+                  batch["tokens"].device))
+    return forward(m, cfg, batch, **kw)
+  monkeypatch.setattr(tzoo, "forward", spy)
+  tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh)(
+      state, _batch(tcfg, 0))
+  lines = mesh.shape["data"]
+  assert calls == [(ROWS // 2 // lines, True, torch.device("cpu"))] * (
+      2 * lines)
+
+
+# --- against the port's one-device step --------------------------------------
+
+ARCHS = ["tinyllama-1.1b", "mamba2-780m", "zamba2-7b",
+         "seamless-m4t-large-v2", "chameleon-34b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_step_equals_the_one_device_step(arch):
+  """Loss and grad norm of three f32 steps within rtol 1e-5 of the
+  one-device step on the same weights and batches, the parameters within
+  2·lr."""
+  tcfg, m1, _ = _model(arch)
+  one, want = _run(tsteps.make_train_step(tcfg, _oc()),
+                   (m1, topt.init_opt_state(tzoo.param_tree(m1))), tcfg)
+  _, m2, _ = _model(arch)
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, m2, mesh)
+  state, got = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state,
+                    tcfg)
+  for g, w in zip(got, want):
+    for k in ("loss", "grad_norm", "lr"):
+      np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=k)
+  for a, b in zip(topt._leaves(sharded.gather_tree(state.master, "cpu")),
+                  topt._leaves(tzoo.param_tree(one[0]))):
+    np.testing.assert_allclose(a.numpy(), b.detach().numpy(), atol=2 * LR)
+
+
+def test_accum_and_knobs_on_a_mesh_equal_the_one_device_step():
+  """accum 2 with grad_specs and zero2 (bf16 compute): the mesh's lines
+  differentiate the same bf16 copies as the one-device step, so the loss
+  is the one-device step's within the f32 tolerance."""
+  tcfg, m1, _ = _model("tinyllama-1.1b", "bf16")
+  params = tzoo.param_tree(m1)
+  specs = tcm.specs_like(params, tcfg, _par(_mesh()))
+  _, want = _run(tsteps.make_train_step(tcfg, _oc(), accum=2,
+                                        grad_specs=specs, zero2=True),
+                 (m1, topt.init_opt_state(params)), tcfg, steps=1)
+  _, m2, _ = _model("tinyllama-1.1b", "bf16")
+  mesh = _mesh()
+  state, specs = _sharded(tcfg, m2, mesh)
+  _, got = _run(tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh,
+                                       grad_specs=specs, zero2=True),
+                state, tcfg, steps=1)
+  np.testing.assert_allclose(got[0]["loss"], want[0]["loss"], rtol=1e-5)
+  np.testing.assert_allclose(got[0]["grad_norm"], want[0]["grad_norm"],
+                             rtol=1e-2)
+
+
+# --- the sharded state -------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b",
+                                  "zamba2-7b", "seamless-m4t-large-v2"])
+def test_pieces_have_local_bytes_and_no_whole_cut_leaf(arch):
+  """Each position holds, leaf by leaf, the piece ``local_bytes`` reckons
+  (ceil-sized, the last along a dimension shorter); no position holds a
+  whole leaf whose spec cuts it, and replicas are copies."""
+  tcfg, model, _ = _model(arch)
+  mesh = _mesh()
+  state, specs = _sharded(tcfg, model, mesh)
+  pairs = list(_leaves_with_specs(tzoo.param_tree(model), specs))
+  leaves, spec_list = [t for t, _ in pairs], [s for _, s in pairs]
+  cut = 0
+  masters = [x for x, _ in _leaves_with_specs(state.master, specs)]
+  for x, t, spec in zip(masters, leaves, spec_list, strict=True):
+    factor = max(1, _factor(spec, mesh))
+    for pos in sharded.positions(mesh):
+      p = x.pieces[pos]
+      assert p.device == mesh.devices[pos[0]][pos[1]]
+      assert p.dtype == torch.float32
+      assert torch.equal(p, t[x.box(pos)].float())
+      full = all(b.stop - b.start == -(-d // f) for b, d, f in zip(
+          x.box(pos), t.shape, _factors(spec, mesh)))
+      if full:
+        assert p.numel() * 4 == local_bytes(t.float(), spec, mesh.shape)
+      if factor > 1:
+        assert p.numel() < t.numel()
+    cut += factor > 1
+    ptrs = {p.data_ptr() for p in x.pieces.values() if p.numel()}
+    assert len(ptrs) == sum(1 for p in x.pieces.values() if p.numel())
+  assert cut > 0
+  # positions (0, 0) hold full ceil-sized pieces of every leaf
+  want = sum(local_bytes(t.float(), s, mesh.shape)
+             for t, s in zip(leaves, spec_list))
+  assert sharded.tree_local_bytes(state.master, (0, 0)) == want
+  assert want < sum(t.numel() * 4 for t in leaves) / 2
+  assert state.local_bytes((0, 0)) == 3 * want
+
+
+def _factors(spec, mesh):
+  return [int(np.prod([mesh.shape[a] for a in sharded._names(e)]))
+          for e in spec]
+
+
+def _factor(spec, mesh):
+  return int(np.prod(_factors(spec, mesh)))
+
+
+def test_a_dimension_that_does_not_divide_is_cut_ceil_sized():
+  mesh = _mesh()
+  t = torch.arange(10 * 3, dtype=torch.float32).reshape(10, 3)
+  x = sharded.shard_leaf(t, ("data", "model"), mesh)
+  rows = [x.box((i, 0))[0] for i in range(4)]
+  assert [(s.start, s.stop) for s in rows] == [(0, 3), (3, 6), (6, 9),
+                                               (9, 10)]
+  cols = [x.box((0, j))[1] for j in range(2)]
+  assert [(s.start, s.stop) for s in cols] == [(0, 2), (2, 3)]
+  assert torch.equal(sharded.gather_leaf(x, "cpu"), t)
+  # ("data", "model") on one dimension: eight pieces, data major
+  y = sharded.shard_leaf(torch.arange(16.0), (("data", "model"),), mesh)
+  assert [float(y.pieces[(i, j)][0]) for i in range(4) for j in range(2)] \
+      == [2.0 * k for k in range(8)]
+  assert torch.equal(sharded.gather_leaf(y, "cpu", torch.bfloat16),
+                     torch.arange(16.0).to(torch.bfloat16))
+  with pytest.raises(ValueError, match="axis"):
+    sharded.shard_leaf(t, ("pod", None), mesh)
+  with pytest.raises(ValueError, match="spec"):
+    sharded.shard_leaf(t, ("data",), mesh)
+
+
+def test_reduce_scatter_sums_lines_and_rounds_the_copy():
+  mesh = _mesh()
+  like = sharded.shard_tree({"w": torch.zeros(8, 4)}, {"w": ("data", None)},
+                            mesh)
+  g1, g2 = torch.randn(8, 4, dtype=torch.float64).float(), torch.randn(8, 4)
+  acc = sharded.empty_like_tree(like)
+  sharded.reduce_scatter(acc, [g1])
+  sharded.reduce_scatter(acc, [g2])
+  assert torch.equal(sharded.gather_leaf(acc["w"], "cpu"), g1 + g2)
+  # the replicas along "model" are copies of the same sum
+  assert acc["w"].pieces[(0, 0)].data_ptr() != acc["w"].pieces[(0, 1)] \
+      .data_ptr()
+  acc = sharded.empty_like_tree(like)
+  sharded.reduce_scatter(acc, [g1], bf16=True)
+  sharded.reduce_scatter(acc, [g2], bf16=True)
+  want = g1.to(torch.bfloat16).float() + g2.to(torch.bfloat16).float()
+  assert torch.equal(sharded.gather_leaf(acc["w"], "cpu"), want)
+
+
+def test_replicas_stay_equal_and_adamw_matches_one_device():
+  """Three steps on the mesh: every replica of a piece stays bit-equal, and
+  the sharded AdamW leaves the moments of the one-device update."""
+  tcfg, m1, _ = _model("tinyllama-1.1b")
+  opt1 = topt.init_opt_state(tzoo.param_tree(m1))
+  (_, opt1), _ = _run(tsteps.make_train_step(tcfg, _oc()), (m1, opt1), tcfg)
+  _, m2, _ = _model("tinyllama-1.1b")
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, m2, mesh)
+  state, _ = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state,
+                  tcfg)
+  for tree in (state.master, state.m, state.v):
+    for x in topt._leaves(tree):
+      for group in x.owners().values():
+        for pos in group[1:]:
+          assert torch.equal(x.pieces[pos], x.pieces[group[0]])
+  for name in ("m", "v"):
+    for a, b in zip(topt._leaves(sharded.gather_tree(getattr(state, name),
+                                                     "cpu")),
+                    topt._leaves(opt1[name])):
+      np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-8)
+  assert int(state.step) == int(opt1["step"]) == STEPS
+
+
+def test_grad_specs_on_a_mesh_must_be_the_states():
+  tcfg, model, _ = _model("tinyllama-1.1b")
+  mesh = _mesh()
+  state, specs = _sharded(tcfg, model, mesh)
+  other = tcm.specs_like(tzoo.param_tree(model), tcfg,
+                         tcm.Parallelism(data_axes=("data",), tp_size=2,
+                                         fsdp=False))
+  step = tsteps.make_train_step(tcfg, _oc(), mesh=mesh, grad_specs=other)
+  with pytest.raises(ValueError, match="grad_specs"):
+    step(state, _batch(tcfg, 0))
+  with pytest.raises(TypeError, match="ShardedState"):
+    tsteps.make_train_step(tcfg, _oc(), mesh=mesh)(
+        (model, topt.init_opt_state(tzoo.param_tree(model))),
+        _batch(tcfg, 0))
+  with pytest.raises(ValueError, match="data lines"):
+    tsteps.make_train_step(tcfg, _oc(), mesh=mesh)(
+        state, {k: v[:6] for k, v in _batch(tcfg, 0).items()})
+
+
+# --- the knobs on one device -------------------------------------------------
+
+KNOBS = {"specs": ((1, 0, 0), 1), "zero2": ((1, 1, 0), 1),
+         "comm": ((1, 0, 1), 1), "all_accum2": ((1, 1, 1), 2)}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_one_device_knobs_match_the_reference(knob):
+  """tinyllama in bf16, one step: the reference's step with the same knobs,
+  jitted on a (1, 1) mesh of this process's one device (its specs need a
+  mesh to name), in-process."""
+  (gs, z2, cb), accum = KNOBS[knob]
+  tcfg, model, jparams = _model("tinyllama-1.1b", "bf16")
+  jcfg = jconfigs.get_config("tinyllama-1.1b", smoke=True).replace(
+      dtype=jnp.bfloat16)
+  jspecs = jcm.specs_like(jparams, jcfg, jcm.Parallelism(
+      data_axes=("data",), tp_size=1))
+  joc = jopt.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
+  jstep = jmake_train_step(jcfg, joc, accum=accum,
+                           grad_specs=jspecs if gs else None,
+                           zero2=bool(z2), grad_comm_bf16=bool(cb))
+  b = _batch(tcfg, 0)
+  jb = {k: jnp.asarray(v.numpy()) for k, v in b.items()}
+  with Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model")):
+    (jnew, _), jm = jax.jit(jstep)((jparams, jopt.init_opt_state(jparams)),
+                                   jb)
+  tspecs = tcm.specs_like(tzoo.param_tree(model), tcfg, tcm.Parallelism(
+      data_axes=("data",), tp_size=1))
+  step = tsteps.make_train_step(tcfg, _oc(), accum=accum,
+                                grad_specs=tspecs if gs else None,
+                                zero2=bool(z2), grad_comm_bf16=bool(cb))
+  (model, _), tm = step((model, topt.init_opt_state(
+      tzoo.param_tree(model))), b)
+  np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                             rtol=2e-2)
+  np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                             rtol=5e-2)
+  for a, got in zip(jax.tree.leaves(jnew),
+                    _stacked(tzoo.param_tree(model))):
+    np.testing.assert_allclose(got, np.asarray(a, np.float32), atol=2 * LR)
+  assert isinstance(jspecs["embed"], PartitionSpec)
+
+
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["one_device", "mesh"])
+def test_zero2_without_grad_specs_is_a_no_op(on_mesh):
+  """As in the reference (``zero2 and grad_specs is not None``): the step
+  with zero2 alone is the plain step, bit for bit."""
+  tcfg, _, _ = _model("tinyllama-1.1b", "bf16")
+  runs = []
+  for kw in ({}, {"zero2": True}):
+    _, model, _ = _model("tinyllama-1.1b", "bf16")
+    if on_mesh:
+      mesh = _mesh()
+      state, _ = _sharded(tcfg, model, mesh)
+      step = tsteps.make_train_step(tcfg, _oc(), mesh=mesh, **kw)
+    else:
+      state = (model, topt.init_opt_state(tzoo.param_tree(model)))
+      step = tsteps.make_train_step(tcfg, _oc(), **kw)
+    _, ms = _run(step, state, tcfg, steps=2)
+    runs.append(ms)
+  assert runs[0] == runs[1]
+
+
+def test_zero2_differentiates_the_compute_copy():
+  """On one device with grad_specs, zero2 moves the gradients (they come
+  from bf16 leaves) and grad_comm_bf16 rounds them, as the reference's
+  do; grad_specs alone changes nothing."""
+  tcfg, _, _ = _model("tinyllama-1.1b", "bf16")
+  norms = {}
+  for label, kw in (("plain", {}), ("specs", {"grad_specs": {}}),
+                    ("zero2", {"grad_specs": {}, "zero2": True}),
+                    ("comm", {"grad_comm_bf16": True})):
+    _, model, _ = _model("tinyllama-1.1b", "bf16")
+    _, m = tsteps.make_train_step(tcfg, _oc(), **kw)(
+        (model, topt.init_opt_state(tzoo.param_tree(model))),
+        _batch(tcfg, 0))
+    norms[label] = float(m["grad_norm"])
+  assert norms["specs"] == norms["plain"]
+  assert norms["zero2"] != norms["plain"]
+  assert norms["comm"] != norms["plain"]
+  np.testing.assert_allclose(norms["zero2"], norms["plain"], rtol=5e-2)
+
+
+# --- checkpoints across meshes and the driver --------------------------------
+
+
+def test_a_checkpoint_crosses_between_a_mesh_and_one_device(tmp_path):
+  tcfg, model, _ = _model("zamba2-7b")
+  mesh = _mesh()
+  state, specs = _sharded(tcfg, model, mesh)
+  state, _ = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state,
+                  tcfg, steps=1)
+  ckpt.save(str(tmp_path / "mesh"), 1, state)
+  # on one device
+  _, other, _ = _model("zamba2-7b")
+  params = tzoo.param_tree(other)
+  back, step = ckpt.restore(str(tmp_path / "mesh"), template={
+      "params": params, "opt": topt.init_opt_state(params)})
+  assert step == 1
+  want = state.gathered("cpu")
+  for a, b in zip(topt._leaves(back), topt._leaves(want)):
+    assert torch.equal(torch.as_tensor(a), b)
+  # back onto a (2, 2) mesh from the one-device tree
+  ckpt.save(str(tmp_path / "one"), 1, back)
+  mesh22 = make_host_mesh(4, model=2, devices=["cpu"] * 4)
+  state22, _ = _sharded(tcfg, other, mesh22)
+  again, _ = ckpt.restore(str(tmp_path / "one"), template=state22)
+  assert again.mesh == mesh22
+  for a, b in zip(topt._leaves(again.gathered("cpu")), topt._leaves(want)):
+    assert torch.equal(a, b)
+  # and it trains on: the same step on both meshes from the same state
+  again, m22 = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh22),
+                    again, tcfg, steps=1)
+  state, m42 = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state,
+                    tcfg, steps=1)
+  np.testing.assert_allclose(m22[0]["loss"], m42[0]["loss"], rtol=1e-5)
+
+
+def _run_train(args):
+  return subprocess.run(
+      [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu"]
+      + args, capture_output=True, text=True, timeout=600,
+      env=dict(os.environ, PYTHONPATH=SRC, **ONE_THREAD))
+
+
+def _loss_of(stdout):
+  line = [ln for ln in stdout.splitlines() if "loss=" in ln][-1]
+  return float(line.split("loss=")[1].split()[0])
+
+
+def test_kill_and_resume_on_a_mesh_through_the_driver(tmp_path):
+  """``--shards 8`` (a (4, 2) mesh of CPU shards): killed at step 8 of 12
+  and resumed, the run ends at the uninterrupted run's loss (rtol 1e-5);
+  the step-8 checkpoint also resumes on one device, within rtol 1e-3."""
+  common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "12",
+            "--batch", "4", "--seq", "32", "--lr", "1e-3", "--ckpt-every",
+            "4", "--log-every", "12"]
+  mesh = ["--shards", "8"]
+  r = _run_train(common + mesh + ["--ckpt-dir", str(tmp_path / "ref")])
+  assert r.returncode == 0, r.stderr
+  assert "mesh data=4 x model=2 on cpu" in r.stdout
+  crash = tmp_path / "crash"
+  r1 = _run_train(common + mesh + ["--ckpt-dir", str(crash), "--fail-at",
+                                   "8"])
+  assert r1.returncode == 42, r1.stderr
+  assert ckpt.latest_step(str(crash)) == 8
+  shutil.copytree(crash, tmp_path / "one")
+  r2 = _run_train(common + mesh + ["--ckpt-dir", str(crash), "--async-ckpt"])
+  assert r2.returncode == 0, r2.stderr
+  assert "resumed from step 8" in r2.stdout
+  np.testing.assert_allclose(_loss_of(r2.stdout), _loss_of(r.stdout),
+                             rtol=1e-5)
+  assert ckpt.latest_step(str(crash)) == 12
+  # the mesh run's step-8 checkpoint, resumed with no --shards
+  r3 = _run_train(common + ["--ckpt-dir", str(tmp_path / "one")])
+  assert r3.returncode == 0, r3.stderr
+  assert "resumed from step 8" in r3.stdout
+  assert "mesh data=1 x model=1 on cpu" in r3.stdout
+  # steps 9-12 run one line of 4 rows, not 4 lines of 1: the bf16 GEMMs
+  # sum in other orders (phase 17's 1e-3 on the card)
+  np.testing.assert_allclose(_loss_of(r3.stdout), _loss_of(r.stdout),
+                             rtol=1e-3)

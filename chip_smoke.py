@@ -270,7 +270,27 @@ Phases (any failure exits non-zero):
      shards), three at a time: each must exit 0 with every printed check
      passing; its seconds and its K1–K4 launches (read from the wrappers'
      counters inside the subprocess) are printed, and torch_quickstart and
-     torch_vq_retrieval must launch K1, torch_serve_lm K3.
+     torch_vq_retrieval must launch K1, torch_serve_lm K3;
+  19. tensor-parallel serving (lines ``[tp]``; a virtual 2 × 2 mesh of four
+     shards of the card, ``make_host_mesh(4, model=2, devices=["cuda:0"] *
+     4)``, so the shards run one after another and no interconnect or
+     speed-up is measured) — six models at their published widths, seeded
+     weights, ``impl="pallas"``, under ``activation_sharding``:
+     tinyllama-1.1b and mamba2-780m uncut, mixtral-8x7b with 2 of 32
+     layers, zamba2-7b with 7 of 81, seamless-m4t-large-v2 uncut (4
+     sources of 4096 frames, 256-token prompts), chameleon-34b with 4 of 48
+     (its image half tokenized by K1 once per data line); 4 × 2048 prompts
+     elsewhere, 32 new tokens.  Each is served by ``Engine(mesh=…)`` and by
+     the one-device ``Engine`` in the same call: every position launches K3
+     once per attention layer and K4 once per SSM layer in the prefill (the
+     one-device launches × 4 in all: × 2 model positions per data line,
+     × 2 lines), none in the decode; the mesh's prefill logits and its
+     logits along the one-device engine's tokens within the family's
+     phase 6, 7 and 11–14 limits, its greedy tokens equal before the
+     first near-tie; prefill ms, decode ms per token and peak memory of
+     both.  Then K3 at the six per-shard attention shapes and K4 at the two
+     per-shard SSM shapes against their plain versions, their bounds and
+     (K3) SDPA.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -3974,6 +3994,308 @@ def phase_examples(tmp: Path) -> dict:
   return out
 
 
+# Phase 19: tensor-parallel serving on a virtual 2 × 2 mesh of the card.
+# (arch, layers kept or None, prompt length, the family's limits: prefill
+# logits, logits along the same tokens, near-tie gap) — the limits are the
+# pallas-vs-xla ones phases 6, 7 and 11–14 state for the family (phases 6
+# and 7 state none for the decode: their prefill limit holds there too)
+TP_MESH = (2, 2)
+TP_SERVED = (
+    ("tinyllama-1.1b", None, LM_PROMPT, LM_LOGIT_ATOL, LM_LOGIT_ATOL,
+     TIE_GAP),
+    ("mamba2-780m", None, LM_PROMPT, SSM_LOGIT_ATOL, SSM_LOGIT_ATOL,
+     TIE_GAP),
+    ("mixtral-8x7b", 2, LM_PROMPT, MOE_LOGIT_ATOL, MOE_DECODE_ATOL,
+     MOE_TIE_GAP),
+    ("zamba2-7b", 7, LM_PROMPT, HYBRID_LOGIT_ATOL, HYBRID_DECODE_ATOL,
+     TIE_GAP),
+    ("seamless-m4t-large-v2", None, ENCDEC_PROMPT, ENCDEC_LOGIT_ATOL,
+     ENCDEC_DECODE_ATOL, TIE_GAP),
+    ("chameleon-34b", 4, VLM_PATCHES + VLM_TEXT, VLM_LOGIT_ATOL,
+     VLM_DECODE_ATOL, TIE_GAP))
+TP_PHASE_BUDGET_S = 240
+# the models with SSM layers also run in f32 on the same weights, mesh
+# against one device along the first TP_F32_STEPS tokens, to the family's
+# f32 limit (phases 7 and 12): there a wrong cut of the SSM's whole-width
+# state (the gated norm's statistic, a group or head slice) shows, where
+# bf16's own rounding hides it
+TP_F32 = {"mamba2-780m": SSM_F32_LOGIT_ATOL,
+          "zamba2-7b": HYBRID_F32_LOGIT_ATOL}
+TP_F32_STEPS = 8
+
+
+def tp_kernel_cases() -> tuple:
+  """K3's and K4's per-position shapes on the 2 × 2 mesh: each position
+  holds B/2 rows and H/2 heads (its kv heads: H_kv/2)."""
+  b = LM_BATCH // TP_MESH[0]
+  half = lambda case: (b, case[1] // 2, case[2] // 2) + case[3:]  # noqa: E731
+  k3 = [("tinyllama-1.1b per shard", half(LM_FA_CASE)),
+        ("mixtral-8x7b per shard", half(MIXTRAL_FA_CASE)),
+        ("zamba2-7b per shard", half(ZAMBA_FA_CASE)),
+        *((f"{label} per shard", half(case))
+          for label, case in SEAMLESS_FA_CASES),
+        ("chameleon-34b per shard", half(CHAMELEON_FA_CASE))]
+  k4 = [("mamba2-780m per shard", (b * SSD_MAIN_SHAPE[0] // LM_BATCH,
+                                   SSD_MAIN_SHAPE[1] // 2)
+         + SSD_MAIN_SHAPE[2:]),
+        ("zamba2-7b per shard", (b * SSD_ZAMBA_SHAPE[0] // LM_BATCH,
+                                 SSD_ZAMBA_SHAPE[1] // 2)
+         + SSD_ZAMBA_SHAPE[2:])]
+  return k3, k4
+
+
+def mesh_logits_along(torch, cfg, eng, tokens, toks, src=None):
+  """A mesh engine's per-step logits along the tokens ``toks``: its
+  prefill, its cache seating, then decode steps through ``zoo.forward``
+  on the mesh (the logits gathered whole)."""
+  from repro_torch.launch.serve import seat_cache
+  from repro_torch.models import encdec, zoo
+  batch = {"tokens": tokens}
+  if src is not None:
+    batch["enc_out"] = eng.model.run(
+        lambda local, x: encdec.encode(local, cfg, x, impl=eng.impl), src)
+  last, cache = eng._prefill(eng.model, batch)
+  cache = seat_cache(cfg, cache, eng.max_len, "cuda", model=eng.model)
+  steps = [last.float()]
+  for t in range(toks.shape[1] - 1):
+    step = {"tokens": toks[:, t:t + 1]}
+    if src is not None:
+      step["enc_out"] = batch["enc_out"]
+    logits, cache, _ = zoo.forward(eng.model, cfg, step, mode="decode",
+                                   cache=cache)
+    steps.append(logits[:, -1].float())
+  return torch.stack(steps, dim=1)
+
+
+def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
+                 n_prompt: int, logit_atol: float, decode_atol: float,
+                 tie_gap: float) -> dict:
+  """One model of phase 19: the one-device engine, then the mesh engine
+  (the main path: counts set to 0 just before its generate and read just
+  after), both timed; the mesh's logits and tokens held to the one-device
+  engine's."""
+  from repro_torch import configs
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.launch.serve import Engine
+  from repro_torch.models import hybrid, vlm, zoo
+  t0 = time.perf_counter()
+  full = configs.get_config(arch)
+  cfg = full if layers is None else full.replace(n_layers=layers)
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  mesh = make_host_mesh(4, model=TP_MESH[1], devices=["cuda:0"] * 4)
+  lines, size = TP_MESH[0], mesh.size
+  src = front = None
+  kernels = {}
+  if cfg.family == "encdec":
+    kernels[fa.flash_attention] = cfg.enc_layers + 2 * cfg.dec_layers
+    src = torch.randn(LM_BATCH, cfg.src_len, cfg.d_model, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+  elif cfg.family == "vlm":
+    kernels[sm.semiring_mmo] = 1
+    kernels[fa.flash_attention] = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    codebook = torch.randn(VLM_CODES, VLM_CODE_DIM, generator=gen,
+                           device="cuda")
+    codes = torch.randint(0, VLM_CODES, (LM_BATCH, VLM_PATCHES),
+                          generator=gen, device="cuda")
+    patches = codebook[codes] + VLM_NOISE * torch.randn(
+        LM_BATCH, VLM_PATCHES, VLM_CODE_DIM, generator=gen, device="cuda")
+    text = torch.as_tensor(np.random.default_rng(0).integers(
+        0, VLM_OFFSET, (LM_BATCH, VLM_TEXT)), device="cuda")
+
+    def front(parts: int):
+      """The fused prompts, the image half tokenized by one K1 launch per
+      part (a data line's rows, on its first shard)."""
+      n = LM_BATCH // parts
+      ids = torch.cat([vlm.vq_tokenize(patches[i * n:(i + 1) * n], codebook,
+                                       backend="pallas")
+                       for i in range(parts)])
+      return vlm.fuse_streams(text, ids, VLM_OFFSET)
+  elif cfg.family == "hybrid":
+    kernels[fa.flash_attention] = hybrid.layout(cfg)[1]
+    kernels[ssd.ssd_intra_chunk] = cfg.n_layers
+  elif cfg.family == "ssm":
+    kernels[ssd.ssd_intra_chunk] = cfg.n_layers
+  else:
+    kernels[fa.flash_attention] = cfg.n_layers
+  prompts = (front(1).cpu().numpy() if front is not None else
+             np.random.default_rng(0).integers(
+                 0, cfg.vocab, (LM_BATCH, n_prompt), dtype=np.int32))
+  max_len = n_prompt + LM_NEW
+  one = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
+  tp = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda",
+              mesh=mesh)
+  torch.cuda.synchronize()
+  log(f"[tp] {arch}: {zoo.param_count(model)} parameters ({cfg.n_layers} of "
+      f"{full.n_layers} layers, d {cfg.d_model}), placed on a "
+      f"{mesh.shape} mesh of cuda:0 (fsdp {tp.model.par.fsdp}, "
+      f"seq_shard_decode {tp.model.par.seq_shard_decode}) in "
+      f"{time.perf_counter() - t0:.1f}s")
+  one.generate(prompts[:, :256], 2, src_embeds=src)   # warm-up
+  tp.generate(prompts[:, :256], 2, src_embeds=src)
+  want = {k.__name__: n for k, n in kernels.items()}
+  runs = {}
+  for label, eng, parts in (("one device", one, 1), ("mesh", tp, lines)):
+    made = front(parts) if front is not None else prompts
+    if front is not None and not np.array_equal(made.cpu().numpy(),
+                                                prompts):
+      raise AssertionError("the tokenizer's prompts differ per data line")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels:
+      kernel.launches = 0
+    if front is not None:  # the frontend's launches are the main path's
+      made = front(parts)
+    toks = eng.generate(made, LM_NEW, src_embeds=src)
+    launches = {k.__name__: k.launches for k in kernels}
+    tm = eng.last_timing
+    runs[label] = {
+        "prefill_ms": tm["prefill_s"] * 1e3,
+        "decode_ms_per_token": tm["decode_s"] / tm["decode_steps"] * 1e3,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+        / 2 ** 30, "launches": launches, "tokens": toks}
+  scale = {"semiring_mmo": lines}
+  mesh_want = {k: n * scale.get(k, size) for k, n in want.items()}
+  if runs["one device"]["launches"] != want or (
+      runs["mesh"]["launches"] != mesh_want):
+    raise AssertionError(f"launches: one device "
+                         f"{runs['one device']['launches']} (want {want}), "
+                         f"mesh {runs['mesh']['launches']} (want "
+                         f"{mesh_want})")
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  one_toks = runs["one device"]["tokens"]
+  along = torch.as_tensor(one_toks, device="cuda")
+  with torch.inference_mode():
+    from repro_torch.models import zoo as zoo_mod
+    want_steps = logits_along(cfg, model, zoo_mod, torch, tokens, along,
+                              one.max_len, impl="pallas", src=src)
+    got_steps = mesh_logits_along(torch, cfg, tp, tokens, along, src)
+  d = (got_steps - want_steps).abs().amax(dim=-1).amax(dim=0).tolist()
+  if not bool(torch.isfinite(got_steps).all()):
+    raise AssertionError(f"{arch}: non-finite mesh logits")
+  if d[0] > logit_atol or max(d) > decode_atol:
+    raise AssertionError(f"{arch}: mesh logits differ from one device's: "
+                         f"prefill {d[0]} (atol {logit_atol}), along the "
+                         f"tokens {max(d)} (atol {decode_atol})")
+  gap_rule = max(tie_gap, 2 * max(d))
+  top2 = want_steps.topk(2, dim=-1).values
+  gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+  compared = 0
+  for b in range(LM_BATCH):
+    ties = np.nonzero(gaps[b] < gap_rule)[0]
+    upto = int(ties[0]) if len(ties) else LM_NEW
+    if not np.array_equal(runs["mesh"]["tokens"][b, :upto],
+                          one_toks[b, :upto]):
+      raise AssertionError(f"{arch} row {b}: mesh tokens differ from one "
+                           f"device's before any near-tie")
+    compared += upto
+  if compared == 0:
+    raise AssertionError(f"{arch}: no token compared (every row has a "
+                         f"near-tie of {gap_rule} from its first token)")
+  out = {"arch": arch, "layers": cfg.n_layers, "card": card,
+         "prefill_logits_max_abs_diff": d[0],
+         "logits_along_max_abs_diff": max(d), "tokens_compared": compared,
+         "tokens_identical": bool(np.array_equal(runs["mesh"]["tokens"],
+                                                 one_toks))}
+  for label in runs:
+    runs[label].pop("tokens")
+    out[label] = runs[label]
+  del one, tp, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  if arch in TP_F32:
+    out["f32"] = tp_f32_check(torch, cfg, tokens, along, max_len,
+                              TP_F32[arch], want_steps, got_steps)
+  out["s"] = time.perf_counter() - t0
+  log(f"[tp] {json.dumps(out)}")
+  return out
+
+
+def tp_f32_check(torch, cfg, tokens, along, max_len: int, atol: float,
+                 one16, mesh16) -> dict:
+  """The model of ``cfg`` computing in f32 on the same weights (seed 0),
+  one device against the 2 × 2 mesh: the prefill's and
+  ``TP_F32_STEPS - 1`` decode steps' logits along the bf16 one-device
+  tokens ``along`` to ``atol``, and each step's greedy token where the
+  one-device top two are ``max(TIE_GAP, 2·|d|)`` apart.  Also how far each
+  bf16 arm's logits (``one16``, ``mesh16``: the same steps) lie from the
+  f32 one-device ones, which says whether the mesh adds error of its own
+  beyond bf16's."""
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.launch.serve import Engine
+  from repro_torch.models import zoo
+  cfg32 = cfg.replace(dtype=torch.float32)
+  model = zoo.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  mesh = make_host_mesh(4, model=TP_MESH[1], devices=["cuda:0"] * 4)
+  tp = Engine(cfg32, model, max_len=max_len, impl="pallas", device="cuda",
+              mesh=mesh)
+  toks = along[:, :TP_F32_STEPS]
+  with torch.inference_mode():
+    want = logits_along(cfg32, model, zoo, torch, tokens, toks, max_len,
+                        impl="pallas")
+    got = mesh_logits_along(torch, cfg32, tp, tokens, toks)
+  del tp, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  d = (got - want).abs().amax(dim=-1).amax(dim=0).tolist()
+  if not bool(torch.isfinite(got).all()) or max(d) > atol:
+    raise AssertionError(f"{cfg.name}: f32 mesh logits differ from one "
+                         f"device's: {d} (atol {atol})")
+  gap_rule = max(TIE_GAP, 2 * max(d))
+  top2 = want.topk(2, dim=-1).values
+  clear = (top2[..., 0] - top2[..., 1]) >= gap_rule
+  same = got.argmax(dim=-1) == want.argmax(dim=-1)
+  if not bool(same[clear].all()):
+    raise AssertionError(f"{cfg.name}: f32 mesh tokens differ from one "
+                         f"device's where the top two are {gap_rule} apart")
+  compared = int(clear.sum())
+  if compared == 0:
+    raise AssertionError(f"{cfg.name}: no f32 token compared")
+  n = TP_F32_STEPS
+
+  def far(x):
+    return (x[:, :n] - want).abs().amax(dim=-1).amax(dim=0).tolist()
+  one_far, mesh_far = far(one16), far(mesh16)
+  return {"prefill_logits_max_abs_diff": d[0],
+          "logits_along_max_abs_diff": max(d), "steps": n, "atol": atol,
+          "tokens_compared": compared, "tokens_of": int(clear.numel()),
+          "bf16_one_device_from_f32": {"prefill": one_far[0],
+                                       "along": max(one_far)},
+          "bf16_mesh_from_f32": {"prefill": mesh_far[0],
+                                 "along": max(mesh_far)}}
+
+
+def phase_tp_serving(sm, fa, ssd, torch, np, card: str) -> dict:
+  """Phase 19: tensor-parallel serving of the six models on a virtual
+  2 × 2 mesh, then K3 and K4 at the per-shard shapes."""
+  from repro_torch.models import common as cm
+  t_phase = time.perf_counter()
+  runs = {}
+  with cm.activation_sharding(("data", "model", None)):
+    for arch, layers, n_prompt, atol, datol, gap in TP_SERVED:
+      runs[arch] = tp_serve_one(sm, fa, ssd, torch, np, card, arch, layers,
+                                n_prompt, atol, datol, gap)
+  k3_cases, k4_cases = tp_kernel_cases()
+  k3_arch = ("tinyllama-1.1b", "mixtral-8x7b", "zamba2-7b",
+             "seamless-m4t-large-v2", "seamless-m4t-large-v2",
+             "seamless-m4t-large-v2", "chameleon-34b")
+  k3_rows = [k3_served_row(fa, torch, case, label,
+                           runs[arch]["mesh"]["launches"]["flash_attention"])
+             for (label, case), arch in zip(k3_cases, k3_arch)]
+  k4_rows = [phase_ssd_timing(ssd, torch, None,
+                              runs[arch]["mesh"]["launches"]
+                              ["ssd_intra_chunk"], shape, label)
+             for (label, shape), arch in zip(k4_cases, ("mamba2-780m",
+                                                        "zamba2-7b"))]
+  s = time.perf_counter() - t_phase
+  log(f"[tp] phase 19 in {s:.1f}s (budget {TP_PHASE_BUDGET_S}s) {card}")
+  if s > TP_PHASE_BUDGET_S:
+    raise AssertionError(f"phase 19 took {s:.1f}s")
+  return {"runs": runs, "k3_rows": k3_rows, "k4_rows": k4_rows, "s": s}
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -4539,6 +4861,27 @@ def main() -> int:
       f"{mesh_train['s']:.1f}s, phase 18 {examples['s']:.1f}s; whole script "
       f"{time.perf_counter() - T_START:.1f}s")
 
+  # -- phase 19: tensor-parallel serving -------------------------------------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  tp = phase_tp_serving(sm, fa, ssd, torch, np, card)
+  for arch, run in tp["runs"].items():
+    got = run["mesh"]["launches"]
+    if "flash_attention" in got:
+      k3_paths[f"tp {arch}"] = got["flash_attention"]
+    if "ssd_intra_chunk" in got:
+      k4_paths[f"tp {arch}"] = got["ssd_intra_chunk"]
+  log(f"[summary] phase 19 {card}: " + "; ".join(
+      f"{arch} prefill {r['mesh']['prefill_ms']!r} ms on the mesh vs "
+      f"{r['one device']['prefill_ms']!r} on one device, decode "
+      f"{r['mesh']['decode_ms_per_token']!r} vs "
+      f"{r['one device']['decode_ms_per_token']!r} ms/token, "
+      f"{r['tokens_compared']} bf16 tokens compared"
+      + (f", f32 |d| {r['f32']['logits_along_max_abs_diff']!r} over "
+         f"{r['f32']['tokens_compared']} tokens" if "f32" in r else "")
+      for arch, r in tp["runs"].items())
+      + f"; whole script {time.perf_counter() - T_START:.1f}s")
+
   head = rows_out[0]
   k2 = k2_rows[0]
   record = {"kernels": [{
@@ -4547,7 +4890,8 @@ def main() -> int:
       "replaces": "src/repro/kernels/semiring_mmo.py:147",
       "launches": launches + qos["k1"] + ops["k1"] + apps["k1"]
                   + mesh["k1"] + vlm_run["launches"]["semiring_mmo"]
-                  + dry["apsp"]["launches"],
+                  + dry["apsp"]["launches"]
+                  + tp["runs"][VLM_ARCH]["mesh"]["launches"]["semiring_mmo"],
       "max_abs_err": big_err,
       "ms": head["ms"],
       "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -4575,7 +4919,7 @@ def main() -> int:
       "library_ms": k3["library_ms"],
       "instances": [served_instance(row) for row in (
           moe_run["k3_row"], hyb["k3_row"], *encdec_run["k3_rows"],
-          vlm_run["k3_row"])]}, {
+          vlm_run["k3_row"], *tp["k3_rows"])]}, {
       "name": "ssd_intra_chunk", "design": K4_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/ssd.cu",
       "replaces": "src/repro/kernels/ssd.py:54",
@@ -4584,7 +4928,8 @@ def main() -> int:
       "ms": k4["ms"], "plain_ms": k4["plain_ms"],
       "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
       "library_ms": None,
-      "instances": [served_instance(hyb["k4_row"])]}]}
+      "instances": [served_instance(row) for row in (
+          hyb["k4_row"], *tp["k4_rows"])]}]}
   log(json.dumps(record))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,6 +85,10 @@ GUARDED_BY = {
         locks=("_lock",), attrs=("_lib", "_build_log")),
     ("data/pipeline.py", "Prefetcher"): LockSpec(
         locks=("_lock",), attrs=("_ready",)),
+    # the turn-taking of a tensor-parallel run's position threads
+    ("models/common.py", "Baton"): LockSpec(
+        locks=("_lock",),
+        attrs=("_order", "_holder", "_broken", "_progress")),
 }
 
 _EXEMPT_METHODS = ("__init__", "__del__")

@@ -12,6 +12,8 @@
         --arch seamless-m4t-large-v2 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --smoke --device cpu --shards 4
 
 Counterpart of ``repro/launch/serve.py`` for every LM family: dense, MoE,
 VLM (chameleon's backbone, served on fused token streams), SSM, hybrid and
@@ -42,14 +44,41 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.configs import Shape
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.specs import cache_specs
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common as cm
 from repro_torch.models import encdec
 from repro_torch.models import zoo
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 
-def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
+def _seat_on_position(cfg, cache: dict, target: dict) -> dict:
+  """One position's prefill cache seated into its ``target`` (its part of
+  the decode cache): the prefill's kv heads gathered from the line's
+  positions, then its rows of them (``seq_shard_decode``) or all of them;
+  the SSM state as it is."""
+  pos = cm.position()
+  kv = cache["attn"] if cfg.family == "hybrid" else cache
+  tkv = target["attn"] if cfg.family == "hybrid" else target
+  s = kv["k"].shape[2]
+  wholes = cm.gather_heads((kv["k"], kv["v"]), cfg.n_heads, cfg.n_kv_heads,
+                           3, kv=(True, True))
+  for name, whole in zip(("k", "v"), wholes):
+    rows = tkv[name].shape[2]
+    row0 = rows * pos.rank if pos.seq_shard_decode else 0
+    n = max(0, min(rows, s - row0))
+    tkv[name][:, :, :n] = whole[:, :, row0:row0 + n]
+  target["len"].copy_(cache["len"])
+  if cfg.family == "hybrid":
+    target["ssm"] = cache["ssm"]
+  return target
+
+
+def seat_cache(cfg, cache: dict, max_len: int, device, *,
+               model=None) -> dict:
   """The prefill's cache as the decode's.
 
   Dense, MoE, VLM and enc-dec (the decoder's self-attention): the KV rows
@@ -59,9 +88,23 @@ def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
   returned as it is (the reference seats it unchanged).  Hybrid: the SSM
   state as it is, and each application's KV rows (n_apps, B, S, ...) at
   the front of a zeroed ``max_len`` cache.
+
+  On a mesh (``model`` a ``zoo.ShardedLM``, ``cache`` the mesh prefill's
+  ``PerPosition``) the head-sharded K/V are re-cut to the decode's layout,
+  ``launch/specs.cache_specs``'s: with ``seq_shard_decode`` each position
+  keeps its Smax/tp rows of every kv head.
   """
   if cfg.family == "ssm":
     return cache
+  if model is not None:
+    lines = len(model.mesh.devices)
+    kv = cache[(0, 0)]["attn"] if cfg.family == "hybrid" else cache[(0, 0)]
+    batch = kv["k"].shape[1] * lines
+    target = zoo.init_cache(
+        cfg, batch, max_len, mesh=model.mesh, specs=cache_specs(
+            cfg, model.par, Shape("serve", max_len, batch, "decode")))
+    return model.run(lambda _, c, t: _seat_on_position(cfg, c, t), cache,
+                     target)
   kv = cache["attn"] if cfg.family == "hybrid" else cache
   n, b, s = kv["k"].shape[:3]
   full = attn_mod.init_cache(cfg, n, b, max_len, device=device)
@@ -75,15 +118,31 @@ def seat_cache(cfg, cache: dict, max_len: int, device) -> dict:
 
 
 class Engine:
-  """Minimal batched serving engine over the zoo API."""
+  """Minimal batched serving engine over the zoo API.
+
+  With ``mesh`` (a ``launch.mesh.Mesh``) the engine serves tensor-parallel:
+  it places the model's weights by ``specs_like`` under the mesh's sizes
+  with fsdp and ``seq_shard_decode`` on (``zoo.shard``), the
+  prompt rows split over the ``data`` lines and each line's positions
+  compute on their heads, widths and vocab pieces.  ``device`` is where
+  the prompts and the tokens live (the mesh's first device).  With
+  ``seq_shard_decode`` the cache's ``max_len`` is rounded up to a multiple
+  of the model axis."""
 
   def __init__(self, cfg, model, max_len: int = 512, *, impl: str = "pallas",
-               device=DEFAULT_DEVICE):
+               device=DEFAULT_DEVICE, mesh=None):
     self.cfg = cfg
     self.device = resolve_device(device)
-    self.model = model
+    self.mesh = mesh
+    self.model = model if mesh is None else zoo.shard(cfg, model, mesh)
     if cfg.window is not None:
       max_len = min(max_len, cfg.window)
+    if mesh is not None and self.model.par.seq_shard_decode:
+      tp = self.model.par.tp_size   # each position holds max_len/tp rows
+      max_len = -(-max_len // tp) * tp
+      if cfg.window is not None and max_len > cfg.window:
+        raise ValueError(f"a {cfg.window}-row window does not split over "
+                         f"{tp} positions")
     self.max_len = max_len
     self.impl = impl
     self._prefill = make_prefill_step(cfg, impl=impl)
@@ -110,12 +169,18 @@ class Engine:
       if src_embeds is None:
         raise ValueError(f"{self.cfg.name} needs src_embeds")
       src = torch.as_tensor(src_embeds, device=self.device)
-      step_batch["enc_out"] = encdec.encode(self.model, self.cfg, src,
-                                            impl=self.impl)
+      if self.mesh is None:
+        step_batch["enc_out"] = encdec.encode(self.model, self.cfg, src,
+                                              impl=self.impl)
+      else:   # each position's encoder output, whole over the model axis
+        step_batch["enc_out"] = self.model.run(
+            lambda local, x: encdec.encode(local, self.cfg, x,
+                                           impl=self.impl), src)
       batch.update(step_batch)
     last_logits, cache = self._prefill(self.model, batch)
 
-    cache = seat_cache(self.cfg, cache, self.max_len, self.device)
+    cache = seat_cache(self.cfg, cache, self.max_len, self.device,
+                       model=None if self.mesh is None else self.model)
     tok = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
     out = [tok]
     tok.cpu()  # the first token on the host ends the prefill
@@ -141,14 +206,23 @@ def main(argv=None):
   ap.add_argument("--seed", type=int, default=0)
   ap.add_argument("--device", default=DEFAULT_DEVICE)
   ap.add_argument("--impl", default="pallas", choices=("pallas", "xla"))
+  ap.add_argument("--shards", type=int, default=0,
+                  help="serve tensor-parallel on a virtual mesh of this "
+                       "many shards of --device (model axis 2)")
   args = ap.parse_args(argv)
 
   cfg = configs.get_config(args.arch, smoke=args.smoke)
   dev = resolve_device(args.device)
   gen = torch.Generator(device=dev).manual_seed(args.seed)
   model = zoo.init(cfg, gen, dev)
+  mesh = None
+  if args.shards:
+    mesh = mesh_mod.make_host_mesh(model=2 if args.shards > 1 else 1,
+                                   devices=[dev] * args.shards)
+    print(f"[serve] mesh data={mesh.shape['data']} x "
+          f"model={mesh.shape['model']} on {mesh.device_type}")
   eng = Engine(cfg, model, max_len=args.prompt_len + args.gen + 8,
-               impl=args.impl, device=dev)
+               impl=args.impl, device=dev, mesh=mesh)
 
   rng = np.random.default_rng(args.seed)
   prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),

@@ -12,6 +12,17 @@ q (B, S, H, hd), k and v (B, S, KV, hd), a layer cache (B, Smax, KV, hd).
 GQA runs in grouped (KV, G) form; expanded k and v are never materialised.
 Decode attention and every projection are plain tensor code, as the
 reference leaves them to XLA outside any kernel.
+
+On a mesh position (``common.position()``, tensor-parallel serving) the
+weights are the position's: its H/tp query heads and the kv heads they
+group over, K3 runs on those heads, and ``wo`` is row-parallel
+(``common.row_parallel``).  A decode step follows the cache's layout:
+with ``seq_shard_decode`` each position holds Smax/tp cache rows of every
+kv head, the new row goes to the position that owns ``cache_len % Smax``,
+and each position's partial softmax (max, sum, weighted values) over its
+rows for all query heads is merged by log-sum-exp in position order
+(``_decode_rows``); without it the cache is whole on every position and
+each attends its own heads.
 """
 from __future__ import annotations
 
@@ -222,21 +233,32 @@ def _full_decode(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
   before the PV product.
   """
   b, _, h, hd = q.shape
-  smax, kvh = k.shape[1], k.shape[2]
-  g = h // kvh
-  qb = (q.reshape(b, kvh, g, hd).float() * scale).to(k.dtype)
+  s, _ = _decode_scores(q, k, scale=scale, row0=0, kv_len=kv_len,
+                        window=window)
+  p = torch.softmax(s, dim=-1)
+  out = torch.einsum("bkgs,bskd->bkgd", p.to(k.dtype).float(), v.float())
+  return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _decode_scores(q: Tensor, k: Tensor, *, scale: float, row0: int,
+                   kv_len: Tensor, window: Optional[int]):
+  """(scores (B, KV, G, rows) f32 with masked rows at ``_NEG``, mask (B,
+  rows)) of one decode step's q (B, 1, H, hd) against cache rows [row0,
+  row0 + rows) of k (B, rows, KV, hd): q scaled in f32 and rounded to the
+  cache's dtype, the product in f32, rows at or past ``kv_len`` (B,) or
+  () masked, and with ``window`` rows older than it too."""
+  b, _, h, hd = q.shape
+  rows, kvh = k.shape[1], k.shape[2]
+  qb = (q.reshape(b, kvh, h // kvh, hd).float() * scale).to(k.dtype)
   kv_len = torch.as_tensor(kv_len, device=q.device)
   if kv_len.ndim == 0:
     kv_len = kv_len.expand(b)
   s = torch.einsum("bkgd,bskd->bkgs", qb.float(), k.float())
-  kpos = torch.arange(smax, device=q.device)[None, :]
+  kpos = row0 + torch.arange(rows, device=q.device)[None, :]
   mask = kpos < kv_len[:, None]
   if window is not None:
     mask = mask & (kpos > kv_len[:, None] - 1 - window)
-  s = torch.where(mask[:, None, None], s, _NEG)
-  p = torch.softmax(s, dim=-1)
-  out = torch.einsum("bkgs,bskd->bkgd", p.to(k.dtype).float(), v.float())
-  return out.reshape(b, 1, h, hd).to(q.dtype)
+  return torch.where(mask[:, None, None], s, _NEG), mask
 
 
 def init_cache(cfg: cm.ModelConfig, n_layers: int, batch: int, max_len: int,
@@ -297,6 +319,7 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
   scale = cfg.hd ** -0.5
   window = cfg.window
   wo = p["wo"].to(cfg.dtype)
+  x = cm.col_input(x)
 
   if mode in ("train", "prefill"):
     if impl not in IMPLS:
@@ -326,14 +349,19 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
                                FLASH_CHUNK)
     else:
       out = flash_xla(q, k, v, causal, window, scale, 0, FLASH_CHUNK)
-    y = torch.matmul(out.flatten(-2), wo.flatten(0, 1))
+    y = cm.row_parallel(out.flatten(-2), wo.flatten(0, 1))
     return y, ({"k": k, "v": v} if mode == "prefill" else None)
 
   if mode == "decode" and kv_override is not None:
     ko, vo = kv_override
     out = _full_decode(_project_q(p, cfg, x, positions), ko, vo, scale=scale,
                        kv_len=ko.shape[1], window=None)
-    return torch.matmul(out.flatten(-2), wo.flatten(0, 1)), layer_cache
+    return cm.row_parallel(out.flatten(-2), wo.flatten(0, 1)), layer_cache
+
+  if mode == "decode" and cm.position() is not None:
+    out = _decode_on_position(p, cfg, x, positions, layer_cache, cache_len)
+    y = cm.row_parallel(out.flatten(-2), wo.flatten(0, 1))
+    return y, layer_cache
 
   if mode == "decode":
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
@@ -347,11 +375,85 @@ def attention(p: dict, cfg: cm.ModelConfig, x: Tensor, positions: Tensor, *,
     eff_window = window if (window is not None and window < smax) else None
     out = _full_decode(q, k_cache, v_cache, scale=scale, kv_len=kv_len,
                        window=eff_window)
-    y = torch.matmul(out.flatten(-2), wo.flatten(0, 1))
+    y = cm.row_parallel(out.flatten(-2), wo.flatten(0, 1))
     return y, {"k": k_cache, "v": v_cache}
 
   raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
                    f"{mode!r}")
+
+
+def _decode_rows(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
+                 row0: int, kv_len: Tensor, window: Optional[int]):
+  """The softmax over cache rows [row0, row0 + rows) of a longer cache,
+  unnormalised: (max m, sum l (B, KV, G), weighted values acc (B, KV, G,
+  hd)), all f32, for ``_merge_rows``.  The scores are ``_full_decode``'s
+  (``_decode_scores``); the weights rounded to the cache's dtype before
+  the PV product are the local exp(s − m), since the normalisation waits
+  for the merge (``_full_decode`` rounds the normalised ones: in bf16 the
+  two differ by that rounding)."""
+  s, mask = _decode_scores(q, k, scale=scale, row0=row0, kv_len=kv_len,
+                           window=window)
+  m = s.amax(dim=-1)
+  e = torch.where(mask[:, None, None], torch.exp(s - m[..., None]), 0.0)
+  acc = torch.einsum("bkgs,bskd->bkgd", e.to(k.dtype).float(), v.float())
+  return m, e.sum(dim=-1), acc
+
+
+def _merge_rows(parts, device) -> Tensor:
+  """The positions' ``_decode_rows`` partials merged by log-sum-exp in
+  position order: (B, KV, G, hd) f32."""
+  parts = [[t.to(device) for t in part] for part in parts]
+  m = parts[0][0]
+  for part in parts[1:]:
+    m = torch.maximum(m, part[0])
+  l = acc = None
+  for pm, pl, pacc in parts:
+    w = torch.exp(pm - m)
+    l = pl * w if l is None else l + pl * w
+    acc = pacc * w[..., None] if acc is None else acc + pacc * w[..., None]
+  return acc / l[..., None]
+
+
+def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
+                        positions: Tensor, layer_cache: dict,
+                        cache_len: Tensor) -> Tensor:
+  """A decode step's attention output (B, 1, H/tp, hd) for this mesh
+  position's query heads; the new k/v row (every kv head, gathered from
+  the positions) is written into ``layer_cache`` in place."""
+  pos = cm.position()
+  h, kvh = cfg.n_heads, cfg.n_kv_heads
+  (q0, q1), (k0, k1) = cm.head_range(h, kvh, pos.rank, pos.size)
+  q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+  q_all, k_new, v_new = cm.gather_heads((q, k_new, v_new), h, kvh, 2,
+                                        kv=(False, True, True))
+  k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+  rows = k_cache.shape[1]
+  scale = cfg.hd ** -0.5
+  if not pos.seq_shard_decode:
+    write_idx = (cache_len % rows).reshape(1).long()
+    k_cache.index_copy_(1, write_idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, write_idx, v_new.to(v_cache.dtype))
+    kv_len = torch.clamp(cache_len + 1, max=rows)
+    window = (cfg.window if cfg.window is not None and cfg.window < rows
+              else None)
+    return _full_decode(q, k_cache[:, :, k0:k1], v_cache[:, :, k0:k1],
+                        scale=scale, kv_len=kv_len, window=window)
+  smax, row0 = rows * pos.size, rows * pos.rank
+  local = (cache_len % smax - row0).reshape(1).long()
+  mine = (local >= 0) & (local < rows)
+  at = local.clamp(0, rows - 1)
+  for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+    old = cache.index_select(1, at)
+    cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype), old))
+  kv_len = torch.clamp(cache_len + 1, max=smax).expand(q.shape[0])
+  window = cfg.window if cfg.window is not None and cfg.window < smax else None
+  part = _decode_rows(q_all, k_cache, v_cache, scale=scale, row0=row0,
+                      kv_len=kv_len, window=window)
+  out = pos.group.meet(pos.rank, part,
+                       lambda parts: _merge_rows(parts, q.device))
+  b, hd = q.shape[0], q.shape[-1]
+  out = out.reshape(b, 1, h, hd)[:, :, q0:q1]
+  return out.to(q.dtype)
 
 
 class Attention(nn.Module):

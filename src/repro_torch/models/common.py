@@ -12,19 +12,31 @@ The sharding rules: ``Parallelism`` assigns mesh axes, and
 ``spec_for``/``specs_like`` give each parameter a spec — a plain tuple with
 one entry per dimension, each an axis name, a tuple of names or ``None``,
 as ``models/pipeline.py`` takes them.  The dry run (``launch/dryrun.py``)
-reads them to size each device's share, and training on a mesh
-(``train/sharded.py``) cuts the f32 master, both AdamW moments and the
-gradient sums by them over the data and model axes.  The model axis
-shards storage only: a data line runs its forward and backward whole on
-one device, so no activation is sharded, and ``constrain_acts`` and
-``constrain`` return their input unchanged.
+reads them to size each device's share, ``models/placement.py`` cuts a
+tree by them, and training on a mesh (``train/sharded.py``) cuts the f32
+master, both AdamW moments and the gradient sums by them over the data and
+model axes; there the model axis shards storage only (a data line trains
+whole on one device).
+
+Tensor-parallel serving (``zoo.ShardedLM``) computes on the model axis:
+every mesh position runs the block code below on its own device, in a
+thread of its own, over its slice of the heads, the MLP and expert width,
+the SSM inner width and the vocab (``Position``, ``run_positions``).  The
+positions of one data line meet at the points the reference's GSPMD
+program communicates: ``row_parallel`` and ``tp_sum`` (partial sums added
+in f32, in position order, rounded once), ``col_input`` and ``seq_local``
+(the sequence-sharded residual stream under ``activation_sharding``),
+``gather_heads``, ``embed`` and ``vocab_argmax``.  With no position
+installed each of them is the one-device operation, unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -121,11 +133,15 @@ class Parallelism:
 
 # ---------------------------------------------------------------------------
 # activation-sharding constraint (Megatron-style sequence parallelism): the
-# dry run installs a spec for the residual stream; every block body calls
-# constrain_acts where the reference does.  The port shards no activation
-# (a data line computes whole on one device), so both constraints return
-# their input unchanged, installed spec or not; ``act_axes`` reads the
-# installed spec back.
+# dry run and the tensor-parallel steps install a spec for the residual
+# stream; every block body calls constrain_acts where the reference does.
+# With a mesh position installed and the model axis on the stream's
+# sequence dim, constrain_acts keeps the position's rows of the stream
+# (``Position.split``): row-parallel outputs are then reduce-scattered
+# along the sequence and ``col_input`` all-gathers before the next
+# column-parallel projection.  Otherwise both constraints return their
+# input unchanged (the reference's no-op when unset).  ``act_axes`` reads
+# the installed spec back.
 # ---------------------------------------------------------------------------
 
 _ACT_SPEC: list = [None]
@@ -147,11 +163,6 @@ class activation_sharding:
     return False
 
 
-def constrain_acts(x: Tensor) -> Tensor:
-  """The residual stream x (B, S, D), unchanged."""
-  return x
-
-
 def act_axes():
   """(dp, tp) axis names of the installed activation spec (None when
   unset)."""
@@ -163,10 +174,402 @@ def act_axes():
   return dp, tp
 
 
+def constrain_acts(x: Tensor) -> Tensor:
+  """The residual stream x (B, S, D) in the installed layout: on a mesh
+  position whose model axis the spec puts on the sequence (S divisible by
+  its size), the position's S/tp rows; else x unchanged."""
+  pos = position()
+  if pos is None or pos.split or x.ndim != 3 or pos.size == 1:
+    return x
+  if act_axes()[1] != pos.model_axis or x.shape[1] % pos.size:
+    return x
+  pos.split = True
+  return seq_local(x)
+
+
 def constrain(x: Tensor, spec) -> Tensor:
-  """x, unchanged: ``spec`` is its layout's metadata only."""
+  """x, unchanged: ``spec`` is its layout's metadata only (on a mesh
+  position x already holds the position's slice)."""
   del spec
   return x
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the positions of a data line and where they meet
+# ---------------------------------------------------------------------------
+
+
+class Baton:
+  """Runs the threads of a tensor-parallel run one at a time, in a fixed
+  order: a thread holds the baton until it waits at a meeting (or ends),
+  then hands it to the next.  Only the holder runs Python, so the threads
+  do not contend for the interpreter lock at every operator (contending,
+  they slowed a mesh decode on the card severalfold), and the order of
+  all launches is fixed."""
+
+  def __init__(self, keys):
+    self._lock = threading.Lock()
+    self._order = list(keys)
+    self._wake = {k: threading.Condition(self._lock) for k in keys}
+    self._holder = self._order[0] if self._order else None
+    self._broken = False
+    self._progress = 0
+
+  def _pass_locked(self, key) -> None:
+    i = self._order.index(key)
+    self._holder = self._order[(i + 1) % len(self._order)]
+    self._wake[self._holder].notify()
+
+  def _await_locked(self, key) -> None:
+    while self._holder != key and not self._broken:
+      self._wake[key].wait()
+    if self._broken:
+      raise threading.BrokenBarrierError
+
+  def start(self, key) -> None:
+    """Wait for the baton's first turn."""
+    with self._lock:
+      self._await_locked(key)
+
+  def wait_for(self, key, ready: Callable[[], bool]) -> None:
+    """Hand the baton on until it comes back with ``ready()`` true (read
+    under the baton's lock).  A whole round with no thread ready is a
+    mismatch of meetings, and breaks the run."""
+    with self._lock:
+      seen = None
+      while not ready():
+        if seen == self._progress:
+          self._broken = True
+          for cv in self._wake.values():
+            cv.notify_all()
+          raise RuntimeError("the positions' meetings do not match")
+        seen = self._progress
+        self._pass_locked(key)
+        self._await_locked(key)
+      self._progress += 1
+
+  def finish(self, key) -> None:
+    """Leave the rotation (the thread's job ended), handing the baton on."""
+    with self._lock:
+      self._progress += 1
+      if len(self._order) > 1 and self._holder == key:
+        self._pass_locked(key)
+      self._order.remove(key)
+
+  def abort(self) -> None:
+    with self._lock:
+      self._broken = True
+      for cv in self._wake.values():
+        cv.notify_all()
+
+
+class LineGroup:
+  """The model-axis positions of one data line: ``meet`` is their
+  rendezvous, under the run's ``Baton`` (a group of its own when none is
+  given)."""
+
+  def __init__(self, size: int, baton: Optional[Baton] = None,
+               keys: Optional[Sequence] = None):
+    self.size = size
+    self.keys = list(range(size)) if keys is None else list(keys)
+    self.baton = Baton(self.keys) if baton is None else baton
+    # two sets of slots, used by turns: a position cannot post to a set
+    # again before every position has passed the meeting that reads it
+    self._slots = ([None] * size, [None] * size)
+    self._count = [0] * size
+
+  def meet(self, rank: int, value, fn: Callable):
+    """Every position posts ``value``; each then gets ``fn`` of all the
+    posted values in position order.  A posted value stays referenced in
+    its slot until the meeting after next, so its memory is not handed to
+    later work on its stream while another position's copy of it may
+    still be queued."""
+    if self.size == 1:
+      return fn([value])
+    slots = self._slots[self._count[rank] % 2]
+    slots[rank] = value
+    self._count[rank] += 1
+    mine = self._count[rank]
+    self.baton.wait_for(self.keys[rank], lambda: min(self._count) >= mine)
+    try:
+      return fn(list(slots))
+    except BaseException:
+      self.baton.abort()
+      raise
+
+
+@dataclasses.dataclass
+class Position:
+  """The mesh position the current thread computes for: its rank on the
+  model axis of its line's group, the axis' name, and the serving knob
+  ``seq_shard_decode``.  ``split`` is set while the residual stream holds
+  only this position's rows (``constrain_acts``)."""
+
+  group: LineGroup
+  rank: int
+  model_axis: str = "model"
+  seq_shard_decode: bool = True
+  split: bool = False
+
+  @property
+  def size(self) -> int:
+    return self.group.size
+
+
+_POSITION = threading.local()
+
+
+def position() -> Optional[Position]:
+  """The position installed on this thread (None on one device)."""
+  return getattr(_POSITION, "value", None)
+
+
+def run_positions(jobs: dict, devices: dict) -> dict:
+  """Run ``jobs[key]()`` for every key, one thread each, with
+  ``jobs[key].position`` installed (a ``Position``; every job of a
+  ``LineGroup`` must be here, and the groups share one ``Baton`` over the
+  keys, in order) and, on a card, ``devices[key]`` current.  The caller's
+  grad and inference modes hold in every thread.  Returns {key: result};
+  a job's exception breaks the others' meetings and is raised here."""
+  grad, inference = torch.is_grad_enabled(), torch.is_inference_mode_enabled()
+  out, errors = {}, []
+  baton = next(iter(jobs.values())).position.group.baton
+
+  def work(key, job):
+    _POSITION.value = job.position
+    try:
+      baton.start(key)
+      dev = torch.device(devices[key])
+      if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+      with torch.inference_mode(inference), torch.set_grad_enabled(grad):
+        out[key] = job()
+      baton.finish(key)
+    except threading.BrokenBarrierError:
+      pass                       # another position failed first
+    except BaseException as e:  # noqa: BLE001 - raised below
+      errors.append(e)
+      baton.abort()
+    finally:
+      _POSITION.value = None
+
+  threads = [threading.Thread(target=work, args=(k, j), daemon=True)
+             for k, j in jobs.items()]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  if errors:
+    raise errors[0]
+  if len(out) != len(jobs):
+    raise RuntimeError("a mesh position's meeting was broken")
+  return out
+
+
+@contextlib.contextmanager
+def whole_weights(*modules):
+  """With ``fsdp``, a mesh position's layer weights are cut along
+  ``data``: a module holding such weights carries ``_gather``, {name:
+  (gather, placeholder)}.  Within this context the weights of
+  ``modules`` and their submodules are gathered for use, and freed after
+  (the placeholders put back).  A module with none is untouched."""
+  owners = [m for mod in modules for m in mod.modules()
+            if getattr(m, "_gather", None)]
+  for m in owners:
+    for name, (gather, _) in m._gather.items():
+      m._parameters[name] = torch.nn.Parameter(gather(), requires_grad=False)
+  try:
+    yield
+  finally:
+    for m in owners:
+      for name, (_, placeholder) in m._gather.items():
+        m._parameters[name] = placeholder
+
+
+def head_range(n_heads: int, n_kv: int, rank: int, size: int):
+  """((q0, q1), (k0, k1)): the query heads position ``rank`` of ``size``
+  computes and the kv heads (or SSM groups) they group over."""
+  if n_heads % size:
+    raise ValueError(f"{n_heads} heads do not split over {size} positions")
+  hq, grp = n_heads // size, n_heads // n_kv
+  q0, q1 = rank * hq, (rank + 1) * hq
+  k0, k1 = q0 // grp, (q1 - 1) // grp + 1
+  if hq % grp and grp % hq:
+    raise ValueError(f"{hq} heads per position do not group over kv heads "
+                     f"of {grp} query heads each")
+  return (q0, q1), (k0, k1)
+
+
+def f32_product(x: Tensor, w: Tensor) -> Tensor:
+  """x @ w with an f32 result and no rounding on the way: a card's bf16
+  product accumulates in f32 and writes f32 (``out_dtype``); elsewhere the
+  operands are widened (exact) and multiplied in f32."""
+  if x.dtype == torch.float32:
+    return torch.matmul(x, w)
+  if x.device.type == "cuda":
+    if x.ndim == 3 and w.ndim == 3:
+      return torch.bmm(x, w, out_dtype=torch.float32)
+    lead = x.shape[:-1]
+    return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                    out_dtype=torch.float32).reshape(*lead, w.shape[-1])
+  return torch.matmul(x.float(), w.float())
+
+
+def _ordered_sum(parts, device, rows: Optional[slice] = None) -> Tensor:
+  acc = None
+  for t in parts:
+    t = t if rows is None else t[:, rows]
+    t = t.to(device, torch.float32)
+    acc = t if acc is None else acc + t
+  return acc
+
+
+def _rows(pos: Position, n: int) -> slice:
+  per = n // pos.size
+  return slice(pos.rank * per, (pos.rank + 1) * per)
+
+
+def tp_sum(partial: Tensor, dtype: torch.dtype) -> Tensor:
+  """The sum over the line's positions of their f32 ``partial``s, added in
+  position order and rounded once to ``dtype`` (the all-reduce)."""
+  pos = position()
+  if pos is None:
+    return partial.to(dtype)
+  dev = partial.device
+  return pos.group.meet(pos.rank, partial,
+                        lambda parts: _ordered_sum(parts, dev).to(dtype))
+
+
+def row_parallel(x: Tensor, w: Tensor) -> Tensor:
+  """x @ w for a row-parallel weight (its input dim cut over the model
+  axis): on a position, the f32 partial products summed over the line
+  (``tp_sum``), or under a split stream only this position's rows of the
+  sum (the reduce-scatter); on one device the plain product."""
+  pos = position()
+  if pos is None:
+    return torch.matmul(x, w)
+  partial = f32_product(x, w)
+  if not pos.split:
+    return tp_sum(partial, x.dtype)
+  dev, rows = partial.device, _rows(pos, partial.shape[1])
+  return pos.group.meet(pos.rank, partial, lambda parts: _ordered_sum(
+      parts, dev, rows).to(x.dtype))
+
+
+def _gather(t: Tensor, dim: int) -> Tensor:
+  pos = position()
+  dev = t.device
+  return pos.group.meet(pos.rank, t, lambda parts: torch.cat(
+      [p.to(dev) for p in parts], dim=dim))
+
+
+def col_input(x: Tensor) -> Tensor:
+  """The whole stream (B, S, D) ahead of a column-parallel projection:
+  under a split stream the positions' rows all-gathered, else x."""
+  pos = position()
+  if pos is None or not pos.split:
+    return x
+  return _gather(x, 1)
+
+
+def seq_local(x: Tensor) -> Tensor:
+  """This position's rows of a whole (B, S, ...) stream when the stream is
+  split, else x."""
+  pos = position()
+  if pos is None or not pos.split:
+    return x
+  return x[:, _rows(pos, x.shape[1])]
+
+
+def end_stream(x: Tensor) -> Tensor:
+  """The whole stream after the last block (the stream is replicated over
+  the line again)."""
+  pos = position()
+  if pos is None or not pos.split:
+    return x
+  pos.split = False
+  return _gather(x, 1)
+
+
+def gather_heads(tensors: tuple, n_heads: int, n_kv: int, dim: int,
+                 kv: tuple) -> tuple:
+  """All heads of each tensor of ``tensors`` whose ``dim`` holds this
+  position's query heads (its ``kv`` entry False) or kv heads (True) of
+  ``head_range``, in one meeting: each head from the first position that
+  holds it (replicated kv heads are held by several)."""
+  pos = position()
+  if pos is None:
+    return tensors
+  size, dev = pos.size, tensors[0].device
+
+  def assemble(parts):
+    out = []
+    for i, is_kv in enumerate(kv):
+      pieces, done = [], 0
+      for r, p in enumerate(parts):
+        lo, hi = head_range(n_heads, n_kv, r, size)[1 if is_kv else 0]
+        if hi > done:
+          pieces.append(p[i].narrow(dim, done - lo, hi - done).to(dev))
+          done = hi
+      out.append(torch.cat(pieces, dim=dim))
+    return tuple(out)
+  return pos.group.meet(pos.rank, tuple(tensors), assemble)
+
+
+def vocab_start(vocab: int) -> int:
+  """The first (padded) vocab row of this position's piece of a (tp, None)
+  embedding or head: the ceil-sized pieces ``placement.piece_box``
+  cuts."""
+  pos = position()
+  if pos is None:
+    return 0
+  return min(vocab, pos.rank * -(-vocab // pos.size))
+
+
+def embed(table: Tensor, tokens: Tensor, vocab: int,
+          dtype: torch.dtype) -> Tensor:
+  """table[tokens] in ``dtype``.  On a position ``table`` is its vocab
+  piece: each position gives its rows and zeros elsewhere, and the f32 sum
+  over the line (one nonzero term per token) is exact."""
+  pos = position()
+  if pos is None:
+    return table[tokens].to(dtype)
+  local = tokens - vocab_start(vocab)
+  inside = (local >= 0) & (local < table.shape[0])
+  rows = table[local.clamp(0, max(table.shape[0] - 1, 0))].float()
+  return tp_sum(torch.where(inside[..., None], rows, 0.0), dtype)
+
+
+def gather_vocab(logits: Tensor) -> Tensor:
+  """Logits (..., V) over the whole padded vocab, all-gathered from the
+  positions' pieces."""
+  return logits if position() is None else _gather(logits, -1)
+
+
+def vocab_argmax(logits: Tensor, vocab: int) -> Tensor:
+  """argmax over the last dim of the whole padded vocab, as int64.  On a
+  position each piece's (max, argmax) is merged over the line in position
+  order with ties to the earlier piece, i.e. the lowest global index: the
+  one-device ``argmax`` bit for bit."""
+  pos = position()
+  idx = torch.argmax(logits, dim=-1)
+  if pos is None:
+    return idx
+  val = torch.gather(logits, -1, idx[..., None])[..., 0]
+  dev = logits.device
+
+  def merge(parts):
+    best_v, best_i = None, None
+    for v, i in parts:
+      v, i = v.to(dev), i.to(dev)
+      if best_v is None:
+        best_v, best_i = v, i
+      else:
+        take = v > best_v
+        best_v, best_i = torch.where(take, v, best_v), torch.where(
+            take, i, best_i)
+    return best_i
+  return pos.group.meet(pos.rank, (val, idx + vocab_start(vocab)), merge)
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
@@ -174,6 +577,21 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
   dt = x.dtype
   x = x.float()
   x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+  return (x * scale.float()).to(dt)
+
+
+def rms_norm_wide(x: Tensor, scale: Tensor, eps: float) -> Tensor:
+  """``rms_norm`` over a last dim cut over the model axis: on a position
+  the mean square is the line's f32 sum of squares (an all-reduce of a
+  (..., 1) statistic) over the whole width, and ``scale`` is the
+  position's slice."""
+  pos = position()
+  if pos is None:
+    return rms_norm(x, scale, eps)
+  dt = x.dtype
+  x = x.float()
+  ss = tp_sum(torch.sum(x * x, dim=-1, keepdim=True), torch.float32)
+  x = x * torch.rsqrt(ss / (x.shape[-1] * pos.size) + eps)
   return (x * scale.float()).to(dt)
 
 

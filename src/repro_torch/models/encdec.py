@@ -179,9 +179,10 @@ def cross_kv(model: EncDecLM, cfg: cm.ModelConfig, enc_out: Tensor):
   KV, hd) each: views of one product of ``enc_out`` with all layers' wk
   and wv, so each layer's slice is a strided view that K3 reads as it is
   (unit stride on hd, rows 16-byte aligned)."""
-  n, kvh, hd = len(model.dec), cfg.n_kv_heads, cfg.hd
-  w = torch.stack([torch.stack((layer.cross.wk, layer.cross.wv))
-                   for layer in model.dec])            # (L, 2, D, KV, hd)
+  n, kvh, hd = len(model.dec), model.dec[0].cross.wk.shape[1], cfg.hd
+  with cm.whole_weights(*(layer.cross for layer in model.dec)):
+    w = torch.stack([torch.stack((layer.cross.wk, layer.cross.wv))
+                     for layer in model.dec])          # (L, 2, D, KV, hd)
   w = w.to(cfg.dtype).permute(2, 0, 1, 3, 4).reshape(cfg.d_model, -1)
   kv = torch.matmul(enc_out, w).unflatten(-1, (n, 2, kvh, hd))
   kv = kv.permute(2, 3, 0, 1, 4, 5)                    # (L, 2, B, Skv, KV, hd)
@@ -202,7 +203,7 @@ def decode_stack(model: EncDecLM, cfg: cm.ModelConfig, tokens: Tensor,
   with ``len`` advanced.
   """
   remat = _layer_remat(remat)
-  x = model.embed[tokens].to(cfg.dtype)
+  x = cm.embed(model.embed, tokens, tf_mod.padded_vocab(cfg), cfg.dtype)
   b, s = tokens.shape
   cache_len = cache["len"] if cache is not None else None
   base = cache_len if mode == "decode" else 0
@@ -217,10 +218,11 @@ def decode_stack(model: EncDecLM, cfg: cm.ModelConfig, tokens: Tensor,
                              mode=mode, cache=layer_cache,
                              cache_len=cache_len, impl=impl)
     kvs.append(kv)
+  x = cm.end_stream(x)
   if mode == "prefill":
     x = x[:, -1:]
   x = cm.rms_norm(x, model.final_norm_scale, cfg.norm_eps)
-  logits = torch.matmul(x, model.lm_head.to(cfg.dtype).T)
+  logits = tf_mod.logits_from(model, cfg, x)
   new_cache = None
   if mode == "prefill":
     new_cache = {"k": torch.stack([kv["k"] for kv in kvs]),

@@ -135,7 +135,7 @@ class HybridLM(nn.Module):
     if remat not in tf_mod.REMATS:
       raise ValueError(f"remat must be one of {tf_mod.REMATS}, got {remat!r}")
     per_layer = "full" if remat == "full" else "none"
-    x = self.embed[tokens].to(cfg.dtype)
+    x = cm.embed(self.embed, tokens, tf_mod.padded_vocab(cfg), cfg.dtype)
     b, s = tokens.shape
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
@@ -157,6 +157,7 @@ class HybridLM(nn.Module):
       x, st = tf_mod.run_layer(self._ssm, per_layer, i, x, mode=mode,
                                stacked=stacked, impl=impl)
       states.append(st)
+    x = cm.end_stream(x)
     if mode == "prefill":
       x = x[:, -1:]
     x = cm.rms_norm(x, self.final_norm_scale, cfg.norm_eps)

@@ -4,7 +4,9 @@ Counterpart of ``repro/models/mlp.py``.  ``mlp_params`` draws one layer's
 SwiGLU weights (or, ungated, the enc-dec family's GELU weights) in the
 reference's layout; ``mlp`` is the block as a function of such a dict
 (GELU when the dict has no ``w3``, as the reference's ungated weights have
-none); ``MLP`` holds one layer's weights as a module.
+none); ``MLP`` holds one layer's weights as a module.  On a mesh position
+(tensor-parallel serving) w1 and w3 are column-parallel and w2
+row-parallel (``common.row_parallel``).
 """
 from __future__ import annotations
 
@@ -33,13 +35,14 @@ def mlp_params(generator: torch.Generator, cfg: cm.ModelConfig,
 def mlp(p: dict, cfg: cm.ModelConfig, x: Tensor) -> Tensor:
   """x: (B, S, D) in ``cfg.dtype``; weights cast to it at use."""
   dt = cfg.dtype
+  x = cm.col_input(x)
   h = torch.matmul(x, p["w1"].to(dt))
   if "w3" in p:
     h = nn.functional.silu(h) * torch.matmul(x, p["w3"].to(dt))
   else:
     # jax.nn.gelu defaults to the tanh approximation
     h = nn.functional.gelu(h, approximate="tanh")
-  return torch.matmul(h, p["w2"].to(dt))
+  return cm.row_parallel(h, p["w2"].to(dt))
 
 
 class MLP(nn.Module):

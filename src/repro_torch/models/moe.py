@@ -19,6 +19,11 @@ since each of them decides which tokens an expert sees:
   * combine: each (token, choice) slot gathered back, weighted by
     gate · keep in ``cfg.dtype`` and summed over the k choices.
 
+On a mesh position (tensor-parallel serving) the router is replicated,
+so every position routes, drops and slots alike; each runs the experts on
+its slice of the expert width F, and the f32 partial sums of w2 are added
+over the line (``common.tp_sum``) before the combine.
+
 The reference vmaps a one-row dispatch over the batch; here the batch is a
 leading axis, and the capacity buffer is laid out (E, B, C, D) so that the
 experts' three products are batched matmuls over E without a copy.  They
@@ -103,11 +108,14 @@ def _experts(w: dict, cfg: cm.ModelConfig, buf: Tensor) -> Tensor:
   h = nn.functional.silu(h) * torch.matmul(xs, w["w3"].to(dt))
   dp, tp = cm.act_axes()
   h = cm.constrain(h, (None, dp, tp))            # rows b-major: B over dp
-  return torch.matmul(h, w["w2"].to(dt)).view(e, b, c, d)
+  if cm.position() is None:
+    return torch.matmul(h, w["w2"].to(dt)).view(e, b, c, d)
+  return cm.tp_sum(cm.f32_product(h, w["w2"].to(dt)), dt).view(e, b, c, d)
 
 
 def moe_block(p: dict, cfg: cm.ModelConfig, x: Tensor):
   """x (B, S, D) in ``cfg.dtype`` → (y (B, S, D), aux loss)."""
+  x = cm.col_input(x)
   b, s, d = x.shape
   e, cap, dt = cfg.n_experts, capacity(cfg, s), cfg.dtype
   gate, idx, aux = _route(p["router"], cfg, x)
@@ -121,7 +129,7 @@ def moe_block(p: dict, cfg: cm.ModelConfig, x: Tensor):
   rows = torch.arange(b, device=x.device)[:, None, None]
   tok = out[(slot_e * b + rows) * cap + slot_p]             # (B, S, k, D)
   w = gate.to(dt) * keep.to(dt)
-  return torch.sum(tok * w[..., None], dim=2), aux
+  return cm.seq_local(torch.sum(tok * w[..., None], dim=2)), aux
 
 
 class Experts(nn.Module):

@@ -14,6 +14,15 @@ out_proj.  Decode (S == 1) is the single-step recurrence on the state
 {'ssm': (B, H, N, P) f32, 'conv': (B, K−1, d_inner), 'bc_conv':
 (B, K−1, 2GN)}.  Parameters are one layer's dict in the reference's
 layout, cast to ``cfg.dtype`` at use.
+
+On a mesh position (tensor-parallel serving) ``in_proj_z``, ``in_proj_x``
+and ``conv_w`` hold the position's slice of the inner width (its H/tp
+heads), ``dt_proj``, ``A_log``, ``dt_bias``, ``ssd_skip_D`` and the norm
+scale are sliced to those heads, ``bc_proj`` stays whole (each position
+takes the groups its heads read), K4 runs on the H/tp heads, the gated
+norm's mean square is the line's sum over the whole inner width
+(``common.rms_norm_wide``) and ``out_proj`` is row-parallel.  The block
+reads its head count from ``in_proj_x``'s width.
 """
 from __future__ import annotations
 
@@ -202,9 +211,10 @@ def ssm_block(p: dict, cfg: cm.ModelConfig, x: Tensor, *, mode: str = "train",
   new_state or None); 'prefill' returns the state after the prompt,
   'decode' (S == 1) takes ``state`` and returns the next one."""
   dt_ = cfg.dtype
+  x = cm.col_input(x)
   bsz, s, _ = x.shape
-  g, n, h = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
-  pdim = cfg.ssm_headdim
+  g, n, pdim = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+  h = p["in_proj_x"].shape[-1] // pdim
 
   z = torch.matmul(x, p["in_proj_z"].to(dt_))
   xin = torch.matmul(x, p["in_proj_x"].to(dt_))
@@ -220,6 +230,10 @@ def ssm_block(p: dict, cfg: cm.ModelConfig, x: Tensor, *, mode: str = "train",
 
   b_ssm = bcat[..., :g * n].reshape(bsz, s, g, n)
   c_ssm = bcat[..., g * n:].reshape(bsz, s, g, n)
+  pos = cm.position()
+  if pos is not None:  # the groups this position's heads read
+    _, (g0, g1) = cm.head_range(cfg.ssm_heads, g, pos.rank, pos.size)
+    b_ssm, c_ssm, g = b_ssm[:, :, g0:g1], c_ssm[:, :, g0:g1], g1 - g0
   dt = nn.functional.softplus(dt.float() + p["dt_bias"].float())
   a = -torch.exp(p["A_log"].float())
   xh = xin.reshape(bsz, s, h, pdim)
@@ -244,8 +258,8 @@ def ssm_block(p: dict, cfg: cm.ModelConfig, x: Tensor, *, mode: str = "train",
 
   y = y + p["ssd_skip_D"].float()[None, None, :, None] * xh.float()
   y = y.reshape(bsz, s, h * pdim).to(dt_)
-  y = cm.rms_norm(y * _silu(z), p["ssd_norm_scale"], cfg.norm_eps)
-  return torch.matmul(y, p["out_proj"].to(dt_)), new_state
+  y = cm.rms_norm_wide(y * _silu(z), p["ssd_norm_scale"], cfg.norm_eps)
+  return cm.row_parallel(y, p["out_proj"].to(dt_)), new_state
 
 
 class SSMBlock(nn.Module):

@@ -8,6 +8,9 @@ model loops over them.  A block takes the ``moe`` subtree where
 ``cfg.n_experts`` is set and the ``mlp`` subtree otherwise; the model's aux
 loss is the mean of its blocks' (0 for a dense block).  The model takes
 token ids or precomputed (B, S, D) embeddings (a modality frontend's).
+On a mesh position (tensor-parallel serving) the embedding and the LM head
+are the position's vocab piece: the lookup is ``common.embed`` and the
+logits are the piece's columns.
 """
 from __future__ import annotations
 
@@ -159,7 +162,8 @@ class TransformerLM(nn.Module):
     returns with ``len`` advanced.
     """
     cfg = self.cfg
-    x = (self.embed[tokens] if tokens.ndim == 2 else tokens).to(cfg.dtype)
+    x = (cm.embed(self.embed, tokens, padded_vocab(cfg), cfg.dtype)
+         if tokens.ndim == 2 else tokens.to(cfg.dtype))
     b, s = x.shape[:2]
     cache_len = cache["len"] if cache is not None else None
     if positions is None:
@@ -175,6 +179,7 @@ class TransformerLM(nn.Module):
                              impl=impl)
       kvs.append(kv)
       auxs.append(aux)
+    x = cm.end_stream(x)
     if mode == "prefill":
       x = x[:, -1:]
     x = cm.rms_norm(x, self.final_norm_scale, cfg.norm_eps)
@@ -194,7 +199,8 @@ class TransformerLM(nn.Module):
 def logits_from(model: TransformerLM, cfg: cm.ModelConfig,
                 x: Tensor) -> Tensor:
   """x (B, S, D) → logits (B, S, padded vocab) over the LM head (or the
-  embedding when tied), in ``cfg.dtype``."""
+  embedding when tied), in ``cfg.dtype``; on a mesh position the columns
+  of its vocab piece."""
   head = model.embed if cfg.tie_embeddings else model.lm_head
   return torch.matmul(x, head.to(cfg.dtype).T)
 

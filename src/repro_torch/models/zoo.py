@@ -18,7 +18,9 @@ the dense family's ``TransformerLM``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -28,6 +30,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import placement
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 
@@ -93,7 +96,7 @@ class SSMLM(nn.Module):
     cfg = self.cfg
     if remat not in tf_mod.REMATS:
       raise ValueError(f"remat must be one of {tf_mod.REMATS}, got {remat!r}")
-    x = self.embed[tokens].to(cfg.dtype)
+    x = cm.embed(self.embed, tokens, tf_mod.padded_vocab(cfg), cfg.dtype)
     stacked = cache["ssm"] if cache is not None else None
     states = []
     for i, layer in enumerate(self.blocks):
@@ -106,6 +109,7 @@ class SSMLM(nn.Module):
         for name, t in new_st.items():
           st[name].copy_(t)
       states.append(new_st)
+    x = cm.end_stream(x)
     if mode == "prefill":
       x = x[:, -1:]
     x = cm.rms_norm(x, self.final_norm_scale, cfg.norm_eps)
@@ -158,14 +162,31 @@ def from_params(cfg: cm.ModelConfig, params: dict) -> nn.Module:
   return tf_mod.TransformerLM(cfg, params)
 
 
-def forward(model: nn.Module, cfg: cm.ModelConfig, batch: dict, *,
+def forward(model, cfg: cm.ModelConfig, batch: dict, *,
             mode: str = "train", cache: Optional[dict] = None,
             enc_out: Optional[Tensor] = None, impl: str = "xla",
             remat: str = "none"):
   """Returns (logits, new_cache_or_None, aux_loss); ``model`` is
   ``init``'s module for ``cfg``'s family.  An enc-dec model reads
   ``batch['enc_out']`` ahead of ``enc_out`` and encodes
-  ``batch['src_embeds']`` when neither is given."""
+  ``batch['src_embeds']`` when neither is given.
+
+  With a ``ShardedLM`` for ``model`` every position of its mesh runs its
+  part (``cache`` and ``enc_out`` as ``PerPosition``s, or the batch's
+  whole tensors, split over the data lines); the logits come back whole
+  (the positions' vocab pieces gathered, the lines' rows concatenated) on
+  the mesh's first device, the cache as a ``PerPosition``."""
+  if isinstance(model, ShardedLM):
+    def body(local, sub, c):
+      logits, c, aux = forward(local, cfg, sub, mode=mode, cache=c,
+                               impl=impl, remat=remat)
+      return cm.gather_vocab(logits), c, aux
+    if enc_out is not None:
+      batch = dict(batch, enc_out=enc_out)
+    out = model.run(body, batch, cache or PerPosition.of(model, None))
+    return (model.lines(out, 0), PerPosition({k: o[1] for k, o in
+                                               out.items()}),
+            out[(0, 0)][2])
   if cfg.family == "encdec":
     return encdec_mod.forward_encdec(
         model, cfg, batch.get("src_embeds"), batch["tokens"], mode=mode,
@@ -199,10 +220,17 @@ def param_tree(model: nn.Module) -> dict:
 
 
 def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
-               device=DEFAULT_DEVICE) -> dict:
+               device=DEFAULT_DEVICE, *, mesh=None, specs=None):
   """A zeroed cache; ``max_len`` sizes the KV cache (dense, MoE, VLM, the
   enc-dec decoder's self-attention, and the hybrid's per application) and
-  is not read by the SSM state, which has no length."""
+  is not read by the SSM state, which has no length.
+
+  With ``mesh``, a ``PerPosition`` of each position's part of it on the
+  position's device, cut by ``specs`` (``launch/specs.cache_specs``'s tree:
+  with ``seq_shard_decode`` the KV rows over the model axis; SSM heads and
+  conv channels over it), which must divide every dimension they cut."""
+  if mesh is not None:
+    return _init_cache_on(cfg, batch, max_len, mesh, specs)
   dev = resolve_device(device)
   if cfg.family == "ssm":
     return {"ssm": ssm_mod.init_ssm_state(cfg, cfg.n_layers, batch,
@@ -219,3 +247,220 @@ def init_cache(cfg: cm.ModelConfig, batch: int, max_len: int,
 
 def param_count(model: nn.Module) -> int:
   return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving on a mesh
+# ---------------------------------------------------------------------------
+
+
+# the modules that run as one layer: each gathers its fsdp-cut weights
+_LAYERS = (tf_mod.Block, ssm_mod.SSMLayer, encdec_mod.EncoderLayer,
+           encdec_mod.DecoderLayer)
+
+
+class PerPosition(dict):
+  """{(row, col): value} for every position of a mesh: the values a
+  ``ShardedLM.run`` hands to, or gets from, each position as they are."""
+
+  @classmethod
+  def of(cls, model: "ShardedLM", value) -> "PerPosition":
+    return cls({pos: value for pos in placement.positions(model.mesh)})
+
+
+def _head_slice(path: str, ndim: int, cfg: cm.ModelConfig, rank: int,
+                tp: int):
+  """(dim, lo, hi): the part of a leaf that ``spec_for`` replicates over
+  the model axis but position ``rank`` computes with only in part — the kv
+  projections of the query heads it holds when tp does not divide the kv
+  heads, and the per-head SSM leaves of its heads; None for any other."""
+  name = path.rsplit("/", 1)[-1]
+  if name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % tp:
+    _, (k0, k1) = cm.head_range(cfg.n_heads, cfg.n_kv_heads, rank, tp)
+    return ndim - 2, k0, k1
+  if "/ssm/" in path:
+    (h0, h1), _ = cm.head_range(cfg.ssm_heads, cfg.ssm_ngroups, rank, tp)
+    if name == "dt_proj":
+      return ndim - 1, h0, h1
+    if name in ("A_log", "dt_bias", "ssd_skip_D"):
+      return 0, h0, h1
+    if name == "ssd_norm_scale":
+      return 0, h0 * cfg.ssm_headdim, h1 * cfg.ssm_headdim
+  return None
+
+
+@dataclasses.dataclass
+class ShardedLM:
+  """A model's weights on a mesh for tensor-parallel serving, and one
+  module per position over that position's part of them (``shard``).
+
+  ``weights`` is the parameter tree cut by ``common.specs_like`` (a tree
+  of ``placement.Sharded``).  Position (i, j) computes with the part
+  of each leaf that its model-axis index j selects: its own piece, or a
+  view of it where the leaf is replicated but the position needs only its
+  heads (``_head_slice``).  With ``par.fsdp`` the layer leaves are also
+  cut along ``data``: the position's module holds meta placeholders, and
+  each layer gathers its part from the line's column just before it runs
+  and frees it after (``common.whole_weights``).
+  """
+
+  cfg: cm.ModelConfig
+  mesh: object
+  par: cm.Parallelism
+  weights: dict
+  modules: dict = dataclasses.field(init=False, repr=False)
+
+  def __post_init__(self):
+    names, sizes = self.mesh.axis_names, self.mesh.shape
+    if (names != (self.par.dp, self.par.tp) or
+        sizes[self.par.tp] != self.par.tp_size or
+        sizes[self.par.dp] != self.par.dp_size):
+      raise ValueError(f"Parallelism(data_axes={self.par.data_axes}, "
+                       f"model_axis={self.par.tp!r}, tp_size="
+                       f"{self.par.tp_size}, dp_size={self.par.dp_size}) "
+                       f"does not describe the mesh {sizes}")
+    self.modules = {pos: self._module(pos)
+                    for pos in placement.positions(self.mesh)}
+
+  def _module(self, pos: tuple) -> nn.Module:
+    cfg, mesh, tp = self.cfg, self.mesh, self.par.tp_size
+    dev = mesh.devices[pos[0]][pos[1]]
+    data = set(self.par.data_axes)
+    gathers: dict = {}
+
+    def leaf(path, x):
+      spec = tuple(None if set(placement.names(e)) & data else e
+                   for e in x.spec)
+      box = list(placement.piece_box(x.shape, spec, mesh, pos))
+      cut = _head_slice(path, len(box), cfg, pos[1], tp)
+      if cut is not None:
+        dim, lo, hi = cut
+        box[dim] = slice(box[dim].start + lo, box[dim].start + hi)
+      own = x.box(pos)
+      if all(o.start <= b.start and b.stop <= o.stop
+             for o, b in zip(own, box)):
+        return x.pieces[pos][tuple(slice(b.start - o.start, b.stop - o.start)
+                                   for b, o in zip(box, own))]
+      sources = [(x.box(p), x.pieces[p]) for p in x.distinct()]
+      placeholder = nn.Parameter(torch.empty(
+          [b.stop - b.start for b in box], dtype=x.dtype, device="meta"),
+          requires_grad=False)
+      gathers[path] = (lambda: placement.assemble(tuple(box), sources, dev,
+                                                  x.dtype), placeholder)
+      return placeholder
+
+    def walk(tree, prefix):
+      if isinstance(tree, dict):
+        return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+      if isinstance(tree, list):
+        return [walk(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+      return leaf(prefix, tree)
+
+    module = from_params(cfg, walk(self.weights, ""))
+    for path, entry in gathers.items():
+      *owner, name = path.split("/")
+      sub = module.get_submodule(".".join(owner))
+      sub.__dict__.setdefault("_gather", {})[name] = entry
+      sub._parameters[name] = entry[1]
+    if gathers:   # each layer gathers its weights as it runs
+      for layer in module.modules():
+        if layer is not module and isinstance(layer, _LAYERS):
+          layer.register_forward_pre_hook(_gather_layer)
+          layer.register_forward_hook(_release_layer)
+    return module
+
+  def _rows(self, value, pos: tuple):
+    """``value`` for position ``pos``: a ``PerPosition``'s entry, a dict's
+    values each so, or a whole tensor's rows of the position's data line
+    on its device."""
+    if isinstance(value, PerPosition):
+      return value[pos]
+    if isinstance(value, dict):
+      return {k: self._rows(v, pos) for k, v in value.items()}
+    if not isinstance(value, Tensor):
+      return value
+    lines, b = len(self.mesh.devices), value.shape[0]
+    if b % lines:
+      raise ValueError(f"a batch of {b} rows does not split over {lines} "
+                       f"data lines")
+    n = b // lines
+    return value[pos[0] * n:(pos[0] + 1) * n].to(
+        self.mesh.devices[pos[0]][pos[1]], non_blocking=True)
+
+  def run(self, body: Callable, *args) -> PerPosition:
+    """``body(module, *args)`` on every position, each in a thread of its
+    own with its ``common.Position`` installed, the threads taking turns
+    between meetings (``common.Baton``); each argument is taken per
+    position (``_rows``).  Returns the results as a ``PerPosition``."""
+    order = placement.positions(self.mesh)
+    baton = cm.Baton(order)
+    groups = [cm.LineGroup(self.par.tp_size, baton,
+                           [(i, j) for j in range(self.par.tp_size)])
+              for i in range(len(self.mesh.devices))]
+    jobs, devices = {}, {}
+    for pos in order:
+      mine = [self._rows(a, pos) for a in args]
+      jobs[pos] = functools.partial(body, self.modules[pos], *mine)
+      jobs[pos].position = cm.Position(
+          groups[pos[0]], pos[1], self.par.tp, self.par.seq_shard_decode)
+      devices[pos] = self.mesh.devices[pos[0]][pos[1]]
+    return PerPosition(cm.run_positions(jobs, devices))
+
+  def lines(self, out: PerPosition, index=None) -> Tensor:
+    """The lines' first positions' results (their ``index``-th item when
+    given), rows concatenated on the mesh's first device."""
+    first = self.mesh.devices[0][0]
+    parts = [out[(i, 0)] if index is None else out[(i, 0)][index]
+             for i in range(len(self.mesh.devices))]
+    return torch.cat([t.to(first) for t in parts])
+
+
+def _gather_layer(layer, args):
+  layer._whole = cm.whole_weights(layer)
+  layer._whole.__enter__()
+
+
+def _release_layer(layer, args, out):
+  layer.__dict__.pop("_whole").__exit__(None, None, None)
+
+
+def shard(cfg: cm.ModelConfig, model: nn.Module, mesh,
+          par: Optional[cm.Parallelism] = None) -> ShardedLM:
+  """``model``'s weights cut onto ``mesh`` by ``specs_like`` (copies; the
+  model is untouched) for tensor-parallel serving.  ``par`` defaults to
+  the mesh's own sizes with the reference's knobs (fsdp and
+  ``seq_shard_decode`` on)."""
+  if par is None:
+    par = cm.Parallelism(data_axes=(mesh.axis_names[0],),
+                         model_axis=mesh.axis_names[1],
+                         tp_size=mesh.shape[mesh.axis_names[1]],
+                         dp_size=mesh.shape[mesh.axis_names[0]])
+  params = param_tree(model)
+  return ShardedLM(cfg, mesh, par, placement.shard_tree(
+      params, cm.specs_like(params, cfg, par), mesh))
+
+
+def _init_cache_on(cfg: cm.ModelConfig, batch: int, max_len: int, mesh,
+                   specs) -> PerPosition:
+  whole = init_cache(cfg, batch, max_len, device="meta")
+
+  def check(t, spec):
+    for dim, entry in zip(t.shape, spec):
+      parts = 1
+      for a in placement.names(entry):
+        parts *= mesh.shape[a]
+      if dim % parts:
+        raise ValueError(f"a cache dimension of {dim} does not split over "
+                         f"{parts} positions")
+  placement.map2(check, whole, specs)
+  out = PerPosition()
+  for pos in placement.positions(mesh):
+    dev = mesh.devices[pos[0]][pos[1]]
+
+    def zeros(t, spec):
+      box = placement.piece_box(t.shape, spec, mesh, pos)
+      return torch.zeros([b.stop - b.start for b in box], dtype=t.dtype,
+                         device=dev)
+    out[pos] = placement.map2(zeros, whole, specs)
+  return out

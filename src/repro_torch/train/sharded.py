@@ -1,22 +1,13 @@
-"""Training state cut over a mesh: placement, the all-gather and the
-reduce-scatter of the train step.
+"""Training state cut over a mesh: the all-gather and the reduce-scatter
+of the train step.
 
-Port-only: it takes the place of the reference's ``NamedSharding`` /
-``jax.device_put`` placement plus GSPMD (``repro/launch/train.py``,
-``repro/train/steps.py``), on the single-controller ``launch.mesh.Mesh``
-that ``core/distributed.py`` and ``models/pipeline.py`` use.  One process
-holds every shard's tensors on the shard's device and moves them with peer
-copies.
-
-A spec is a plain tuple with one entry per dimension, as
-``models/common.specs_like`` gives it: an axis name, a tuple of names or
-``None``.  A leaf is cut dimension by dimension: the positions along the
-axes an entry names (the first name major) pick a piece of ceil(dim /
-their sizes' product) rows, the last one shorter — the size
-``launch/dryrun.local_bytes`` reckons.  Every mesh position holds its own
-piece on its own device; positions that differ only along an axis the spec
-does not name hold real copies of the same piece (replicas), which the
-step keeps equal by computing each one in the same order.
+Port-only: it takes the place of the reference's GSPMD collectives
+(``repro/launch/train.py``, ``repro/train/steps.py``) on the
+single-controller ``launch.mesh.Mesh`` that ``core/distributed.py`` and
+``models/pipeline.py`` use.  One process holds every shard's tensors on
+the shard's device and moves them with peer copies.  Placement (specs,
+pieces, replicas) is ``models/placement.py``'s; replicas are kept equal by
+computing each one in the same order.
 
   * ``shard_tree`` — cut a tree of whole tensors onto the mesh;
   * ``gather_tree`` — the whole leaves on one device (the all-gather), cast
@@ -29,115 +20,15 @@ step keeps equal by computing each one in the same order.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
 
+from repro_torch.models.placement import (Sharded, assemble, positions,
+                                          shard_leaf, shard_tree)
 from repro_torch.train.optimizer import _leaves, tree_map
 
 Tensor = torch.Tensor
-
-
-def _names(entry) -> tuple:
-  if entry is None:
-    return ()
-  return entry if isinstance(entry, tuple) else (entry,)
-
-
-def _coords(mesh, pos: tuple) -> dict:
-  return dict(zip(mesh.axis_names, pos))
-
-
-def positions(mesh) -> list:
-  """Every (row, col) position of ``mesh``, row by row."""
-  rows, cols = len(mesh.devices), len(mesh.devices[0])
-  return [(i, j) for i in range(rows) for j in range(cols)]
-
-
-def piece_box(shape, spec, mesh, pos: tuple) -> tuple:
-  """The slices of a ``shape``-d leaf that position ``pos`` holds under
-  ``spec``."""
-  if len(spec) != len(shape):
-    raise ValueError(f"spec {spec} for a {len(shape)}-dimensional leaf")
-  sizes, at = mesh.shape, _coords(mesh, pos)
-  box = []
-  for dim, entry in zip(shape, spec):
-    names = _names(entry)
-    for a in names:
-      if a not in sizes:
-        raise ValueError(f"spec {spec} names axis {a!r}, not one of the "
-                         f"mesh's {tuple(sizes)}")
-    factor = math.prod(sizes[a] for a in names)
-    idx = 0
-    for a in names:
-      idx = idx * sizes[a] + at[a]
-    chunk = -(-dim // factor)
-    start = min(dim, idx * chunk)
-    box.append(slice(start, min(dim, start + chunk)))
-  return tuple(box)
-
-
-@dataclasses.dataclass
-class Sharded:
-  """One leaf on a mesh: its whole shape and dtype, its spec, and the piece
-  each position holds (``pieces[(i, j)]`` on ``mesh.devices[i][j]``)."""
-
-  shape: torch.Size
-  dtype: torch.dtype
-  spec: tuple
-  mesh: object
-  pieces: dict
-  boxes: dict = dataclasses.field(init=False, repr=False)
-
-  def __post_init__(self):
-    self.boxes = {pos: piece_box(self.shape, self.spec, self.mesh, pos)
-                  for pos in positions(self.mesh)}
-
-  def box(self, pos: tuple) -> tuple:
-    return self.boxes[pos]
-
-  def owners(self) -> dict:
-    """box → the positions holding it (replicas share a box), in position
-    order."""
-    out: dict = {}
-    for pos, box in self.boxes.items():
-      out.setdefault(tuple((s.start, s.stop) for s in box), []).append(pos)
-    return out
-
-  def distinct(self) -> list:
-    """One position per distinct box: each element is held by exactly one
-    of them."""
-    return [ps[0] for ps in self.owners().values()]
-
-
-def _map2(fn, tree, specs):
-  """``fn(leaf, spec)`` over a tree and its spec tree, walked together."""
-  if isinstance(tree, dict):
-    return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
-  if isinstance(tree, (list, tuple)):
-    return [_map2(fn, v, s) for v, s in zip(tree, specs, strict=True)]
-  return fn(tree, specs)
-
-
-def shard_leaf(t: Tensor, spec, mesh, dtype: Optional[torch.dtype] = None
-               ) -> Sharded:
-  """``t`` cut by ``spec``: each position's piece copied onto its device
-  (a copy even where the device is ``t``'s)."""
-  dtype = dtype or t.dtype
-  pieces = {}
-  with torch.no_grad():
-    for pos in positions(mesh):
-      dev = mesh.devices[pos[0]][pos[1]]
-      pieces[pos] = t[piece_box(t.shape, spec, mesh, pos)].to(
-          device=dev, dtype=dtype, copy=True).contiguous()
-  return Sharded(t.shape, dtype, tuple(spec), mesh, pieces)
-
-
-def shard_tree(tree, specs, mesh, dtype: Optional[torch.dtype] = None):
-  """Each leaf of ``tree`` cut by its spec onto ``mesh`` (a tree of
-  ``Sharded`` leaves)."""
-  return _map2(lambda t, s: shard_leaf(t, s, mesh, dtype), tree, specs)
 
 
 def gather_leaf(x: Sharded, device, dtype: Optional[torch.dtype] = None
@@ -151,12 +42,9 @@ def gather_leaf(x: Sharded, device, dtype: Optional[torch.dtype] = None
     if (tuple(p.shape) == tuple(x.shape) and p.device == device
         and p.dtype == dtype):
       return p
-  out = torch.empty(x.shape, dtype=dtype, device=device)
-  with torch.no_grad():
-    for pos in x.distinct():
-      out[x.box(pos)].copy_(x.pieces[pos],
-                            non_blocking=device.type == "cuda")
-  return out
+  return assemble(tuple(slice(0, n) for n in x.shape),
+                  [(x.box(pos), x.pieces[pos]) for pos in x.distinct()],
+                  device, dtype)
 
 
 def gather_tree(sharded, device, dtype: Optional[torch.dtype] = None):

@@ -31,7 +31,8 @@ piece by piece.  The loss is the global masked mean; the MoE aux is the
 mean of the lines' (the reference takes its fractions over the whole
 batch).  ``make_prefill_step`` / ``make_decode_step`` are the two serving
 steps, for every family's cache (dense, MoE, VLM and the enc-dec decoder's
-KV, SSM state, hybrid both).  A batch carries ``src_embeds`` for the
+KV, SSM state, hybrid both), on one device or tensor-parallel on a
+``zoo.ShardedLM``.  A batch carries ``src_embeds`` for the
 enc-dec family (its source frames) and, in an enc-dec decode, the encoder
 output ``enc_out``.
 """
@@ -40,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf_mod
 from repro_torch.models import zoo
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import sharded
@@ -218,21 +220,51 @@ def _unflatten_like(tree, leaves):
 
 
 def make_prefill_step(cfg: cm.ModelConfig, *, impl: str = "xla"):
-  """prefill_step(model, batch) → (last-position logits (B, V), cache)."""
-  def prefill_step(model, batch):
-    logits, cache, _ = zoo.forward(model, cfg, batch, mode="prefill",
+  """prefill_step(model, batch) → (last-position logits (B, V), cache).
+
+  With a ``zoo.ShardedLM`` for ``model`` every position of its mesh runs
+  the prefill on its heads and widths (K3 and K4 on ``impl="pallas"``);
+  the logits come back whole (B, padded V) on the mesh's first device,
+  gathered from the vocab pieces (the reference's ``out_specs`` leave them
+  vocab-sharded: the same values), and the cache as a ``zoo.PerPosition``
+  of each position's (its kv heads, SSM heads and conv channels), for
+  ``launch.serve.seat_cache``."""
+  def body(local, sub):
+    logits, cache, _ = zoo.forward(local, cfg, sub, mode="prefill",
                                    impl=impl)
-    return logits[:, -1, :], cache
+    return cm.gather_vocab(logits[:, -1, :]), cache
+
+  def prefill_step(model, batch):
+    if not isinstance(model, zoo.ShardedLM):
+      return body(model, batch)
+    out = model.run(body, batch)
+    return model.lines(out, 0), zoo.PerPosition(
+        {pos: o[1] for pos, o in out.items()})
   return prefill_step
 
 
 def make_decode_step(cfg: cm.ModelConfig):
   """decode_step(model, cache, batch) → (greedy next token (B, 1) int32,
   cache).  ``batch`` is {'tokens': (B, 1)} (and, for enc-dec, 'enc_out');
-  the cache is updated in place."""
+  the cache is updated in place.
+
+  With a ``zoo.ShardedLM`` for ``model`` the cache is ``seat_cache``'s
+  ``zoo.PerPosition`` and an enc-dec batch's 'enc_out' one too; the greedy
+  token is the positions' vocab-piece (max, argmax) merged with ties to
+  the lowest index (``common.vocab_argmax``), the one-device argmax, and
+  comes back on the mesh's first device."""
+  vocab = tf_mod.padded_vocab(cfg)
+
+  def body(local, c, sub):
+    logits, c, _ = zoo.forward(local, cfg, sub, mode="decode", cache=c,
+                               enc_out=sub.get("enc_out"))
+    nxt = cm.vocab_argmax(logits[:, -1, :], vocab).to(torch.int32)
+    return nxt[:, None], c
+
   def decode_step(model, cache, batch):
-    logits, cache, _ = zoo.forward(model, cfg, batch, mode="decode",
-                                   cache=cache, enc_out=batch.get("enc_out"))
-    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-    return nxt[:, None], cache
+    if not isinstance(model, zoo.ShardedLM):
+      return body(model, cache, batch)
+    out = model.run(body, cache, batch)
+    return model.lines(out, 0), zoo.PerPosition(
+        {pos: o[1] for pos, o in out.items()})
   return decode_step

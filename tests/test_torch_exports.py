@@ -24,7 +24,7 @@ UNPORTED = {
     "analysis": {},
     "data": {},
 }
-ROADMAP_ITEMS = {15, 16}
+ROADMAP_ITEMS = {16}
 
 
 def _reference_all(package: str) -> list:

@@ -49,6 +49,7 @@ from repro_torch.launch.dryrun import (_leaves_with_specs,  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import placement  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
@@ -390,7 +391,7 @@ def test_pieces_have_local_bytes_and_no_whole_cut_leaf(arch):
 
 
 def _factors(spec, mesh):
-  return [int(np.prod([mesh.shape[a] for a in sharded._names(e)]))
+  return [int(np.prod([mesh.shape[a] for a in placement.names(e)]))
           for e in spec]
 
 

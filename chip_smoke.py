@@ -246,23 +246,28 @@ Phases (any failure exits non-zero):
      local K1 and to its plain version on those rows, its CUDA-event time
      against ``launch.dryrun_apsp``'s K1 bound for that mesh and the
      production mesh's row;
-  17. training on a mesh (lines ``[mesh-train]``; a virtual 2 × 2 mesh of
-     four shards of the card, ``make_host_mesh(devices=["cuda:0"] * 4)``:
-     its collectives are on-card copies, so no interconnect is measured) —
-     (a) tinyllama-1.1b at its published width and depth, bf16 compute,
-     4 × 2048 SyntheticLM tokens per step, the f32 master and both moments
-     cut by ``specs_like`` (``train/sharded.py``): three steps on the
-     one-device step and three on the mesh from the same weights and
-     batches, the first step's loss within rtol 1e-3 and grad norm within
-     1e-2 of the one-device step's (each data line's bf16 GEMMs see 2 rows,
-     not 4), step ms by CUDA events beside the one-device step's here and
-     phase 10(b)'s, peak memory, a profile of one more mesh step; (b)
-     one step each with ``grad_specs``, with ``grad_specs`` + ``zero2``
-     (and a profile of a second one) and with all three knobs, from the
-     same weights, held to the same limits; (c) the train driver with
-     ``--shards 4 --smoke --deterministic`` killed at step 20 and resumed,
-     as 10(d): the final loss within rtol 1e-5 of the uninterrupted run's.
-     No K1–K4 launch (impl="xla");
+  17. tensor-parallel training on a mesh (lines ``[mesh-train]``; a
+     virtual 2 × 2 mesh of four shards of the card,
+     ``make_host_mesh(devices=["cuda:0"] * 4)``: its collectives are
+     on-card copies, so no interconnect is measured) — (a) tinyllama-1.1b
+     uncut (4 × 2048 SyntheticLM tokens), mixtral-8x7b with 2 of 32 layers
+     (2 × 2048), mamba2-780m with 8 of 48 and zamba2-7b with 7 of 81 (4 ×
+     2048), published widths, bf16 compute, the f32 master and both
+     moments cut by ``specs_like`` (``train/sharded.py``): three steps on
+     the one-device step and three on the mesh from the same weights and
+     batches, each position running its line's rows on its heads and
+     widths; the first step's loss within rtol 1e-3 and grad norm within
+     1e-2 of the one-device step's; mamba2 with 4 layers in f32, one step,
+     within rtol 1e-5 for both; every model-axis replica bit-equal after
+     the steps; per model step ms by CUDA events on one device and on the
+     mesh, peak memory of each, each position's bytes against
+     ``dryrun.local_bytes``, the meetings per step, and for tinyllama a
+     profile of one more mesh step; (b) one step each with
+     ``grad_specs``, with ``grad_specs`` + ``zero2`` and with all three
+     knobs, from the same weights, held to the same limits; (c) the train
+     driver with ``--shards 4 --smoke --deterministic`` killed at step 20
+     and resumed, as 10(d): the final loss within rtol 1e-5 of the
+     uninterrupted run's.  No K1–K4 launch (impl="xla");
   18. the examples (lines ``[examples]``) — each of the nine
      ``examples/torch_*.py`` in a subprocess on ``cuda`` at the reference
      examples' sizes (``torch_train_lm.py`` 40 steps of llama-100m at
@@ -3781,17 +3786,28 @@ def phase_dryrun(sm, torch, card: str, lm: dict, train: dict) -> dict:
   return out
 
 
-# Phase 17: training on a virtual 2 × 2 mesh of the card.  The first
-# step's loss and grad norm against the one-device step on the same
-# weights and batch: each data line's bf16 GEMMs see 2 of the 4 rows, so
-# they sum in other orders and round elsewhere (loss rtol 1e-3, grad norm
-# rtol 1e-2, the stated limits).
+# Phase 17: tensor-parallel training on a virtual 2 × 2 mesh of the card.
+# Each model's first step against the one-device step on the same weights
+# and batch: each position's bf16 GEMMs see its line's rows and its heads
+# and widths, and the row-parallel outputs are f32 partial sums rounded
+# once, so they round elsewhere (loss rtol 1e-3, grad norm rtol 1e-2, the
+# stated limits).  mamba2 with 4 layers in f32 is held to rtol 1e-5: in
+# bf16 a wrong cut of the gated norm's whole-width statistic could hide
+# inside 1e-2.  The models are phase 10's, at their published widths and
+# phase 10's depths and batches.
 MESH_TRAIN_SHARDS, MESH_TRAIN_STEPS = 4, 3
 MESH_LOSS_RTOL, MESH_NORM_RTOL = 1e-3, 1e-2
+MESH_F32_LAYERS, MESH_F32_RTOL = 4, 1e-5
+# (key, arch, layers (None: all), rows of TRAIN_SEQ tokens)
+MESH_TRAIN_MODELS = (
+    ("tinyllama", LM_ARCH, None, TRAIN_BATCH),
+    ("mixtral", "mixtral-8x7b", MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH),
+    ("mamba2", SSM_ARCH, SSM_TRAIN_LAYERS, TRAIN_BATCH),
+    ("zamba2", HYBRID_ARCH, HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH))
 
 
 def mesh_train_state(torch, cfg, mesh):
-  """tinyllama's seeded weights (phase 10's seed) cut onto ``mesh`` by
+  """``cfg``'s seeded weights (phase 10's seed) cut onto ``mesh`` by
   ``specs_like``: (ShardedState, specs)."""
   from repro_torch.models import common as cm
   from repro_torch.models import zoo
@@ -3804,9 +3820,9 @@ def mesh_train_state(torch, cfg, mesh):
 
 
 def timed_steps(torch, step, state, data, n: int) -> tuple:
-  """(state, [(loss, grad norm)], [CUDA-event ms]) of ``n`` steps on
-  batches 0..n-1."""
-  metrics, times = [], []
+  """(state, [(loss, grad norm)], [CUDA-event ms], meetings of the last
+  step or None) of ``n`` steps on batches 0..n-1."""
+  metrics, times, meetings = [], [], None
   for i in range(n):
     batch = data.batch_at(i)
     e0 = torch.cuda.Event(enable_timing=True)
@@ -3816,70 +3832,150 @@ def timed_steps(torch, step, state, data, n: int) -> tuple:
     e1.record()
     metrics.append((float(m["loss"]), float(m["grad_norm"])))
     times.append(e0.elapsed_time(e1))
-  return state, metrics, times
+    meetings = m.get("meetings")
+  return state, metrics, times, meetings
 
 
-def close_to(got: tuple, want: tuple) -> bool:
-  return (abs(got[0] - want[0]) <= MESH_LOSS_RTOL * abs(want[0])
-          and abs(got[1] - want[1]) <= MESH_NORM_RTOL * abs(want[1]))
+def close_to(got: tuple, want: tuple, loss_rtol: float = MESH_LOSS_RTOL,
+             norm_rtol: float = MESH_NORM_RTOL) -> bool:
+  return (abs(got[0] - want[0]) <= loss_rtol * abs(want[0])
+          and abs(got[1] - want[1]) <= norm_rtol * abs(want[1]))
+
+
+def replicas_bit_equal(torch, state) -> int:
+  """The replicated pieces compared (master, m and v); raises unless every
+  replica equals the first of its box bit for bit."""
+  from repro_torch.train.optimizer import _leaves
+  n = 0
+  for tree in (state.master, state.m, state.v):
+    for x in _leaves(tree):
+      for group in x.owners().values():
+        for pos in group[1:]:
+          if not torch.equal(x.pieces[pos], x.pieces[group[0]]):
+            raise AssertionError(f"a model-axis replica at {pos} differs "
+                                 f"from {group[0]}")
+          n += 1
+  return n
+
+
+def held_against_dryrun(torch, state, specs, mesh) -> dict:
+  """Each position's bytes (master and both moments) beside three times
+  ``dryrun.local_bytes`` of the f32 leaves under their specs (the
+  ceil-sized pieces; position (0, 0) holds exactly that)."""
+  from repro_torch.launch.dryrun import _leaves_with_specs, local_bytes
+  from repro_torch.train.sharded import positions
+  want = 3 * sum(local_bytes(torch.empty(x.shape, dtype=x.dtype,
+                                         device="meta"), spec, mesh.shape)
+                 for x, spec in _leaves_with_specs(state.master, specs))
+  held = {str(pos): state.local_bytes(pos) for pos in positions(mesh)}
+  if held[str((0, 0))] != want or max(held.values()) > want:
+    raise AssertionError(f"position bytes {held} against local_bytes "
+                         f"{want}")
+  return {"per_position": held, "dryrun_local_bytes": want}
+
+
+def mesh_train_model(torch, card: str, key: str, cfg, rows: int, mesh,
+                     steps: int = MESH_TRAIN_STEPS, profile: bool = False,
+                     rtol: tuple = (MESH_LOSS_RTOL, MESH_NORM_RTOL)
+                     ) -> dict:
+  """One model of phase 17: ``steps`` one-device steps, then ``steps``
+  tensor-parallel steps on ``mesh`` from the same weights and batches;
+  the first step's loss and grad norm held to ``rtol``, the model-axis
+  replicas bit-equal after the steps."""
+  from repro_torch.data import DataConfig, SyntheticLM
+  from repro_torch.models import zoo
+  from repro_torch.train import optimizer as opt_mod
+  from repro_torch.train.steps import make_train_step
+  data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=rows, seed=0))
+  oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  state = (model, opt_mod.init_opt_state(zoo.param_tree(model)))
+  # the MoE aux is the mean of the data lines' (a declared difference): the
+  # one-device step that routes the same rows together runs one
+  # microbatch per line
+  accum = len(mesh.devices) if cfg.n_experts else 1
+  state, want, one_ms, _ = timed_steps(
+      torch, make_train_step(cfg, oc, accum=accum), state, data, steps)
+  one_peak = torch.cuda.max_memory_allocated()
+  del state, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  ss, specs = mesh_train_state(torch, cfg, mesh)
+  held = held_against_dryrun(torch, ss, specs, mesh)
+  step = make_train_step(cfg, oc, mesh=mesh)
+  ss, got, mesh_ms, meetings = timed_steps(torch, step, ss, data, steps)
+  peak = torch.cuda.max_memory_allocated()
+  compared = replicas_bit_equal(torch, ss)
+  if profile:
+    ss = profile_train_step(torch, step, ss, data.batch_at(steps),
+                            sorted(mesh_ms)[len(mesh_ms) // 2],
+                            f"(17a, {key} on the mesh)")
+  row = {"arch": cfg.name, "layers": cfg.n_layers,
+         "dtype": str(cfg.dtype).removeprefix("torch."),
+         "mesh": mesh.shape, "batch": rows, "seq": TRAIN_SEQ,
+         "one_device_accum": accum,
+         "one_device": want, "mesh_steps": got, "one_device_ms": one_ms,
+         "mesh_ms": mesh_ms,
+         "mesh_over_one_device": (sorted(mesh_ms)[len(mesh_ms) // 2]
+                                  / sorted(one_ms)[len(one_ms) // 2]),
+         "meetings_per_step": meetings, "state_bytes": held,
+         "replicas_compared": compared,
+         "one_device_peak_gib": one_peak / 2 ** 30,
+         "mesh_peak_gib": peak / 2 ** 30, "card": card}
+  log(f"[mesh-train] (a) {key} {json.dumps(row)}")
+  if not all(x == x and abs(x) < float("inf") for m in got for x in m):
+    raise AssertionError(f"{key}: a mesh loss or grad norm is not finite: "
+                         f"{got}")
+  if not close_to(got[0], want[0], *rtol):
+    raise AssertionError(f"{key}: the mesh step's first loss and grad norm "
+                         f"{got[0]} differ from the one-device step's "
+                         f"{want[0]} (rtol {rtol})")
+  del ss, step
+  gc.collect()
+  torch.cuda.empty_cache()
+  return row
 
 
 def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
                         ) -> dict:
-  """Phase 17: (a) tinyllama-1.1b uncut on a virtual 2 × 2 mesh against
-  the one-device step, (b) the three knobs, (c) kill and resume through
-  the driver with --shards 4."""
+  """Phase 17: (a) tensor-parallel training of tinyllama-1.1b uncut,
+  mixtral-8x7b, mamba2-780m and zamba2-7b at phase 10's depths on a
+  virtual 2 × 2 mesh against the one-device step, and mamba2 with 4 layers
+  in f32; (b) the three knobs; (c) kill and resume through the driver with
+  --shards 4."""
   import tempfile
   from repro_torch import configs
   from repro_torch.data import DataConfig, SyntheticLM
   from repro_torch.launch.mesh import make_host_mesh
-  from repro_torch.models import zoo
   from repro_torch.train import optimizer as opt_mod
-  from repro_torch.train.sharded import positions
   from repro_torch.train.steps import make_train_step
   t_phase = time.perf_counter()
   before = [k.launches for k in kernels]
+  mesh = make_host_mesh(MESH_TRAIN_SHARDS, model=2,
+                        devices=["cuda:0"] * MESH_TRAIN_SHARDS)
+  rows = {}
+  for key, arch, layers, batch in MESH_TRAIN_MODELS:
+    cfg = configs.get_config(arch)
+    if layers is not None:
+      cfg = cfg.replace(n_layers=layers)
+    rows[key] = mesh_train_model(torch, card, key, cfg, batch, mesh,
+                                 profile=key == "tinyllama")
+  rows["tinyllama"]["phase10_step_ms"] = phase10_ms
+  f32 = configs.get_config(SSM_ARCH).replace(n_layers=MESH_F32_LAYERS,
+                                             dtype=torch.float32)
+  rows["mamba2_f32"] = mesh_train_model(
+      torch, card, "mamba2_f32", f32, TRAIN_BATCH, mesh, steps=1,
+      rtol=(MESH_F32_RTOL, MESH_F32_RTOL))
   cfg = configs.get_config(LM_ARCH)
   data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                 global_batch=TRAIN_BATCH, seed=0))
   oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
-  # the one-device step on the same weights and batches
-  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                   "cuda")
-  state = (model, opt_mod.init_opt_state(zoo.param_tree(model)))
-  state, want, one_ms = timed_steps(torch, make_train_step(cfg, oc), state,
-                                    data, MESH_TRAIN_STEPS)
-  del state, model
-  gc.collect()
-  torch.cuda.empty_cache()
-  mesh = make_host_mesh(MESH_TRAIN_SHARDS, model=2,
-                        devices=["cuda:0"] * MESH_TRAIN_SHARDS)
-  torch.cuda.synchronize()
-  torch.cuda.reset_peak_memory_stats()
-  ss, specs = mesh_train_state(torch, cfg, mesh)
-  held = {str(pos): ss.local_bytes(pos) for pos in positions(mesh)}
-  step = make_train_step(cfg, oc, mesh=mesh)
-  ss, got, mesh_ms = timed_steps(torch, step, ss, data, MESH_TRAIN_STEPS)
-  peak = torch.cuda.max_memory_allocated()
-  ss = profile_train_step(torch, step, ss, data.batch_at(MESH_TRAIN_STEPS),
-                          sorted(mesh_ms)[1], "(17a, the mesh step)")
-  row = {"arch": cfg.name, "mesh": mesh.shape, "batch": TRAIN_BATCH,
-         "seq": TRAIN_SEQ, "one_device": want, "mesh_steps": got,
-         "one_device_ms": one_ms, "mesh_ms": mesh_ms,
-         "phase10_step_ms": phase10_ms,
-         "mesh_over_one_device": sorted(mesh_ms)[1] / sorted(one_ms)[1],
-         "state_bytes_per_position": held,
-         "max_memory_allocated_gib": peak / 2 ** 30, "card": card}
-  log(f"[mesh-train] (a) {json.dumps(row)}")
-  if not all(x == x and abs(x) < float("inf") for m in got for x in m):
-    raise AssertionError(f"a mesh loss or grad norm is not finite: {got}")
-  if not close_to(got[0], want[0]):
-    raise AssertionError(f"the mesh step's first loss and grad norm "
-                         f"{got[0]} differ from the one-device step's "
-                         f"{want[0]}")
-  del ss, step
-  gc.collect()
-  torch.cuda.empty_cache()
+  want = rows["tinyllama"]["one_device"]
   knobs = {}
   for label, kw in (("grad_specs", {}),
                     ("grad_specs+zero2", {"zero2": True}),
@@ -3887,11 +3983,9 @@ def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
                      {"zero2": True, "grad_comm_bf16": True})):
     ss, specs = mesh_train_state(torch, cfg, mesh)
     step = make_train_step(cfg, oc, mesh=mesh, grad_specs=specs, **kw)
-    ss, m, ms = timed_steps(torch, step, ss, data, 1)
-    if label == "grad_specs+zero2":  # where its time differs from (a)'s
-      ss = profile_train_step(torch, step, ss, data.batch_at(1), ms[0],
-                              "(17b, grad_specs+zero2)")
-    knobs[label] = {"loss": m[0][0], "grad_norm": m[0][1], "ms": ms[0]}
+    ss, m, ms, _ = timed_steps(torch, step, ss, data, 1)
+    knobs[label] = {"loss": m[0][0], "grad_norm": m[0][1], "ms": ms[0],
+                    "replicas_compared": replicas_bit_equal(torch, ss)}
     log(f"[mesh-train] (b) {label}: {json.dumps(knobs[label])} "
         f"(one-device first step {want[0]!r})")
     if not close_to(m[0], want[0]):
@@ -3907,9 +4001,9 @@ def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
                                "[mesh-train] (c)")
   if [k.launches for k in kernels] != before:
     raise AssertionError("training on a mesh launched a hand-written kernel")
-  out = {"tinyllama": row, "knobs": knobs, "kill_resume": resume,
+  out = {**rows, "knobs": knobs, "kill_resume": resume,
          "s": time.perf_counter() - t_phase}
-  log(f"[mesh-train] phase 17 in {out['s']:.1f}s")
+  log(f"[mesh-train] phase 17 in {out['s']:.1f}s {card}")
   return out
 
 
@@ -4855,11 +4949,15 @@ def main() -> int:
   import tempfile
   with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
     examples = phase_examples(Path(tmp))
-  log(f"[summary] phases 17-18 {card}: mesh step ms "
-      f"{mesh_train['tinyllama']['mesh_ms']!r} against one device "
-      f"{mesh_train['tinyllama']['one_device_ms']!r}; phase 17 "
-      f"{mesh_train['s']:.1f}s, phase 18 {examples['s']:.1f}s; whole script "
-      f"{time.perf_counter() - T_START:.1f}s")
+  log(f"[summary] phases 17-18 {card}: tensor-parallel step ms (median) "
+      + "; ".join(f"{k} {r['mesh_ms']!r} against one device "
+                  f"{r['one_device_ms']!r}, {r['meetings_per_step']} "
+                  f"meetings, peak {r['mesh_peak_gib']:.2f} GiB"
+                  for k, r in mesh_train.items()
+                  if isinstance(r, dict) and "mesh_ms" in r)
+      + f"; phase 17 {mesh_train['s']:.1f}s, phase 18 "
+        f"{examples['s']:.1f}s; whole script "
+        f"{time.perf_counter() - T_START:.1f}s")
 
   # -- phase 19: tensor-parallel serving -------------------------------------------
   gc.collect()

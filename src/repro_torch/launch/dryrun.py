@@ -57,7 +57,14 @@ executable and have no counterpart.  The values:
                               transformer block, 1 per SSM layer, 3 per
                               decoder layer of the enc-dec), × accum; a
                               train cell adds as many for the backward and,
-                              under remat "full", for the recompute
+                              under remat "full", for the recompute.  The
+                              port's tensor-parallel train step holds
+                              exactly these row-parallel meetings per
+                              forward; its other meetings are not charged:
+                              the vocab-parallel embedding's sum (tokens ·
+                              d_model in f32, once per forward), and
+                              (B, S) statistics (the gated norms', the
+                              loss's)
       decode_attn_all_reduce  decode with the cache's sequence on the model
                               axis: ring(all-reduce, B · H · (hd + 2) · 4, T)
                               per attention layer (partial outputs, max and

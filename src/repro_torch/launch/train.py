@@ -14,7 +14,10 @@ Counterpart of ``repro/launch/train.py``, with its flags plus ``--device``
 the devices of ``--device``'s type that exist (``model`` 2 when there are
 more than one), ``Parallelism(data_axes=("data",), tp_size=<model>)``, and
 places the f32 master and both AdamW moments by ``specs_like``
-(``train/sharded.py``); the step gets none of the mesh knobs.
+(``train/sharded.py``); the step gets none of the mesh knobs.  The step is
+tensor-parallel: each mesh position runs its data line's rows forward and
+backward on its heads, widths and vocab piece, and its gradients land in
+the master's pieces (``train/steps.py``).
 ``--shards N`` builds a virtual mesh of N shards of ``--device`` instead
 (the counterpart of the reference's
 ``XLA_FLAGS=--xla_force_host_platform_device_count``).  Every
@@ -109,7 +112,8 @@ def main(argv=None):
     state, start = ckpt.restore(args.ckpt_dir, template=state)
     print(f"[train] resumed from step {start}")
   print(f"[train] mesh data={mesh.shape['data']} x "
-        f"model={mesh.shape['model']} on {mesh.device_type}", flush=True)
+        f"model={mesh.shape['model']} on {mesh.device_type}, "
+        f"tensor-parallel over model", flush=True)
 
   step_fn = make_train_step(cfg, oc, accum=args.accum, mesh=mesh)
   checkpointer = (ckpt.AsyncCheckpointer(args.ckpt_dir)

@@ -13,9 +13,10 @@ GQA runs in grouped (KV, G) form; expanded k and v are never materialised.
 Decode attention and every projection are plain tensor code, as the
 reference leaves them to XLA outside any kernel.
 
-On a mesh position (``common.position()``, tensor-parallel serving) the
-weights are the position's: its H/tp query heads and the kv heads they
-group over, K3 runs on those heads, and ``wo`` is row-parallel
+On a mesh position (``common.position()``, tensor parallelism in serving
+or training) the weights are the position's: its H/tp query heads and the
+kv heads they group over, K3 runs on those heads, and ``wo`` is
+row-parallel
 (``common.row_parallel``).  A decode step follows the cache's layout:
 with ``seq_shard_decode`` each position holds Smax/tp cache rows of every
 kv head, the new row goes to the position that owns ``cache_len % Smax``,

@@ -15,18 +15,22 @@ as ``models/pipeline.py`` takes them.  The dry run (``launch/dryrun.py``)
 reads them to size each device's share, ``models/placement.py`` cuts a
 tree by them, and training on a mesh (``train/sharded.py``) cuts the f32
 master, both AdamW moments and the gradient sums by them over the data and
-model axes; there the model axis shards storage only (a data line trains
-whole on one device).
+model axes.
 
-Tensor-parallel serving (``zoo.ShardedLM``) computes on the model axis:
-every mesh position runs the block code below on its own device, in a
-thread of its own, over its slice of the heads, the MLP and expert width,
-the SSM inner width and the vocab (``Position``, ``run_positions``).  The
-positions of one data line meet at the points the reference's GSPMD
-program communicates: ``row_parallel`` and ``tp_sum`` (partial sums added
-in f32, in position order, rounded once), ``col_input`` and ``seq_local``
-(the sequence-sharded residual stream under ``activation_sharding``),
-``gather_heads``, ``embed`` and ``vocab_argmax``.  With no position
+Tensor parallelism (``zoo.ShardedLM``, for serving and for training)
+computes on the model axis: every mesh position runs the block code below
+on its own device, in a thread of its own, over its slice of the heads,
+the MLP and expert width, the SSM inner width and the vocab (``Position``,
+``run_positions``).  The positions of one data line meet at the points the
+reference's GSPMD program communicates: ``row_parallel`` and ``tp_sum``
+(partial sums added in f32, in position order, rounded once), ``col_input``
+and ``seq_local`` (the sequence-sharded residual stream under
+``activation_sharding``), ``gather_heads``, ``embed``, ``vocab_argmax``
+and the vocab-parallel loss terms ``vocab_logsumexp`` and ``vocab_gold``.
+A meeting's result on a position is an ordinary differentiable function of
+every position's posted tensor (copies and f32 adds), so the positions'
+forwards record one autograd graph per data line, and its backward is the
+transposed collective with no meeting of its own.  With no position
 installed each of them is the one-device operation, unchanged.
 """
 from __future__ import annotations
@@ -278,6 +282,11 @@ class LineGroup:
     self._slots = ([None] * size, [None] * size)
     self._count = [0] * size
 
+  @property
+  def held(self) -> int:
+    """The meetings every position of the group has passed."""
+    return min(self._count)
+
   def meet(self, rank: int, value, fn: Callable):
     """Every position posts ``value``; each then gets ``fn`` of all the
     posted values in position order.  A posted value stays referenced in
@@ -371,13 +380,14 @@ def whole_weights(*modules):
   """With ``fsdp``, a mesh position's layer weights are cut along
   ``data``: a module holding such weights carries ``_gather``, {name:
   (gather, placeholder)}.  Within this context the weights of
-  ``modules`` and their submodules are gathered for use, and freed after
+  ``modules`` and their submodules are gathered for use (in training a
+  gather whose backward hands the part's gradient on), and freed after
   (the placeholders put back).  A module with none is untouched."""
   owners = [m for mod in modules for m in mod.modules()
             if getattr(m, "_gather", None)]
   for m in owners:
     for name, (gather, _) in m._gather.items():
-      m._parameters[name] = torch.nn.Parameter(gather(), requires_grad=False)
+      m._parameters[name] = gather()
   try:
     yield
   finally:
@@ -400,12 +410,7 @@ def head_range(n_heads: int, n_kv: int, rank: int, size: int):
   return (q0, q1), (k0, k1)
 
 
-def f32_product(x: Tensor, w: Tensor) -> Tensor:
-  """x @ w with an f32 result and no rounding on the way: a card's bf16
-  product accumulates in f32 and writes f32 (``out_dtype``); elsewhere the
-  operands are widened (exact) and multiplied in f32."""
-  if x.dtype == torch.float32:
-    return torch.matmul(x, w)
+def _f32_product(x: Tensor, w: Tensor) -> Tensor:
   if x.device.type == "cuda":
     if x.ndim == 3 and w.ndim == 3:
       return torch.bmm(x, w, out_dtype=torch.float32)
@@ -413,6 +418,46 @@ def f32_product(x: Tensor, w: Tensor) -> Tensor:
     return torch.mm(x.reshape(-1, x.shape[-1]), w,
                     out_dtype=torch.float32).reshape(*lead, w.shape[-1])
   return torch.matmul(x.float(), w.float())
+
+
+class _F32Product(torch.autograd.Function):
+  """``_f32_product`` with the one-device product's backward: the f32
+  output gradient (an upcast bf16 value: the sum it feeds is rounded to
+  x's dtype) is rounded back, and dx = g wᵀ and dw = xᵀ g are products in
+  x's dtype, as a bf16 ``matmul``'s backward runs them (a card's
+  ``out_dtype`` product has no backward of its own)."""
+
+  @staticmethod
+  def forward(ctx, x, w):
+    ctx.save_for_backward(x, w)
+    return _f32_product(x, w)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, w = ctx.saved_tensors
+    g = g.to(x.dtype)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = torch.matmul(g, w.transpose(-1, -2))
+    if ctx.needs_input_grad[1]:
+      if w.ndim == 2:
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                          g.reshape(-1, g.shape[-1]))
+      else:
+        dw = torch.matmul(x.transpose(-1, -2), g)
+    return dx, dw
+
+
+def f32_product(x: Tensor, w: Tensor) -> Tensor:
+  """x @ w with an f32 result and no rounding on the way: a card's bf16
+  product accumulates in f32 and writes f32 (``out_dtype``); elsewhere the
+  operands are widened (exact) and multiplied in f32.  Differentiable
+  (``_F32Product``)."""
+  if x.dtype == torch.float32:
+    return torch.matmul(x, w)
+  if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    return _F32Product.apply(x, w)
+  return _f32_product(x, w)
 
 
 def _ordered_sum(parts, device, rows: Optional[slice] = None) -> Tensor:
@@ -570,6 +615,68 @@ def vocab_argmax(logits: Tensor, vocab: int) -> Tensor:
             take, i, best_i)
     return best_i
   return pos.group.meet(pos.rank, (val, idx + vocab_start(vocab)), merge)
+
+
+class _LogsumexpGrad(torch.autograd.Function):
+  """A zero whose backward is ``torch.logsumexp``'s for one vocab piece:
+  g · exp(l − logz), given the merged ``logz``.  Added to the merged value
+  through ``tp_sum`` (whose backward hands g to every position's term
+  unchanged), it makes the line's log-sum-exp differentiable with the
+  one-device rounding."""
+
+  @staticmethod
+  def forward(ctx, logits, logz):
+    ctx.save_for_backward(logits, logz)
+    return torch.zeros_like(logz)
+
+  @staticmethod
+  def backward(ctx, g):
+    logits, logz = ctx.saved_tensors
+    return g[..., None] * torch.exp(logits - logz[..., None]), None
+
+
+def vocab_logsumexp(logits: Tensor) -> Tensor:
+  """log Σ exp over the last dim of the whole padded vocab, in f32.  On a
+  position ``logits`` is its vocab piece: each piece's max and Σ exp(l −
+  max) meet as (...) statistics and merge in position order; the gradient
+  comes back to each piece as g · exp(l − logz) (``_LogsumexpGrad``)."""
+  logits = logits.float()
+  pos = position()
+  if pos is None:
+    return torch.logsumexp(logits, dim=-1)
+  dev = logits.device
+  with torch.no_grad():
+    m = logits.amax(dim=-1)
+    s = torch.exp(logits - m[..., None]).sum(dim=-1)
+
+    def merge(parts):
+      parts = [(pm.to(dev), ps.to(dev)) for pm, ps in parts]
+      top = parts[0][0]
+      for pm, _ in parts[1:]:
+        top = torch.maximum(top, pm)
+      total = None
+      for pm, ps in parts:
+        term = ps * torch.exp(pm - top)
+        total = term if total is None else total + term
+      return top + torch.log(total)
+    logz = pos.group.meet(pos.rank, (m, s), merge)
+  if not (torch.is_grad_enabled() and logits.requires_grad):
+    return logz
+  return logz + tp_sum(_LogsumexpGrad.apply(logits, logz), torch.float32)
+
+
+def vocab_gold(logits: Tensor, idx: Tensor, vocab: int) -> Tensor:
+  """logits[..., idx] in f32 for indices into the whole padded vocab of
+  ``vocab`` rows.  On a position the piece that holds an index gives it and
+  the others zero; their f32 sum over the line is exact."""
+  pos = position()
+  if pos is None:
+    return torch.gather(logits.float(), -1, idx[..., None])[..., 0]
+  local = idx - vocab_start(vocab)
+  inside = (local >= 0) & (local < logits.shape[-1])
+  at = local.clamp(0, max(logits.shape[-1] - 1, 0))
+  picked = torch.gather(logits.float(), -1, at[..., None])[..., 0]
+  return tp_sum(torch.where(inside, picked, 0.0), torch.float32)
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:

@@ -5,8 +5,8 @@ SwiGLU weights (or, ungated, the enc-dec family's GELU weights) in the
 reference's layout; ``mlp`` is the block as a function of such a dict
 (GELU when the dict has no ``w3``, as the reference's ungated weights have
 none); ``MLP`` holds one layer's weights as a module.  On a mesh position
-(tensor-parallel serving) w1 and w3 are column-parallel and w2
-row-parallel (``common.row_parallel``).
+(tensor parallelism, serving or training) w1 and w3 are column-parallel
+and w2 row-parallel (``common.row_parallel``).
 """
 from __future__ import annotations
 

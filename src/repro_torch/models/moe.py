@@ -19,10 +19,10 @@ since each of them decides which tokens an expert sees:
   * combine: each (token, choice) slot gathered back, weighted by
     gate · keep in ``cfg.dtype`` and summed over the k choices.
 
-On a mesh position (tensor-parallel serving) the router is replicated,
-so every position routes, drops and slots alike; each runs the experts on
-its slice of the expert width F, and the f32 partial sums of w2 are added
-over the line (``common.tp_sum``) before the combine.
+On a mesh position (tensor parallelism, serving or training) the router
+is replicated, so every position routes, drops and slots alike; each runs
+the experts on its slice of the expert width F, and the f32 partial sums
+of w2 are added over the line (``common.tp_sum``) before the combine.
 
 The reference vmaps a one-row dispatch over the batch; here the batch is a
 leading axis, and the capacity buffer is laid out (E, B, C, D) so that the

@@ -13,6 +13,13 @@ product) rows, the last one shorter — the size ``launch/dryrun.local_bytes``
 reckons.  Every mesh position holds its own piece on its own device;
 positions that differ only along an axis the spec does not name hold real
 copies of the same piece (replicas).
+
+In training, ``gather_part`` is the gather along ``data`` with a
+backward: the part is copied together from the pieces (no gradient is
+recorded on them), and its backward hands the part's gradient to a
+callback that adds it into the owners' gradient sums
+(``train/sharded.PositionGrads``).  Nothing keeps the gathered part alive
+but the tensors the forward saves from it.
 """
 from __future__ import annotations
 
@@ -143,3 +150,28 @@ def assemble(box: tuple, sources, device, dtype: torch.dtype) -> Tensor:
                       for c, b in zip(cut, src_box))],
           non_blocking=device.type == "cuda")
   return out
+
+
+class _Gathered(torch.autograd.Function):
+  """``assemble`` as a node of the autograd graph: the ``anchor`` (an
+  empty leaf that wants a gradient) puts it there, and the backward gives
+  the part's gradient to ``route`` instead of to any input."""
+
+  @staticmethod
+  def forward(ctx, anchor, box, sources, device, dtype, route):
+    ctx.route = route
+    return assemble(box, sources, device, dtype)
+
+  @staticmethod
+  def backward(ctx, grad):
+    ctx.route(grad)
+    return (None,) * 6
+
+
+def gather_part(box: tuple, sources, device, dtype: torch.dtype,
+                route) -> Tensor:
+  """``assemble(box, sources, device, dtype)`` as a part of the autograd
+  graph: ``route(grad)`` receives its gradient (once per use of the part)
+  during the backward."""
+  anchor = torch.empty(0, requires_grad=True)
+  return _Gathered.apply(anchor, box, sources, device, dtype, route)

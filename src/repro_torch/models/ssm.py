@@ -15,14 +15,15 @@ out_proj.  Decode (S == 1) is the single-step recurrence on the state
 (B, K−1, 2GN)}.  Parameters are one layer's dict in the reference's
 layout, cast to ``cfg.dtype`` at use.
 
-On a mesh position (tensor-parallel serving) ``in_proj_z``, ``in_proj_x``
-and ``conv_w`` hold the position's slice of the inner width (its H/tp
-heads), ``dt_proj``, ``A_log``, ``dt_bias``, ``ssd_skip_D`` and the norm
-scale are sliced to those heads, ``bc_proj`` stays whole (each position
-takes the groups its heads read), K4 runs on the H/tp heads, the gated
-norm's mean square is the line's sum over the whole inner width
-(``common.rms_norm_wide``) and ``out_proj`` is row-parallel.  The block
-reads its head count from ``in_proj_x``'s width.
+On a mesh position (tensor parallelism, serving or training)
+``in_proj_z``, ``in_proj_x`` and ``conv_w`` hold the position's slice of
+the inner width (its H/tp heads), ``dt_proj``, ``A_log``, ``dt_bias``,
+``ssd_skip_D`` and the norm scale are sliced to those heads, ``bc_proj``
+stays whole (each position takes the groups its heads read), K4 runs on
+the H/tp heads, the gated norm's mean square is the line's sum over the
+whole inner width (``common.rms_norm_wide``, whose backward flows through
+its meeting) and ``out_proj`` is row-parallel.  The block reads its head
+count from ``in_proj_x``'s width.
 """
 from __future__ import annotations
 

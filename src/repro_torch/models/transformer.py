@@ -8,9 +8,9 @@ model loops over them.  A block takes the ``moe`` subtree where
 ``cfg.n_experts`` is set and the ``mlp`` subtree otherwise; the model's aux
 loss is the mean of its blocks' (0 for a dense block).  The model takes
 token ids or precomputed (B, S, D) embeddings (a modality frontend's).
-On a mesh position (tensor-parallel serving) the embedding and the LM head
-are the position's vocab piece: the lookup is ``common.embed`` and the
-logits are the piece's columns.
+On a mesh position (tensor parallelism, serving or training) the
+embedding and the LM head are the position's vocab piece: the lookup is
+``common.embed`` and the logits are the piece's columns.
 """
 from __future__ import annotations
 

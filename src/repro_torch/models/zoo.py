@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -250,7 +251,7 @@ def param_count(model: nn.Module) -> int:
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving on a mesh
+# tensor parallelism on a mesh: serving and training
 # ---------------------------------------------------------------------------
 
 
@@ -291,8 +292,9 @@ def _head_slice(path: str, ndim: int, cfg: cm.ModelConfig, rank: int,
 
 @dataclasses.dataclass
 class ShardedLM:
-  """A model's weights on a mesh for tensor-parallel serving, and one
-  module per position over that position's part of them (``shard``).
+  """A model's weights on a mesh, and one module per position over that
+  position's part of them, for tensor-parallel serving (``shard``) and
+  training (``train.steps.make_train_step`` with ``mesh=``).
 
   ``weights`` is the parameter tree cut by ``common.specs_like`` (a tree
   of ``placement.Sharded``).  Position (i, j) computes with the part
@@ -302,15 +304,35 @@ class ShardedLM:
   cut along ``data``: the position's module holds meta placeholders, and
   each layer gathers its part from the line's column just before it runs
   and frees it after (``common.whole_weights``).
+
+  In training (``grads``, a ``train.sharded.PositionGrads``) every part a
+  position computes with wants a gradient, and ``grads.add(path, pos,
+  box, grad)`` receives it, ``box`` the part's slices of the whole leaf:
+  an own part is a leaf parameter (a view of the f32 master) whose
+  gradient is handed on once the backward has summed it; a part gathered
+  along ``data`` hands on its gradient at each use
+  (``placement.gather_part``).  Such a part is gathered in the dtype its
+  layer computes in (``cfg.dtype``; f32 for the router, whose product runs
+  in f32), which is the one-device cast at use, and the tensors the
+  backward needs from it are kept as the recipe to gather them again
+  (``_Regather``), so a position holds one layer's gathered weights at a
+  time, as ZeRO-3 does.  With ``copy_dtype`` (``zero2``) every part is
+  instead a copy in that dtype, gathered once when the positions are
+  built, and a leaf parameter.
   """
 
   cfg: cm.ModelConfig
   mesh: object
   par: cm.Parallelism
   weights: dict
+  grads: Optional[object] = None
+  copy_dtype: Optional[torch.dtype] = None
   modules: dict = dataclasses.field(init=False, repr=False)
+  meetings: int = dataclasses.field(default=0, init=False)
+  _regather: "_Regather" = dataclasses.field(init=False, repr=False)
 
   def __post_init__(self):
+    self._regather = _Regather()
     names, sizes = self.mesh.axis_names, self.mesh.shape
     if (names != (self.par.dp, self.par.tp) or
         sizes[self.par.tp] != self.par.tp_size or
@@ -327,6 +349,8 @@ class ShardedLM:
     dev = mesh.devices[pos[0]][pos[1]]
     data = set(self.par.data_axes)
     gathers: dict = {}
+    boxes: dict = {}
+    regather = self._regather
 
     def leaf(path, x):
       spec = tuple(None if set(placement.names(e)) & data else e
@@ -336,28 +360,41 @@ class ShardedLM:
       if cut is not None:
         dim, lo, hi = cut
         box[dim] = slice(box[dim].start + lo, box[dim].start + hi)
+      box = boxes[path] = tuple(box)
       own = x.box(pos)
-      if all(o.start <= b.start and b.stop <= o.stop
-             for o, b in zip(own, box)):
+      inside = all(o.start <= b.start and b.stop <= o.stop
+                   for o, b in zip(own, box))
+      sources = ([(own, x.pieces[pos])] if inside else
+                 [(x.box(p), x.pieces[p]) for p in x.distinct()])
+      if self.copy_dtype is not None:
+        return placement.assemble(box, sources, dev, self.copy_dtype)
+      if inside:
         return x.pieces[pos][tuple(slice(b.start - o.start, b.stop - o.start)
                                    for b, o in zip(box, own))]
-      sources = [(x.box(p), x.pieces[p]) for p in x.distinct()]
       placeholder = nn.Parameter(torch.empty(
           [b.stop - b.start for b in box], dtype=x.dtype, device="meta"),
           requires_grad=False)
-      gathers[path] = (lambda: placement.assemble(tuple(box), sources, dev,
-                                                  x.dtype), placeholder)
+      if self.grads is None:
+        gathers[path] = (lambda: placement.assemble(box, sources, dev,
+                                                    x.dtype), placeholder)
+        return placeholder
+      dtype = torch.float32 if path.endswith(_F32_LEAVES) else cfg.dtype
+      route = functools.partial(self.grads.add, path, pos, box)
+      # no reference back to self: the step's gradient sums are freed with
+      # the positions, without waiting for the cycle collector
+      gathers[path] = (functools.partial(regather.gathered, box, sources,
+                                         dev, dtype, route), placeholder)
       return placeholder
 
-    def walk(tree, prefix):
-      if isinstance(tree, dict):
-        return {k: walk(v, f"{prefix}/{k}" if prefix else k)
-                for k, v in tree.items()}
-      if isinstance(tree, list):
-        return [walk(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
-      return leaf(prefix, tree)
-
-    module = from_params(cfg, walk(self.weights, ""))
+    module = from_params(cfg, _map_paths(leaf, self.weights, ""))
+    if self.grads is not None:
+      for name, p in module.named_parameters():
+        path = name.replace(".", "/")
+        if path in gathers:
+          continue
+        p.requires_grad_(True)
+        p.register_post_accumulate_grad_hook(functools.partial(
+            _hand_on, self.grads, path, pos, boxes[path]))
     for path, entry in gathers.items():
       *owner, name = path.split("/")
       sub = module.get_submodule(".".join(owner))
@@ -392,8 +429,12 @@ class ShardedLM:
     """``body(module, *args)`` on every position, each in a thread of its
     own with its ``common.Position`` installed, the threads taking turns
     between meetings (``common.Baton``); each argument is taken per
-    position (``_rows``).  Returns the results as a ``PerPosition``."""
+    position (``_rows``).  Returns the results as a ``PerPosition``;
+    ``meetings`` counts the meetings the first line has held over the
+    runs."""
     order = placement.positions(self.mesh)
+    if self.grads is not None:
+      body = self._regather.around(body)
     baton = cm.Baton(order)
     groups = [cm.LineGroup(self.par.tp_size, baton,
                            [(i, j) for j in range(self.par.tp_size)])
@@ -405,7 +446,9 @@ class ShardedLM:
       jobs[pos].position = cm.Position(
           groups[pos[0]], pos[1], self.par.tp, self.par.seq_shard_decode)
       devices[pos] = self.mesh.devices[pos[0]][pos[1]]
-    return PerPosition(cm.run_positions(jobs, devices))
+    out = PerPosition(cm.run_positions(jobs, devices))
+    self.meetings += groups[0].held
+    return out
 
   def lines(self, out: PerPosition, index=None) -> Tensor:
     """The lines' first positions' results (their ``index``-th item when
@@ -414,6 +457,75 @@ class ShardedLM:
     parts = [out[(i, 0)] if index is None else out[(i, 0)][index]
              for i in range(len(self.mesh.devices))]
     return torch.cat([t.to(first) for t in parts])
+
+
+def _map_paths(fn: Callable, tree, prefix: str):
+  """``fn(path, leaf)`` over a tree of dicts and lists, paths as
+  ``common.tree_paths`` gives them."""
+  if isinstance(tree, dict):
+    return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else k)
+            for k, v in tree.items()}
+  if isinstance(tree, list):
+    return [_map_paths(fn, v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+  return fn(prefix, tree)
+
+
+# leaves the block code computes with in f32 (``moe._route``)
+_F32_LEAVES = ("router",)
+
+
+class _Regather:
+  """Saved-tensor hooks for training on a mesh: a tensor that the backward
+  needs and that is (a view of) a part gathered along ``data`` for one
+  layer is saved as the recipe to gather it again, not kept alive; the
+  backward's unpacking gathers it anew.  Parts are known by their storage
+  while they live (a weak reference, so a freed part is never matched)."""
+
+  def __init__(self):
+    self._live: dict = {}
+
+  def gathered(self, box, sources, device, dtype, route) -> Tensor:
+    t = placement.gather_part(box, sources, device, dtype, route)
+    if not t.numel():
+      return t
+    key = (t.device, t.untyped_storage().data_ptr())
+    self._live[key] = (weakref.ref(t), functools.partial(
+        placement.assemble, box, sources, device, dtype))
+    return t
+
+  def _pack(self, t: Tensor):
+    key = (t.device, t.untyped_storage().data_ptr())
+    hit = self._live.get(key)
+    if hit is None:
+      return t
+    part = hit[0]()
+    if part is None or part.untyped_storage().data_ptr() != key[1]:
+      del self._live[key]
+      return t
+    return hit[1], tuple(t.shape), t.stride(), t.storage_offset()
+
+  @staticmethod
+  def _unpack(saved):
+    if isinstance(saved, Tensor):
+      return saved
+    again, shape, stride, offset = saved
+    return again().as_strided(shape, stride, offset)
+
+  def around(self, body: Callable) -> Callable:
+    """``body`` with these hooks on for the saves it makes (the hooks are
+    the calling thread's)."""
+    @functools.wraps(body)
+    def run(*args):
+      with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
+        return body(*args)
+    return run
+
+
+def _hand_on(grads, path: str, pos: tuple, box: tuple, p: Tensor) -> None:
+  """A position's leaf parameter's summed gradient, handed to ``grads``
+  and dropped from the parameter."""
+  g, p.grad = p.grad, None
+  grads.add(path, pos, box, g)
 
 
 def _gather_layer(layer, args):
@@ -425,17 +537,22 @@ def _release_layer(layer, args, out):
   layer.__dict__.pop("_whole").__exit__(None, None, None)
 
 
+def mesh_parallelism(mesh) -> cm.Parallelism:
+  """``Parallelism`` of ``mesh``'s own axes and sizes with the reference's
+  knobs (fsdp and ``seq_shard_decode`` on)."""
+  return cm.Parallelism(data_axes=(mesh.axis_names[0],),
+                        model_axis=mesh.axis_names[1],
+                        tp_size=mesh.shape[mesh.axis_names[1]],
+                        dp_size=mesh.shape[mesh.axis_names[0]])
+
+
 def shard(cfg: cm.ModelConfig, model: nn.Module, mesh,
           par: Optional[cm.Parallelism] = None) -> ShardedLM:
   """``model``'s weights cut onto ``mesh`` by ``specs_like`` (copies; the
   model is untouched) for tensor-parallel serving.  ``par`` defaults to
   the mesh's own sizes with the reference's knobs (fsdp and
   ``seq_shard_decode`` on)."""
-  if par is None:
-    par = cm.Parallelism(data_axes=(mesh.axis_names[0],),
-                         model_axis=mesh.axis_names[1],
-                         tp_size=mesh.shape[mesh.axis_names[1]],
-                         dp_size=mesh.shape[mesh.axis_names[0]])
+  par = mesh_parallelism(mesh) if par is None else par
   params = param_tree(model)
   return ShardedLM(cfg, mesh, par, placement.shard_tree(
       params, cm.specs_like(params, cfg, par), mesh))

@@ -1,4 +1,4 @@
-"""Training state cut over a mesh: the all-gather and the reduce-scatter
+"""Training state cut over a mesh: the all-gather and the gradient sums
 of the train step.
 
 Port-only: it takes the place of the reference's GSPMD collectives
@@ -12,8 +12,12 @@ computing each one in the same order.
   * ``shard_tree`` — cut a tree of whole tensors onto the mesh;
   * ``gather_tree`` — the whole leaves on one device (the all-gather), cast
     on the way when a dtype is given;
-  * ``reduce_scatter`` — one data line's gradients into the owners' pieces,
-    summed in f32 (rounded to bf16 for the copy when asked);
+  * ``PositionGrads`` — the tensor-parallel step's gradient sums: each
+    mesh position's gradient of the part of a leaf it computed with, added
+    into the owners' pieces during the backward (a leaf cut over the model
+    axis), or summed over the line's positions in position order and added
+    into every replica alike (a leaf replicated over it); rounded to bf16
+    for the copy when asked;
   * ``ShardedState`` — the f32 master and AdamW's ``m`` and ``v`` under the
     parameters' specs, and the replicated step count.
 """
@@ -24,8 +28,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.placement import (Sharded, assemble, positions,
-                                          shard_leaf, shard_tree)
+from repro_torch.models.common import tree_paths
+from repro_torch.models.placement import (Sharded, assemble, names,
+                                          positions, shard_leaf, shard_tree)
 from repro_torch.train.optimizer import _leaves, tree_map
 
 Tensor = torch.Tensor
@@ -56,31 +61,110 @@ def gather_tree(sharded, device, dtype: Optional[torch.dtype] = None):
   return tree_map(one, sharded)
 
 
-def reduce_scatter(acc, grads: list, bf16: bool = False):
-  """Add one line's whole f32 gradients (``grads``, in ``_leaves`` order)
-  into ``acc``, a tree of ``Sharded`` f32 sums: each position takes its
-  box, copied onto its device (rounded to bf16 for the copy when ``bf16``)
-  and summed in f32.  A position with nothing summed yet (a piece of
-  ``None``) takes the copy itself."""
-  for x, g in zip(_leaves(acc), grads, strict=True):
+def _overlap(box: tuple, other: tuple):
+  """(slices of ``box``'s tensor, slices of ``other``'s) where the two
+  boxes of one leaf meet; None where they do not."""
+  cut = [slice(max(a.start, b.start), min(a.stop, b.stop))
+         for a, b in zip(box, other)]
+  if any(c.start >= c.stop for c in cut):
+    return None
+  return (tuple(slice(c.start - a.start, c.stop - a.start)
+                for c, a in zip(cut, box)),
+          tuple(slice(c.start - b.start, c.stop - b.start)
+                for c, b in zip(cut, other)))
+
+
+class PositionGrads:
+  """A tensor-parallel step's gradient sums in the master's layout, fed by
+  the mesh positions during the backward (``zoo.ShardedLM(grads=...)``).
+
+  ``acc`` is a tree of ``Sharded`` f32 sums cut like ``like`` (the
+  master).  A piece is made by the first copy added into it, so the sums
+  take memory only as the backward produces them, as one device's
+  gradients do; ``fill`` zeroes the pieces nothing reached (a leaf the
+  batch does not use).  ``add(path, pos, box, grad)`` takes position
+  ``pos``'s gradient of the part ``box`` (slices of the whole leaf) it
+  computed with:
+    * a leaf cut over the model axis: the part is added at once into every
+      piece it overlaps (its owners along ``data``, or its replicas there
+      when the leaf is not cut along ``data``).  The lines' backwards run
+      one after another in line order, so each piece sums the lines in
+      that order;
+    * a leaf replicated over the model axis (norm scales, the router,
+      ``bc_proj``, the per-head SSM leaves, k/v projections when tp does
+      not divide the kv heads): the parts are held until the line's
+      backward ends (``flush``), then summed over their boxes in position
+      order in f32, and the sum is added into every replica alike, so the
+      replicas stay bit-equal.
+  With ``bf16`` each copy is rounded to bf16 before it is added
+  (``grad_comm_bf16``).
+  """
+
+  def __init__(self, like, model_axis: str, bf16: bool = False):
+    self.acc = tree_map(lambda x: Sharded(
+        x.shape, torch.float32, x.spec, x.mesh,
+        {pos: None for pos in positions(x.mesh)}), like)
+    self.model_axis, self.bf16 = model_axis, bf16
+    self.leaves = tree_paths(self.acc)
+    self._held: dict = {}
+
+  def _cut_over_model(self, x: Sharded) -> bool:
+    return any(self.model_axis in names(e) for e in x.spec)
+
+  def add(self, path: str, pos: tuple, box: tuple, grad: Tensor) -> None:
+    x = self.leaves[path]
+    if self._cut_over_model(x):
+      self._scatter(x, box, grad)
+      return
+    held = self._held.setdefault(path, {})
+    if pos in held:
+      held[pos] = (box, held[pos][1] + grad.float())
+    else:
+      held[pos] = (box, grad.float())
+
+  def flush(self) -> None:
+    """Sum the held parts of a line that has finished its backward."""
+    for path, held in self._held.items():
+      x = self.leaves[path]
+      dev = held[min(held)][1].device
+      total = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+      for pos in sorted(held):
+        box, g = held[pos]
+        total[box] += g.to(dev)
+      self._scatter(x, tuple(slice(0, n) for n in x.shape), total)
+    self._held = {}
+
+  def fill(self) -> None:
+    """Zero pieces for the parts no gradient reached."""
+    for x in _leaves(self.acc):
+      for pos, p in x.pieces.items():
+        if p is None:
+          dev = x.mesh.devices[pos[0]][pos[1]]
+          x.pieces[pos] = torch.zeros(
+              [s.stop - s.start for s in x.box(pos)], dtype=torch.float32,
+              device=dev)
+
+  def _scatter(self, x: Sharded, box: tuple, grad: Tensor) -> None:
     for pos in positions(x.mesh):
-      dev = x.mesh.devices[pos[0]][pos[1]]
-      part = g[x.box(pos)]
-      if bf16:
+      own = x.box(pos)
+      cut = _overlap(box, own)
+      if cut is None:
+        continue
+      part = grad[cut[0]]
+      if self.bf16:
         part = part.to(torch.bfloat16)
-      if x.pieces[pos] is None:  # a copy: replicas must not share storage
-        x.pieces[pos] = part.to(dev, torch.float32, copy=True).contiguous()
-      else:
-        x.pieces[pos].add_(part.to(dev, non_blocking=True))
-  return acc
-
-
-def empty_like_tree(sharded):
-  """A tree of ``Sharded`` f32 sums with no pieces yet, for
-  ``reduce_scatter``."""
-  return tree_map(lambda x: Sharded(x.shape, torch.float32, x.spec, x.mesh,
-                                    {pos: None for pos in positions(x.mesh)}),
-                  sharded)
+      dev = x.mesh.devices[pos[0]][pos[1]]
+      if x.pieces[pos] is None:
+        if all(c.stop - c.start == o.stop - o.start
+               for c, o in zip(cut[1], own)):
+          # a copy: replicas must not share storage
+          x.pieces[pos] = part.to(dev, torch.float32, copy=True
+                                  ).contiguous()
+          continue
+        x.pieces[pos] = torch.zeros([o.stop - o.start for o in own],
+                                    dtype=torch.float32, device=dev)
+      dst = x.pieces[pos][cut[1]]
+      dst.add_(part.to(dst.device, non_blocking=True))
 
 
 def tree_local_bytes(sharded, pos: tuple) -> int:

@@ -20,16 +20,28 @@ microbatch's gradients to bf16 and back before they are added up.
 
 On a mesh (``mesh=``) the state is a ``train.sharded.ShardedState``: the
 f32 master, both moments and the gradient sums are cut by the parameters'
-specs over both axes.  Each microbatch's rows split over the ``data``
-axis, and line i runs its rows forward and backward whole on its first
-shard, ``mesh.devices[i][0]`` — the ``model`` axis shards storage, not
-compute.  The line gathers the f32 master for every microbatch (ZeRO-3),
-or under ``zero2`` the ``cfg.dtype`` copy once per step; its gradients are
-reduce-scattered into the master's pieces and summed in f32 on their
-owners (rounded to bf16 for the copy under ``grad_comm_bf16``); AdamW runs
-piece by piece.  The loss is the global masked mean; the MoE aux is the
-mean of the lines' (the reference takes its fractions over the whole
-batch).  ``make_prefill_step`` / ``make_decode_step`` are the two serving
+specs over both axes, and the step is tensor-parallel.  Each microbatch's
+rows split over the ``data`` axis; position (i, j) runs line i's rows
+forward on its H/tp heads, its slice of the MLP, expert and SSM inner
+widths and its vocab piece (a ``zoo.ShardedLM`` over the master, one
+thread per position), computing with its own master pieces, with the
+parts cut along ``data`` gathered layer by layer (ZeRO-3), or under
+``zero2`` with a ``cfg.dtype`` copy of its part gathered once per step.
+The positions of a line meet where the reference's GSPMD program
+communicates, and the cross-entropy is vocab-parallel (each piece's
+log-sum-exp statistics and the gold logit meet as (B, S) terms).  The
+threads record one autograd graph per line; the step then runs one
+backward per line, in line order, from its position 0's loss (every
+position's copy of a meeting carries gradient into every partial, so one
+copy is the whole gradient), with no meeting in it.  Each position's
+gradients go straight into the master's pieces
+(``train.sharded.PositionGrads``: summed in f32, rounded to bf16 for the
+copy under ``grad_comm_bf16``); AdamW runs piece by piece.  The loss is
+the global masked mean; the MoE aux is the mean of the lines' (the
+reference takes its fractions over the whole batch).  ``remat`` is
+refused with a model axis of more than one position: its recompute would
+run inside the backward, where a meeting cannot be held (ROADMAP item 16,
+step 3).  ``make_prefill_step`` / ``make_decode_step`` are the two serving
 steps, for every family's cache (dense, MoE, VLM and the enc-dec decoder's
 KV, SSM state, hybrid both), on one device or tensor-parallel on a
 ``zoo.ShardedLM``.  A batch carries ``src_embeds`` for the
@@ -37,6 +49,8 @@ enc-dec family (its source frames) and, in an enc-dec decode, the encoder
 output ``enc_out``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -58,13 +72,22 @@ def _mask(labels: Tensor, vocab: int) -> Tensor:
   return ((labels >= 0) & (labels < vocab)).float()
 
 
-def xent_sum(logits: Tensor, labels: Tensor, vocab: int) -> Tensor:
+def xent_sum(logits: Tensor, labels: Tensor, vocab: int,
+             padded: Optional[int] = None) -> Tensor:
   """Σ next-token cross-entropy · mask in f32; labels outside [0, vocab)
-  (pad ids) are masked."""
-  logits = logits.float()
-  logz = torch.logsumexp(logits, dim=-1)
-  idx = labels.long().clamp(0, logits.shape[-1] - 1)
-  gold = torch.gather(logits, -1, idx[..., None])[..., 0]
+  (pad ids) are masked.  The log-sum-exp runs over the ``padded`` vocab
+  (the logits' width on one device), as the reference's does.  On a mesh
+  position ``logits`` is its vocab piece of the ``padded`` vocab and the
+  terms meet over the line (``common.vocab_logsumexp``,
+  ``common.vocab_gold``)."""
+  if padded is None:
+    if cm.position() is not None:
+      raise ValueError("on a mesh position xent_sum needs the padded vocab")
+    padded = logits.shape[-1]
+  logits = logits.float()  # one f32 copy, saved for both terms' backward
+  logz = cm.vocab_logsumexp(logits)
+  idx = labels.long().clamp(0, padded - 1)
+  gold = cm.vocab_gold(logits, idx, padded)
   return torch.sum((logz - gold) * _mask(labels, vocab))
 
 
@@ -104,9 +127,12 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
   ``batch_size / accum`` rows one after another, summing their f32
   gradients, then averages them and applies ``adamw_update`` in place.
   On a ``launch.mesh.Mesh`` the state is a ``ShardedState`` on that mesh
-  (``train.sharded.shard_state``), updated in place; ``grad_specs``, when
-  given, must be its specs.  Metrics are device tensors: ``loss``,
-  ``aux_loss``, ``grad_norm``, ``lr``.
+  (``train.sharded.shard_state``), updated in place by the
+  tensor-parallel step (see the module's docstring); ``grad_specs``, when
+  given, must be its specs, and ``remat`` must be "none" when its model
+  axis has more than one position.  Metrics are device tensors: ``loss``,
+  ``aux_loss``, ``grad_norm``, ``lr``; on a mesh also ``meetings``, the
+  number of meetings a data line's positions held in the step (an int).
   """
   if impl not in TRAIN_IMPLS:
     raise ValueError(
@@ -115,22 +141,21 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
         f"reference's Pallas arms cannot be differentiated")
   if accum < 1:
     raise ValueError(f"accum must be >= 1, got {accum}")
+  if mesh is not None and mesh.shape[mesh.axis_names[1]] > 1 \
+      and remat != "none":
+    raise ValueError(
+        f"remat={remat!r} on a tensor-parallel mesh: the recompute runs "
+        f"inside the backward, where the positions cannot meet (ROADMAP "
+        f"item 16, step 3); train with remat='none'")
   # as in the reference, zero2 acts only with gradient specs to pin
   zero2 = zero2 and grad_specs is not None
 
-  def grads_of(model, mb, count=None, aux_weight=1.0):
-    """(f32 gradients of the model's leaves, loss, aux) of one batch; the
-    loss is Σ nll·mask over ``count`` (its own mask count by default)."""
+  def grads_of(model, mb):
+    """(f32 gradients of the model's leaves, loss, aux) of one batch."""
     leaves = opt_mod._leaves(zoo.param_tree(model))
     for p in leaves:
       p.requires_grad_(True)
-    if count is None:
-      tot, (loss, aux) = loss_fn(model, cfg, mb, impl=impl, remat=remat)
-    else:
-      logits, _, aux = zoo.forward(model, cfg, mb, mode="train", impl=impl,
-                                   remat=remat)
-      loss = xent_sum(logits[:, :-1], mb["labels"][:, 1:], cfg.vocab) / count
-      tot = loss + 0.01 * aux * aux_weight
+    tot, (loss, aux) = loss_fn(model, cfg, mb, impl=impl, remat=remat)
     # a leaf the batch does not reach (the embedding, when the batch
     # carries embeddings) has a zero gradient, as under jax.grad
     grads = torch.autograd.grad(tot, leaves, allow_unused=True)
@@ -171,6 +196,16 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
     _, new_opt, om = opt_mod.adamw_update(oc, params, grad_tree, opt_state)
     return (model, new_opt), {"loss": loss, "aux_loss": aux, **om}
 
+  vocab = tf_mod.padded_vocab(cfg)
+
+  def position_loss(local, sub, count, aux_weight):
+    """One position's part of a line's loss: (loss + 0.01·aux·aux_weight
+    with its graph, loss, aux), the loss Σ nll·mask over ``count``."""
+    logits, _, aux = zoo.forward(local, cfg, sub, mode="train", impl=impl)
+    loss = xent_sum(logits[:, :-1], sub["labels"][:, 1:], cfg.vocab,
+                    vocab) / count
+    return (loss + 0.01 * aux * aux_weight, loss.detach(), aux.detach())
+
   def mesh_step(state, batch):
     if not isinstance(state, sharded.ShardedState) or state.mesh != mesh:
       raise TypeError("a train step on a mesh takes a ShardedState on that "
@@ -178,34 +213,41 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
     if grad_specs is not None and grad_specs != state.specs:
       raise ValueError("grad_specs must equal the state's specs: the "
                        "gradients land in the master's layout")
-    lines = [row[0] for row in mesh.devices]
-    dev0 = lines[0]
-    models = ([zoo.from_params(cfg, sharded.gather_tree(state.master, d,
-                                                        cfg.dtype))
-               for d in lines] if zero2 else None)
-    acc = sharded.empty_like_tree(state.master)
+    lines = len(mesh.devices)
+    dev0 = mesh.devices[0][0]
+    par = zoo.mesh_parallelism(mesh)
+    sink = sharded.PositionGrads(state.master, par.tp, bf16=grad_comm_bf16)
+    acc = sink.acc
+    # the positions over the master (zero2: over their compute copies,
+    # gathered here once per step)
+    lm = zoo.ShardedLM(cfg, mesh, par, state.master, grads=sink,
+                       copy_dtype=cfg.dtype if zero2 else None)
     loss = aux = 0.0
     for mb in split(batch, batch["tokens"].shape[0], accum, "microbatches"):
       # the global masked mean: every line divides by the microbatch's count
       count = torch.clamp(_mask(mb["labels"][:, 1:], cfg.vocab).sum(),
                           min=1.0)
-      rows = split(mb, mb["tokens"].shape[0], len(lines), "data lines")
-      for i, dev in enumerate(lines):
-        sub = {k: v.to(dev, non_blocking=True) for k, v in rows[i].items()}
-        fwd = models[i] if zero2 else zoo.from_params(
-            cfg, sharded.gather_tree(state.master, dev))  # ZeRO-3
-        g, l_i, a_i = grads_of(fwd, sub, count.to(dev), 1.0 / len(lines))
-        sharded.reduce_scatter(acc, g, bf16=grad_comm_bf16)
-        del g, fwd
+      counts = zoo.PerPosition(  # copies that do not wait for the queue
+          {(i, j): count.to(d, non_blocking=True)
+           for i, row in enumerate(mesh.devices) for j, d in enumerate(row)})
+      out = lm.run(position_loss, mb, counts,
+                   zoo.PerPosition.of(lm, 1.0 / lines))
+      for i in range(lines):
+        tot, l_i, a_i = out[(i, 0)]
+        torch.autograd.backward(tot)
+        sink.flush()
         loss = loss + l_i.to(dev0)
-        aux = aux + a_i.to(dev0) / len(lines)
+        aux = aux + a_i.to(dev0) / lines
+      del out
+    sink.fill()
     if accum > 1:
       for x in opt_mod._leaves(acc):
         for piece in x.pieces.values():
           piece.div_(accum)
       loss, aux = loss / accum, aux / accum
     _, _, om = opt_mod.adamw_update(oc, state, acc)
-    return state, {"loss": loss, "aux_loss": aux, **om}
+    return state, {"loss": loss, "aux_loss": aux, **om,
+                   "meetings": lm.meetings}
 
   return train_step if mesh is None else mesh_step
 

@@ -44,9 +44,11 @@ from repro.models import zoo as jzoo  # noqa: E402
 from repro.train import make_train_step as jmake_train_step  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.launch import dryrun as tdryrun  # noqa: E402
 from repro_torch.launch.dryrun import (_leaves_with_specs,  # noqa: E402
                                        local_bytes)
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import placement  # noqa: E402
@@ -277,28 +279,155 @@ def test_moe_aux_is_the_mean_of_the_lines():
   np.testing.assert_allclose(got[0]["loss"], float(one["loss"]), rtol=1e-5)
 
 
-def test_the_model_axis_shards_storage_not_compute(monkeypatch):
-  """A declared difference: each data line runs its rows forward and
-  backward whole (every parameter at its full shape) on its first shard,
-  once per microbatch; the model axis cuts only the stored state."""
+def test_the_model_axis_shards_compute(monkeypatch):
+  """Every mesh position runs its line's rows forward (and so backward) on
+  its own part of the model: its H/tp query heads and the kv heads they
+  group over, its slice of the MLP width and its vocab piece, never a
+  whole leaf that the specs cut over the model axis."""
   tcfg, model, _ = _model("tinyllama-1.1b")
   mesh = _mesh()
   state, _ = _sharded(tcfg, model, mesh)
-  whole = {tuple(t.shape) for t in topt._leaves(tzoo.param_tree(model))}
-  calls = []
+  tp = mesh.shape["model"]
+  calls, heads = [], []
   forward = tzoo.forward
+  flash = tattn.flash_xla
 
   def spy(m, cfg, batch, **kw):
-    shapes = {tuple(t.shape) for t in topt._leaves(tzoo.param_tree(m))}
-    calls.append((batch["tokens"].shape[0], shapes == whole,
-                  batch["tokens"].device))
+    if not isinstance(m, tzoo.ShardedLM):
+      pos = tcm.position()
+      shapes = {p: tuple(t.shape) for p, t in
+                tcm.tree_paths(tzoo.param_tree(m)).items()}
+      calls.append((None if pos is None else pos.rank,
+                    batch["tokens"].shape[0], shapes))
     return forward(m, cfg, batch, **kw)
+
+  def flash_spy(q, k, v, *a, **kw):
+    heads.append((tcm.position().rank, q.shape[2], k.shape[2]))
+    return flash(q, k, v, *a, **kw)
   monkeypatch.setattr(tzoo, "forward", spy)
+  monkeypatch.setattr(tattn, "flash_xla", flash_spy)
   tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh)(
       state, _batch(tcfg, 0))
   lines = mesh.shape["data"]
-  assert calls == [(ROWS // 2 // lines, True, torch.device("cpu"))] * (
-      2 * lines)
+  assert sorted(c[0] for c in calls) == sorted(list(range(tp)) * lines * 2)
+  assert {c[1] for c in calls} == {ROWS // 2 // lines}
+  d, f, h, kv, hd = (tcfg.d_model, tcfg.d_ff, tcfg.n_heads, tcfg.n_kv_heads,
+                     tcfg.hd)
+  vp = tsteps.tf_mod.padded_vocab(tcfg)
+  for _, _, shapes in calls:
+    assert shapes["embed"] == shapes["lm_head"] == (vp // tp, d)
+    for i in range(tcfg.n_layers):
+      layer = {k.split("/", 2)[2]: v for k, v in shapes.items()
+               if k.startswith(f"blocks/{i}/")}
+      assert layer["attn/wq"] == (d, h // tp, hd)
+      assert layer["attn/wk"] == layer["attn/wv"] == (d, kv // tp, hd)
+      assert layer["attn/wo"] == (h // tp, hd, d)
+      assert layer["mlp/w1"] == layer["mlp/w3"] == (d, f // tp)
+      assert layer["mlp/w2"] == (f // tp, d)
+  assert sorted(heads) == sorted([(j, h // tp, kv // tp) for j in range(tp)]
+                                 * lines * 2 * tcfg.n_layers)
+
+
+def test_remat_on_a_tensor_parallel_mesh_is_refused():
+  """A declared difference: remat's recompute would run inside the
+  backward, where the positions cannot meet (ROADMAP item 16)."""
+  tcfg, _, _ = _model("tinyllama-1.1b")
+  for remat in ("full", "dots"):
+    with pytest.raises(ValueError, match="item 16"):
+      tsteps.make_train_step(tcfg, _oc(), mesh=_mesh(), remat=remat)
+
+
+# kv heads that tp does not divide: one kv head over 2 positions, and 2 kv
+# heads over 4 (each shared by two positions' single query heads)
+KV_CASES = {"1kv_tp2": (1, 2), "2kv_tp4": (2, 4)}
+
+
+@pytest.mark.parametrize("case", list(KV_CASES))
+def test_kv_heads_that_tp_does_not_divide(case):
+  """tinyllama with its kv projections replicated over the model axis
+  (``spec_for``'s GQA rule): each position computes with the kv heads its
+  query heads read, their gradients sum over the positions, and three f32
+  steps stay within rtol 1e-5 (loss, grad norm) and 2·lr (parameters) of
+  the one-device step, with every model-axis replica bit-equal."""
+  n_kv, tp = KV_CASES[case]
+  tcfg, m1, _ = _model("tinyllama-1.1b")
+  tcfg = tcfg.replace(n_kv_heads=n_kv)
+  params = tzoo.param_tree(m1)
+  for layer in params["blocks"]:
+    for name in ("wk", "wv"):
+      layer["attn"][name] = layer["attn"][name][:, :n_kv].contiguous()
+  m1 = tzoo.from_params(tcfg, params)
+  m2 = tzoo.from_params(tcfg, topt.tree_map(torch.clone, params))
+  one, want = _run(tsteps.make_train_step(tcfg, _oc()),
+                   (m1, topt.init_opt_state(tzoo.param_tree(m1))), tcfg)
+  mesh = make_host_mesh(8, model=tp, devices=["cpu"] * 8)
+  state, specs = _sharded(tcfg, m2, mesh)
+  assert specs["blocks"][0]["attn"]["wk"] == ("data", None, None)
+  state, got = _run(tsteps.make_train_step(tcfg, _oc(), mesh=mesh), state,
+                    tcfg)
+  for g, w in zip(got, want):
+    for k in ("loss", "grad_norm"):
+      np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=k)
+  for a, b in zip(topt._leaves(sharded.gather_tree(state.master, "cpu")),
+                  topt._leaves(tzoo.param_tree(one[0]))):
+    np.testing.assert_allclose(a.numpy(), b.detach().numpy(), atol=2 * LR)
+  _assert_replicas_equal(state)
+
+
+def _assert_replicas_equal(state):
+  for tree in (state.master, state.m, state.v):
+    for x in topt._leaves(tree):
+      for group in x.owners().values():
+        for pos in group[1:]:
+          assert torch.equal(x.pieces[pos], x.pieces[group[0]])
+
+
+def _meeting_sites(monkeypatch):
+  """Record, for each meeting position (0, 0) holds, the function that
+  called ``meet`` and its caller."""
+  sites = []
+  meet = tcm.LineGroup.meet
+
+  def spy(self, rank, value, fn):
+    pos = tcm.position()
+    if pos is not None and pos.group is self and rank == 0 and \
+        self.keys[0] == (0, 0):
+      f = sys._getframe(1)
+      sites.append((f.f_code.co_name, f.f_back.f_code.co_name))
+    return meet(self, rank, value, fn)
+  monkeypatch.setattr(tcm.LineGroup, "meet", spy)
+  return sites
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b",
+                                  "mamba2-780m", "zamba2-7b",
+                                  "seamless-m4t-large-v2"])
+def test_row_parallel_meetings_match_the_dry_run(arch, monkeypatch):
+  """The meetings one microbatch of the tensor-parallel step holds: the
+  row-parallel sums are the projections ``launch/dryrun.py``'s
+  ``tp_all_reduce`` charges per forward (2 per transformer block, 1 per SSM
+  layer, 2 per encoder and 3 per decoder layer of the enc-dec); besides
+  them only the embedding's sum, the gated norms' statistics and the
+  loss's three (B, S) terms meet.  The backward holds none, and every
+  model-axis replica is bit-equal after the step."""
+  tcfg, model, _ = _model(arch)
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, model, mesh)
+  sites = _meeting_sites(monkeypatch)
+  step = tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh)
+  _, m = step(state, _batch(tcfg, 0))
+  per_tok, per_src = tdryrun._row_parallel_per_forward(tcfg)
+  row = [s for s in sites if s[0] == "row_parallel" or s[1] in (
+      "row_parallel", "_experts")]
+  assert len(row) == 2 * (per_tok + per_src)          # accum 2
+  rest = sorted(s for s in sites if s not in row)
+  ssm = tcfg.n_layers if tcfg.family in ("ssm", "hybrid") else 0
+  assert rest == sorted(
+      [("tp_sum", "embed")] * 2 + [("tp_sum", "rms_norm_wide")] * 2 * ssm
+      + [("tp_sum", "vocab_gold"), ("tp_sum", "vocab_logsumexp"),
+         ("vocab_logsumexp", "xent_sum")] * 2)
+  assert m["meetings"] == len(sites)
+  _assert_replicas_equal(state)
 
 
 # --- against the port's one-device step --------------------------------------
@@ -422,22 +551,35 @@ def test_a_dimension_that_does_not_divide_is_cut_ceil_sized():
 
 
 def test_reduce_scatter_sums_lines_and_rounds_the_copy():
+  """``PositionGrads``: a leaf cut over the model axis takes each
+  position's part into the owners' pieces (and their replicas along data),
+  summed over the lines; a replicated one sums the line's positions over
+  their boxes in position order at ``flush`` and adds the sum into every
+  replica, which stay copies; bf16 rounds each copy."""
   mesh = _mesh()
-  like = sharded.shard_tree({"w": torch.zeros(8, 4)}, {"w": ("data", None)},
-                            mesh)
-  g1, g2 = torch.randn(8, 4, dtype=torch.float64).float(), torch.randn(8, 4)
-  acc = sharded.empty_like_tree(like)
-  sharded.reduce_scatter(acc, [g1])
-  sharded.reduce_scatter(acc, [g2])
-  assert torch.equal(sharded.gather_leaf(acc["w"], "cpu"), g1 + g2)
-  # the replicas along "model" are copies of the same sum
-  assert acc["w"].pieces[(0, 0)].data_ptr() != acc["w"].pieces[(0, 1)] \
-      .data_ptr()
-  acc = sharded.empty_like_tree(like)
-  sharded.reduce_scatter(acc, [g1], bf16=True)
-  sharded.reduce_scatter(acc, [g2], bf16=True)
-  want = g1.to(torch.bfloat16).float() + g2.to(torch.bfloat16).float()
-  assert torch.equal(sharded.gather_leaf(acc["w"], "cpu"), want)
+  like = sharded.shard_tree({"w": torch.zeros(8, 4), "s": torch.zeros(8)},
+                            {"w": (None, "model"), "s": ("data",)}, mesh)
+  g1, g2 = torch.randn(2, 8, 4), torch.randn(2, 8)
+  for bf16 in (False, True):
+    sink = sharded.PositionGrads(like, "model", bf16=bf16)
+    acc = sink.acc
+    for i in range(mesh.shape["data"]):
+      for j in range(2):
+        box = (slice(0, 8), slice(2 * j, 2 * j + 2))
+        sink.add("w", (i, j), box, g1[i % 2][box])
+        sink.add("s", (i, j), (slice(4 * j, 4 * j + 4),),
+                 g2[i % 2][4 * j:4 * j + 4])
+      sink.flush()
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (
+        lambda t: t)
+    assert torch.equal(sharded.gather_leaf(acc["w"], "cpu"),
+                       rnd(g1[0]) + rnd(g1[1]) + rnd(g1[0]) + rnd(g1[1]))
+    assert torch.equal(sharded.gather_leaf(acc["s"], "cpu"),
+                       rnd(g2[0]) + rnd(g2[1]) + rnd(g2[0]) + rnd(g2[1]))
+    # the replicas along "model" are copies of the same sum
+    assert acc["s"].pieces[(0, 0)].data_ptr() != \
+        acc["s"].pieces[(0, 1)].data_ptr()
+    assert torch.equal(acc["s"].pieces[(0, 0)], acc["s"].pieces[(0, 1)])
 
 
 def test_replicas_stay_equal_and_adamw_matches_one_device():

@@ -267,7 +267,13 @@ Phases (any failure exits non-zero):
      knobs, from the same weights, held to the same limits; (c) the train
      driver with ``--shards 4 --smoke --deterministic`` killed at step 20
      and resumed, as 10(d): the final loss within rtol 1e-5 of the
-     uninterrupted run's.  No K1–K4 launch (impl="xla");
+     uninterrupted run's; (d) remat on the mesh: one step each with
+     remat "none", "full" and "dots" on tinyllama-1.1b uncut and "none"
+     and "full" on zamba2-7b (7 of 81), from the same seeded weights and
+     batch, each remat step's loss and grad norm within rtol 1e-5 of
+     "none"'s, as many meetings, a lower peak; step ms, peak memory,
+     gathers along ``data`` and the bytes of the recorded meeting results
+     per step (``RematSpy``).  No K1–K4 launch (impl="xla");
   18. the examples (lines ``[examples]``) — each of the nine
      ``examples/torch_*.py`` in a subprocess on ``cuda`` at the reference
      examples' sizes (``torch_train_lm.py`` 40 steps of llama-100m at
@@ -281,8 +287,9 @@ Phases (any failure exits non-zero):
      4)``, so the shards run one after another and no interconnect or
      speed-up is measured) — six models at their published widths, seeded
      weights, ``impl="pallas"``, under ``activation_sharding``:
-     tinyllama-1.1b and mamba2-780m uncut, mixtral-8x7b with 2 of 32
-     layers, zamba2-7b with 7 of 81, seamless-m4t-large-v2 uncut (4
+     tinyllama-1.1b with 11 of 22 layers, mamba2-780m with 12 of 48,
+     mixtral-8x7b with 2 of 32, zamba2-7b with 7 of 81,
+     seamless-m4t-large-v2 with 12 of 24 encoder and decoder layers (4
      sources of 4096 frames, 256-token prompts), chameleon-34b with 4 of 48
      (its image half tokenized by K1 once per data line); 4 × 2048 prompts
      elsewhere, 32 new tokens.  Each is served by ``Engine(mesh=…)`` and by
@@ -293,9 +300,18 @@ Phases (any failure exits non-zero):
      logits along the one-device engine's tokens within the family's
      phase 6, 7 and 11–14 limits, its greedy tokens equal before the
      first near-tie; prefill ms, decode ms per token and peak memory of
-     both.  Then K3 at the six per-shard attention shapes and K4 at the two
-     per-shard SSM shapes against their plain versions, their bounds and
-     (K3) SDPA.
+     both; (g) the long_500k cells' layout: h2o-danube-1.8b and
+     mamba2-780m uncut at B = 1 (which does not split over the 2 data
+     lines: each line serves it whole, h2o-danube's cache cut 2-D, 4 of
+     8 KV heads and 2048 of 4096 window rows per position), 4096-token
+     prompts and 64 new tokens, the same checks plus the greedy tokens
+     along the one-device tokens wherever its top two are clear, each
+     position's cache bytes against ``dryrun.local_bytes``, and one
+     decode step of the long_500k cell (a seeded cache, ``len`` 524288)
+     on the mesh against one device, its token equal.  Then K3 at the
+     seven per-shard attention shapes (h2o-danube's D 80 among them) and
+     K4 at the two per-shard SSM shapes against their plain versions,
+     their bounds and (K3) SDPA.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  Imports nothing of JAX.
@@ -3941,13 +3957,113 @@ def mesh_train_model(torch, card: str, key: str, cfg, rows: int, mesh,
   return row
 
 
+# Phase 17 (d): remat on the tensor-parallel mesh.  Each remat step is held
+# to the "none" mesh step on the same weights and batch (loss and grad
+# norm within MESH_REMAT_RTOL: the recompute replays the forward's
+# meetings, so the values are the same computation), with as many
+# meetings, and a peak below the "none" step's.
+MESH_REMAT_RTOL = 1e-5
+# (key, arch, layers (None: all), rows of TRAIN_SEQ tokens, remats)
+MESH_REMAT_MODELS = (
+    ("tinyllama", LM_ARCH, None, TRAIN_BATCH, ("full", "dots")),
+    ("zamba2", HYBRID_ARCH, HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH,
+     ("full",)))
+
+
+class RematSpy:
+  """Counts, while on, the parts gathered along ``data`` (each copy:
+  ``placement.assemble``, the forward's gather, the recompute's or the
+  backward's ``_Regather``) and the bytes of the meeting results recorded
+  for recomputes (``common._record`` inside a checkpointed region)."""
+
+  def __init__(self):
+    from repro_torch.models import common as cm
+    from repro_torch.models import placement
+    self.cm, self.placement = cm, placement
+    self.assemble, self.record = placement.assemble, cm._record
+    self.gathers = self.recorded_bytes = 0
+
+  def _assemble(self, *args, **kw):
+    self.gathers += 1
+    return self.assemble(*args, **kw)
+
+  def _record(self, result):
+    pos = self.cm.position()
+    if pos is not None and pos.tape is not None:
+      items = result if isinstance(result, tuple) else (result,)
+      self.recorded_bytes += sum(t.numel() * t.element_size()
+                                 for t in items)
+    return self.record(result)
+
+  def __enter__(self):
+    self.gathers = self.recorded_bytes = 0
+    self.placement.assemble, self.cm._record = self._assemble, self._record
+    return self
+
+  def __exit__(self, *exc):
+    self.placement.assemble, self.cm._record = self.assemble, self.record
+    return False
+
+
+def mesh_remat_model(torch, card: str, key: str, cfg, rows: int, mesh,
+                     remats: tuple) -> dict:
+  """Phase 17 (d) for one model: one mesh step with remat "none", then one
+  with each of ``remats``, each from the same seeded weights on the same
+  batch; step ms (CUDA events), peak memory, meetings, gathers along
+  ``data`` and the recorded meeting results' bytes per step."""
+  from repro_torch.data import DataConfig, SyntheticLM
+  from repro_torch.train import optimizer as opt_mod
+  from repro_torch.train.steps import make_train_step
+  data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=rows, seed=0))
+  oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+  runs = {}
+  for remat in ("none",) + remats:
+    ss, _ = mesh_train_state(torch, cfg, mesh)
+    step = make_train_step(cfg, oc, mesh=mesh, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RematSpy() as spy:
+      ss, m, ms, meetings = timed_steps(torch, step, ss, data, 1)
+    runs[remat] = {"loss": m[0][0], "grad_norm": m[0][1], "step_ms": ms[0],
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "meetings_per_step": meetings,
+                   "gathers_per_step": spy.gathers,
+                   "recorded_meeting_bytes": spy.recorded_bytes}
+    del ss, step
+    gc.collect()
+    torch.cuda.empty_cache()
+  none = runs["none"]
+  row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": rows,
+         "seq": TRAIN_SEQ, "mesh": mesh.shape, "runs": runs, "card": card}
+  log(f"[mesh-train] (d) {key} {json.dumps(row)}")
+  for remat in remats:
+    got = runs[remat]
+    if not close_to((got["loss"], got["grad_norm"]),
+                    (none["loss"], none["grad_norm"]), MESH_REMAT_RTOL,
+                    MESH_REMAT_RTOL):
+      raise AssertionError(f"{key} remat {remat}: {got} differs from the "
+                           f"'none' step's {none}")
+    if got["meetings_per_step"] != none["meetings_per_step"]:
+      raise AssertionError(f"{key} remat {remat} held "
+                           f"{got['meetings_per_step']} meetings, 'none' "
+                           f"{none['meetings_per_step']}")
+    if got["peak_gib"] >= none["peak_gib"]:
+      raise AssertionError(f"{key} remat {remat}: peak {got['peak_gib']} "
+                           f"GiB is not below 'none''s {none['peak_gib']}")
+    if got["recorded_meeting_bytes"] == 0:
+      raise AssertionError(f"{key} remat {remat} recorded no meeting: no "
+                           f"layer was checkpointed")
+  return row
+
+
 def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
                         ) -> dict:
   """Phase 17: (a) tensor-parallel training of tinyllama-1.1b uncut,
   mixtral-8x7b, mamba2-780m and zamba2-7b at phase 10's depths on a
   virtual 2 × 2 mesh against the one-device step, and mamba2 with 4 layers
   in f32; (b) the three knobs; (c) kill and resume through the driver with
-  --shards 4."""
+  --shards 4; (d) remat "full" and "dots" on the mesh against "none"."""
   import tempfile
   from repro_torch import configs
   from repro_torch.data import DataConfig, SyntheticLM
@@ -3999,9 +4115,16 @@ def phase_mesh_training(torch, card: str, kernels, phase10_ms: float
     resume = phase_kill_resume(Path(tmp), ["--shards",
                                            str(MESH_TRAIN_SHARDS)],
                                "[mesh-train] (c)")
+  remat = {}
+  for key, arch, layers, batch, remats in MESH_REMAT_MODELS:
+    cfg = configs.get_config(arch)
+    if layers is not None:
+      cfg = cfg.replace(n_layers=layers)
+    remat[key] = mesh_remat_model(torch, card, key, cfg, batch, mesh,
+                                  remats)
   if [k.launches for k in kernels] != before:
     raise AssertionError("training on a mesh launched a hand-written kernel")
-  out = {**rows, "knobs": knobs, "kill_resume": resume,
+  out = {**rows, "knobs": knobs, "kill_resume": resume, "remat": remat,
          "s": time.perf_counter() - t_phase}
   log(f"[mesh-train] phase 17 in {out['s']:.1f}s {card}")
   return out
@@ -4094,16 +4217,20 @@ def phase_examples(tmp: Path) -> dict:
 # pallas-vs-xla ones phases 6, 7 and 11–14 state for the family (phases 6
 # and 7 state none for the decode: their prefill limit holds there too)
 TP_MESH = (2, 2)
+# depth cuts that let phase 19 fit TP_PHASE_BUDGET_S with (g) in it:
+# tinyllama 11 of 22 layers, mamba2-780m 12 of 48 (served uncut at B = 1
+# in (g)), seamless 12 of 24 encoder and of 24 decoder layers (an enc-dec
+# entry cuts both); widths stay as published
 TP_SERVED = (
-    ("tinyllama-1.1b", None, LM_PROMPT, LM_LOGIT_ATOL, LM_LOGIT_ATOL,
+    ("tinyllama-1.1b", 11, LM_PROMPT, LM_LOGIT_ATOL, LM_LOGIT_ATOL,
      TIE_GAP),
-    ("mamba2-780m", None, LM_PROMPT, SSM_LOGIT_ATOL, SSM_LOGIT_ATOL,
+    ("mamba2-780m", 12, LM_PROMPT, SSM_LOGIT_ATOL, SSM_LOGIT_ATOL,
      TIE_GAP),
     ("mixtral-8x7b", 2, LM_PROMPT, MOE_LOGIT_ATOL, MOE_DECODE_ATOL,
      MOE_TIE_GAP),
     ("zamba2-7b", 7, LM_PROMPT, HYBRID_LOGIT_ATOL, HYBRID_DECODE_ATOL,
      TIE_GAP),
-    ("seamless-m4t-large-v2", None, ENCDEC_PROMPT, ENCDEC_LOGIT_ATOL,
+    ("seamless-m4t-large-v2", 12, ENCDEC_PROMPT, ENCDEC_LOGIT_ATOL,
      ENCDEC_DECODE_ATOL, TIE_GAP),
     ("chameleon-34b", 4, VLM_PATCHES + VLM_TEXT, VLM_LOGIT_ATOL,
      VLM_DECODE_ATOL, TIE_GAP))
@@ -4138,19 +4265,24 @@ def tp_kernel_cases() -> tuple:
   return k3, k4
 
 
-def mesh_logits_along(torch, cfg, eng, tokens, toks, src=None):
+def mesh_logits_along(torch, cfg, eng, tokens, toks, src=None,
+                      seated=None):
   """A mesh engine's per-step logits along the tokens ``toks``: its
-  prefill, its cache seating, then decode steps through ``zoo.forward``
+  prefill (its vocab pieces gathered whole), its cache seating (appended
+  to ``seated`` when given), then decode steps through ``zoo.forward``
   on the mesh (the logits gathered whole)."""
   from repro_torch.launch.serve import seat_cache
   from repro_torch.models import encdec, zoo
+  from repro_torch.train.steps import whole_logits
   batch = {"tokens": tokens}
   if src is not None:
     batch["enc_out"] = eng.model.run(
         lambda local, x: encdec.encode(local, cfg, x, impl=eng.impl), src)
   last, cache = eng._prefill(eng.model, batch)
   cache = seat_cache(cfg, cache, eng.max_len, "cuda", model=eng.model)
-  steps = [last.float()]
+  if seated is not None:
+    seated.append(cache)
+  steps = [whole_logits(last).float()]
   for t in range(toks.shape[1] - 1):
     step = {"tokens": toks[:, t:t + 1]}
     if src is not None:
@@ -4174,7 +4306,9 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
   from repro_torch.models import hybrid, vlm, zoo
   t0 = time.perf_counter()
   full = configs.get_config(arch)
-  cfg = full if layers is None else full.replace(n_layers=layers)
+  cfg = (full if layers is None else
+         full.replace(enc_layers=layers, dec_layers=layers)
+         if full.family == "encdec" else full.replace(n_layers=layers))
   model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                    "cuda")
   mesh = make_host_mesh(4, model=TP_MESH[1], devices=["cuda:0"] * 4)
@@ -4221,8 +4355,10 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
   tp = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda",
               mesh=mesh)
   torch.cuda.synchronize()
-  log(f"[tp] {arch}: {zoo.param_count(model)} parameters ({cfg.n_layers} of "
-      f"{full.n_layers} layers, d {cfg.d_model}), placed on a "
+  depth = ((cfg.enc_layers, cfg.dec_layers) if cfg.family == "encdec"
+           else cfg.n_layers)
+  log(f"[tp] {arch}: {zoo.param_count(model)} parameters ({depth} layers "
+      f"of {full.n_layers}, d {cfg.d_model}), placed on a "
       f"{mesh.shape} mesh of cuda:0 (fsdp {tp.model.par.fsdp}, "
       f"seq_shard_decode {tp.model.par.seq_shard_decode}) in "
       f"{time.perf_counter() - t0:.1f}s")
@@ -4287,7 +4423,7 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
   if compared == 0:
     raise AssertionError(f"{arch}: no token compared (every row has a "
                          f"near-tie of {gap_rule} from its first token)")
-  out = {"arch": arch, "layers": cfg.n_layers, "card": card,
+  out = {"arch": arch, "layers": depth, "card": card,
          "prefill_logits_max_abs_diff": d[0],
          "logits_along_max_abs_diff": max(d), "tokens_compared": compared,
          "tokens_identical": bool(np.array_equal(runs["mesh"]["tokens"],
@@ -4361,9 +4497,223 @@ def tp_f32_check(torch, cfg, tokens, along, max_len: int, atol: float,
                                  "along": max(mesh_far)}}
 
 
+# Phase 19 (g): the long_500k cells' layout.  B = 1 does not split over
+# the data lines: every line serves the whole batch and, where the lines
+# divide the kv heads, holds one group of them (h2o-danube: 4 of 8 per
+# line, 2048 of its 4096-row window per position).  Published widths and
+# depths; a 4096-token prompt (the window, so the ring wraps at the first
+# decode step) and 64 new tokens; the logits along the first
+# TP_LONG_ALONG tokens held to the family's bf16 limit of (c); then one
+# decode step of the long_500k cell itself from a seeded cache whose
+# ``len`` is its 524288, mesh against one device.
+TP_LONG = (("h2o-danube-1.8b", LM_LOGIT_ATOL),
+           ("mamba2-780m", SSM_LOGIT_ATOL))
+TP_LONG_PROMPT, TP_LONG_NEW, TP_LONG_ALONG = 4096, 64, TP_F32_STEPS
+# h2o-danube's 2-D cut also in f32 on the same weights, mesh against one
+# device along the first TP_LONG_ALONG tokens (tp_f32_check), to the f32
+# limit the mesh's other f32 runs hold; there a wrong head group or ring row
+# shows where bf16's rounding would hide it
+TP_LONG_F32 = {"h2o-danube-1.8b": 1e-4}
+TP_LONG_CELL = "long_500k"
+
+
+def cache_bytes_per_position(cache, cfg, par, shape, mesh) -> dict:
+  """Each position's cache bytes against ``dryrun.local_bytes`` of its
+  leaves under ``cache_specs`` (the ceil-sized pieces); raises where one
+  differs."""
+  from repro_torch.launch.dryrun import local_bytes
+  from repro_torch.launch.specs import cache_shapes, cache_specs
+  from repro_torch.models import common as cm
+  specs = cm.tree_paths(cache_specs(cfg, par, shape))
+  meta = cm.tree_paths(cache_shapes(cfg, shape))
+  want = sum(local_bytes(t, specs[path], mesh.shape)
+             for path, t in meta.items())
+  held = {str(pos): sum(t.numel() * t.element_size()
+                        for t in cm.tree_paths(c).values())
+          for pos, c in cache.items()}
+  if set(held.values()) != {want}:
+    raise AssertionError(f"{cfg.name}: position cache bytes {held} against "
+                         f"local_bytes {want}")
+  return {"per_position": held, "dryrun_local_bytes": want}
+
+
+def long_cell_step(torch, cfg, model, tp, card: str) -> dict:
+  """One decode step of the long_500k cell: a seeded cache (the cell's
+  ring or state, ``len`` 524288) cut onto the mesh by ``cache_specs``,
+  ``make_decode_step`` on the mesh against one device; the next token
+  equal (or a near-tie), the logits through ``zoo.forward`` besides."""
+  from repro_torch import configs
+  from repro_torch.launch.specs import cache_max_len, cache_specs
+  from repro_torch.models import common as cm
+  from repro_torch.models import placement, zoo
+  from repro_torch.train.steps import make_decode_step
+  shape = configs.SHAPES[TP_LONG_CELL]
+  max_len = cache_max_len(cfg, shape)
+  gen = torch.Generator(device="cuda").manual_seed(7)
+  whole = zoo.init_cache(cfg, 1, max_len, "cuda")
+  for _, t in sorted(cm.tree_paths(whole).items()):
+    if t.is_floating_point():
+      t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.5)
+  whole["len"].fill_(shape.seq_len)
+  specs = cache_specs(cfg, tp.par, shape)
+  tok = torch.randint(0, cfg.vocab, (1, 1), generator=gen, device="cuda")
+
+  def copy():
+    return placement.map2(lambda t, _: t.clone(), whole, specs)
+
+  def cut():
+    out = zoo.PerPosition(replicated=True)
+    for pos in placement.positions(tp.mesh):
+      out[pos] = placement.map2(
+          lambda t, spec: t[placement.piece_box(t.shape, spec, tp.mesh,
+                                                pos)].clone(),
+          whole, specs)
+    return out
+  step = make_decode_step(cfg)
+  with torch.inference_mode():
+    mesh_cache = cut()
+    held = cache_bytes_per_position(mesh_cache, cfg, tp.par, shape,
+                                    tp.mesh)
+    t0 = time.perf_counter()
+    got_tok, _ = step(tp, mesh_cache, {"tokens": tok})
+    got_tok = got_tok.cpu()
+    mesh_s = time.perf_counter() - t0
+    one_cache = copy()
+    t0 = time.perf_counter()
+    want_tok, _ = step(model, one_cache, {"tokens": tok})
+    want_tok = want_tok.cpu()
+    one_s = time.perf_counter() - t0
+    got, _, _ = zoo.forward(tp, cfg, {"tokens": tok}, mode="decode",
+                            cache=cut())
+    want, _, _ = zoo.forward(model, cfg, {"tokens": tok}, mode="decode",
+                             cache=copy())
+  d = float((got - want).abs().max())
+  top2 = want[0, -1].float().topk(2).values
+  gap = float(top2[0] - top2[1])
+  out = {"cell": TP_LONG_CELL, "cache_rows": max_len,
+         "len": shape.seq_len, "token_mesh": int(got_tok),
+         "token_one_device": int(want_tok), "logits_max_abs_diff": d,
+         "top2_gap": gap, "mesh_step_ms": mesh_s * 1e3,
+         "one_device_step_ms": one_s * 1e3, "cache_bytes": held,
+         "card": card}
+  if int(got_tok) != int(want_tok) and gap >= max(TIE_GAP, 2 * d):
+    raise AssertionError(f"{cfg.name} {TP_LONG_CELL}: the mesh's next token "
+                         f"{out}")
+  if int(torch.argmax(got[0, -1])) != int(got_tok):
+    raise AssertionError(f"{cfg.name}: the decode step's token is not the "
+                         f"argmax of zoo.forward's logits")
+  return out
+
+
+def tp_long_one(ssd, fa, torch, np, card: str, arch: str,
+                atol: float) -> dict:
+  """One model of phase 19 (g): the one-device engine, then the mesh
+  engine (the main path: counts set to 0 just before its generate and read
+  just after) at B = 1, the logits along the first tokens held to
+  ``atol``, the tokens before any near-tie equal, each position's cache
+  bytes against ``dryrun.local_bytes``, then the long_500k cell's step."""
+  from repro_torch import configs
+  from repro_torch.configs import Shape
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.launch.serve import Engine
+  from repro_torch.models import zoo
+  t0 = time.perf_counter()
+  cfg = configs.get_config(arch)
+  model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  mesh = make_host_mesh(4, model=TP_MESH[1], devices=["cuda:0"] * 4)
+  kernel = ssd.ssd_intra_chunk if cfg.family == "ssm" else \
+      fa.flash_attention
+  prompts = np.random.default_rng(2).integers(
+      0, cfg.vocab, (1, TP_LONG_PROMPT), dtype=np.int32)
+  max_len = TP_LONG_PROMPT + TP_LONG_NEW
+  one = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
+  tp = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda",
+              mesh=mesh)
+  one.generate(prompts[:, :256], 2)   # warm-up
+  tp.generate(prompts[:, :256], 2)
+  runs = {}
+  for label, eng in (("one device", one), ("mesh", tp)):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    toks = eng.generate(prompts, TP_LONG_NEW)
+    tm = eng.last_timing
+    runs[label] = {
+        "prefill_ms": tm["prefill_s"] * 1e3,
+        "decode_ms_per_token": tm["decode_s"] / tm["decode_steps"] * 1e3,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+        / 2 ** 30, "launches": {kernel.__name__: kernel.launches},
+        "tokens": toks}
+  per = cfg.n_layers
+  if (runs["one device"]["launches"][kernel.__name__] != per or
+      runs["mesh"]["launches"][kernel.__name__] != per * mesh.size):
+    raise AssertionError(f"{arch}: launches {runs}")
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  one_toks = runs["one device"]["tokens"]
+  along = torch.as_tensor(one_toks[:, :TP_LONG_ALONG], device="cuda")
+  seated = []
+  with torch.inference_mode():
+    want = logits_along(cfg, model, zoo, torch, tokens, along, one.max_len,
+                        impl="pallas")
+    got = mesh_logits_along(torch, cfg, tp, tokens, along, seated=seated)
+  d = (got - want).abs().amax(dim=-1).amax(dim=0).tolist()
+  if not bool(torch.isfinite(got).all()) or max(d) > atol:
+    raise AssertionError(f"{arch} B=1: mesh logits differ from one "
+                         f"device's: {d} (atol {atol})")
+  # the generated tokens up to the first near-tie, and along the
+  # one-device tokens each step's greedy token wherever the one-device top
+  # two are further apart than the rule (bf16 logits sit on a grid: a gap
+  # of exactly 2·|d| can tie); with a single random row either may compare
+  # nothing, which the f32 run below covers
+  gap_rule = max(TIE_GAP, 2 * max(d))
+  top2 = want.topk(2, dim=-1).values
+  clear = (top2[..., 0] - top2[..., 1]) > gap_rule
+  ties = np.nonzero(~clear[0].cpu().numpy())[0]
+  upto = int(ties[0]) if len(ties) else TP_LONG_ALONG
+  if not np.array_equal(runs["mesh"]["tokens"][0, :upto],
+                        one_toks[0, :upto]):
+    raise AssertionError(f"{arch} B=1: mesh tokens differ from one "
+                         f"device's before any near-tie")
+  same = got.argmax(dim=-1) == want.argmax(dim=-1)
+  if not bool(same[clear].all()):
+    raise AssertionError(f"{arch} B=1: the mesh's greedy tokens along the "
+                         f"one-device tokens differ where the top two are "
+                         f"more than {gap_rule} apart")
+  cache_bytes = cache_bytes_per_position(
+      seated[0], cfg, tp.model.par, Shape("serve", tp.max_len, 1, "decode"),
+      mesh)
+  del seated
+  out = {"arch": arch, "layers": cfg.n_layers, "batch": 1,
+         "prompt": TP_LONG_PROMPT, "new": TP_LONG_NEW, "card": card,
+         "cache_rows": tp.max_len,
+         "prefill_logits_max_abs_diff": d[0],
+         "logits_along_max_abs_diff": max(d), "tokens_compared": upto,
+         "along_tokens_compared": int(clear.sum()),
+         "along_tokens_of": TP_LONG_ALONG,
+         "tokens_identical": bool(np.array_equal(runs["mesh"]["tokens"],
+                                                 one_toks)),
+         "cache_bytes": cache_bytes,
+         "long_cell": long_cell_step(torch, cfg, model, tp.model, card)}
+  for label in runs:
+    runs[label].pop("tokens")
+    out[label] = runs[label]
+  del one, tp, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  if arch in TP_LONG_F32:
+    out["f32"] = tp_f32_check(torch, cfg, tokens, along, max_len,
+                              TP_LONG_F32[arch], want, got)
+  out["s"] = time.perf_counter() - t0
+  log(f"[tp] (g) {json.dumps(out)}")
+  return out
+
+
 def phase_tp_serving(sm, fa, ssd, torch, np, card: str) -> dict:
   """Phase 19: tensor-parallel serving of the six models on a virtual
-  2 × 2 mesh, then K3 and K4 at the per-shard shapes."""
+  2 × 2 mesh, (g) the long_500k layout at B = 1, then K3 and K4 at the
+  per-shard shapes."""
+  from repro_torch import configs
   from repro_torch.models import common as cm
   t_phase = time.perf_counter()
   runs = {}
@@ -4371,6 +4721,8 @@ def phase_tp_serving(sm, fa, ssd, torch, np, card: str) -> dict:
     for arch, layers, n_prompt, atol, datol, gap in TP_SERVED:
       runs[arch] = tp_serve_one(sm, fa, ssd, torch, np, card, arch, layers,
                                 n_prompt, atol, datol, gap)
+    long = {arch: tp_long_one(ssd, fa, torch, np, card, arch, atol)
+            for arch, atol in TP_LONG}
   k3_cases, k4_cases = tp_kernel_cases()
   k3_arch = ("tinyllama-1.1b", "mixtral-8x7b", "zamba2-7b",
              "seamless-m4t-large-v2", "seamless-m4t-large-v2",
@@ -4383,11 +4735,20 @@ def phase_tp_serving(sm, fa, ssd, torch, np, card: str) -> dict:
                               ["ssd_intra_chunk"], shape, label)
              for (label, shape), arch in zip(k4_cases, ("mamba2-780m",
                                                         "zamba2-7b"))]
+  danube = configs.get_config(TP_LONG[0][0])
+  k3_rows.append(k3_served_row(
+      fa, torch, (1, danube.n_heads // TP_MESH[1],
+                  danube.n_kv_heads // TP_MESH[1], TP_LONG_PROMPT,
+                  TP_LONG_PROMPT, danube.hd, True, danube.window),
+      f"{danube.name} B=1 per shard",
+      long[danube.name]["mesh"]["launches"]["flash_attention"]))
   s = time.perf_counter() - t_phase
   log(f"[tp] phase 19 in {s:.1f}s (budget {TP_PHASE_BUDGET_S}s) {card}")
   if s > TP_PHASE_BUDGET_S:
     raise AssertionError(f"phase 19 took {s:.1f}s")
-  return {"runs": runs, "k3_rows": k3_rows, "k4_rows": k4_rows, "s": s}
+  return {"runs": runs, "long": long, "k3_rows": k3_rows,
+          "k4_rows": k4_rows, "s": s}
+
 
 
 def main() -> int:
@@ -4963,12 +5324,13 @@ def main() -> int:
   gc.collect()
   torch.cuda.empty_cache()
   tp = phase_tp_serving(sm, fa, ssd, torch, np, card)
-  for arch, run in tp["runs"].items():
-    got = run["mesh"]["launches"]
-    if "flash_attention" in got:
-      k3_paths[f"tp {arch}"] = got["flash_attention"]
-    if "ssd_intra_chunk" in got:
-      k4_paths[f"tp {arch}"] = got["ssd_intra_chunk"]
+  for prefix, group in (("tp", tp["runs"]), ("tp B=1", tp["long"])):
+    for arch, run in group.items():
+      got = run["mesh"]["launches"]
+      if "flash_attention" in got:
+        k3_paths[f"{prefix} {arch}"] = got["flash_attention"]
+      if "ssd_intra_chunk" in got:
+        k4_paths[f"{prefix} {arch}"] = got["ssd_intra_chunk"]
   log(f"[summary] phase 19 {card}: " + "; ".join(
       f"{arch} prefill {r['mesh']['prefill_ms']!r} ms on the mesh vs "
       f"{r['one device']['prefill_ms']!r} on one device, decode "
@@ -4978,6 +5340,16 @@ def main() -> int:
       + (f", f32 |d| {r['f32']['logits_along_max_abs_diff']!r} over "
          f"{r['f32']['tokens_compared']} tokens" if "f32" in r else "")
       for arch, r in tp["runs"].items())
+      + "; (g) B=1: " + "; ".join(
+          f"{arch} prefill {r['mesh']['prefill_ms']!r} ms on the mesh vs "
+          f"{r['one device']['prefill_ms']!r}, decode "
+          f"{r['mesh']['decode_ms_per_token']!r} vs "
+          f"{r['one device']['decode_ms_per_token']!r} ms/token, peak "
+          f"{r['mesh']['max_memory_allocated_gib']!r} vs "
+          f"{r['one device']['max_memory_allocated_gib']!r} GiB, "
+          f"{TP_LONG_CELL} token {r['long_cell']['token_mesh']} vs "
+          f"{r['long_cell']['token_one_device']}"
+          for arch, r in tp["long"].items())
       + f"; whole script {time.perf_counter() - T_START:.1f}s")
 
   head = rows_out[0]

@@ -44,8 +44,11 @@ executable and have no counterpart.  The values:
                               ring(all-gather, local bytes, D) × n_g, the
                               master's f32 per microbatch (n_g = accum, ×2
                               in a train cell under remat "full": the
-                              recompute gathers again), or with ``zero2``
-                              the bf16 compute copy once per step (n_g = 1)
+                              recompute gathers again, as the port's
+                              does: two gathers of each part per
+                              microbatch, counted on the CPU), or with
+                              ``zero2`` the bf16 compute copy once per
+                              step (n_g = 1)
       grad_reduce_scatter   train: Σ_leaves sharded over data
                               ring(reduce-scatter, local grad bytes, D) ×
                               accum; f32, bf16 with ``grad_comm_bf16``
@@ -56,11 +59,14 @@ executable and have no counterpart.  The values:
                               MLP's or experts' w2, the SSM's out_proj: 2 per
                               transformer block, 1 per SSM layer, 3 per
                               decoder layer of the enc-dec), × accum; a
-                              train cell adds as many for the backward and,
-                              under remat "full", for the recompute.  The
-                              port's tensor-parallel train step holds
-                              exactly these row-parallel meetings per
-                              forward; its other meetings are not charged:
+                              train cell adds as many for the backward.
+                              Under remat the recompute holds none: it
+                              replays the forward's results
+                              (``common.remat_contexts``).  The port's
+                              tensor-parallel train step holds exactly
+                              these row-parallel meetings per forward,
+                              under every remat; its other meetings are
+                              not charged:
                               the vocab-parallel embedding's sum (tokens ·
                               d_model in f32, once per forward), and
                               (B, S) statistics (the gated norms', the
@@ -68,7 +74,14 @@ executable and have no counterpart.  The values:
       decode_attn_all_reduce  decode with the cache's sequence on the model
                               axis: ring(all-reduce, B · H · (hd + 2) · 4, T)
                               per attention layer (partial outputs, max and
-                              sum in f32)
+                              sum in f32; B the rows on one data line, H
+                              the heads it attends)
+      decode_heads_all_gather decode of a batch that does not split over the
+                              data axes, whose kv heads they divide (the
+                              2-D cache cut: each data line attends H/D
+                              heads): ring(all-gather, B · H · hd · 4, D)
+                              per attention layer (the heads assembled
+                              over the column, f32)
     The data terms run over the data axes' group, the others over the
     model axis; ``analysis.axis_group_rate`` gives each group's link rate.
 
@@ -300,7 +313,8 @@ def collective_model(cell: Cell) -> tuple:
   train = shape.kind == "train"
   terms = dict.fromkeys(("fsdp_all_gather", "grad_reduce_scatter",
                          "grad_all_reduce", "tp_all_reduce",
-                         "decode_attn_all_reduce"), 0.0)
+                         "decode_attn_all_reduce",
+                         "decode_heads_all_gather"), 0.0)
   comp = torch.empty((), dtype=cfg.dtype).element_size()
   if train and not cell.zero2:
     gathers = cell.accum * (2 if cell.remat == "full" else 1)
@@ -321,25 +335,35 @@ def collective_model(cell: Cell) -> tuple:
       terms[key] += cell.accum * ring_traffic_bytes(kind, elems * grad_size,
                                                     d_size)
   b = shape.global_batch // cell.accum
-  b_local = b // d_size if par.dp_for(shape.global_batch) else b
+  split = par.dp_for(shape.global_batch) is not None
+  b_local = b // d_size if split else b
   step_tokens = b_local * (1 if shape.kind == "decode" else shape.seq_len)
   per_tok, per_src = _row_parallel_per_forward(cfg)
-  passes = (1 + (1 if train else 0)
-            + (1 if train and cell.remat == "full" else 0))
+  passes = 2 if train else 1   # the recompute replays its meetings
   if shape.kind == "decode":
     per_src = 0  # the encoder's output comes in the batch
   act = (per_tok * step_tokens + per_src * b_local * cfg.src_len) \
       * cfg.d_model * comp
   terms["tp_all_reduce"] = cell.accum * passes * ring_traffic_bytes(
       "all-reduce", act, t_size)
+  # a batch that does not split: each data line holds a group of the kv
+  # heads where they divide (cache_specs' 2-D cut) and attends its heads
+  grouped = (shape.kind == "decode" and not split
+             and cfg.n_kv_heads % d_size == 0)
+  heads = cfg.n_heads // d_size if grouped else cfg.n_heads
   if shape.kind == "decode" and par.seq_shard_decode:
-    partial = b_local * cfg.n_heads * (cfg.hd + 2) * 4
+    partial = b_local * heads * (cfg.hd + 2) * 4
     terms["decode_attn_all_reduce"] = _attention_layers(cfg) * \
         ring_traffic_bytes("all-reduce", partial, t_size)
+  if grouped:
+    terms["decode_heads_all_gather"] = _attention_layers(cfg) * \
+        ring_traffic_bytes("all-gather", b * cfg.n_heads * cfg.hd * 4,
+                           d_size)
   data_key, model_key = "+".join(data), model
   axis_bytes = {
       data_key: (terms["fsdp_all_gather"] + terms["grad_reduce_scatter"]
-                 + terms["grad_all_reduce"]),
+                 + terms["grad_all_reduce"]
+                 + terms["decode_heads_all_gather"]),
       model_key: terms["tp_all_reduce"] + terms["decode_attn_all_reduce"]}
   rates = {data_key: analysis.axis_group_rate(mesh, data),
            model_key: analysis.axis_group_rate(mesh, model)}

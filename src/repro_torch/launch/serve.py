@@ -58,19 +58,21 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 def _seat_on_position(cfg, cache: dict, target: dict) -> dict:
   """One position's prefill cache seated into its ``target`` (its part of
   the decode cache): the prefill's kv heads gathered from the line's
-  positions, then its rows of them (``seq_shard_decode``) or all of them;
-  the SSM state as it is."""
+  positions, then the heads the target holds (all, or under the 2-D cut
+  its data line's group) and its rows of them (``seq_shard_decode``) or
+  all of them; the SSM state as it is."""
   pos = cm.position()
   kv = cache["attn"] if cfg.family == "hybrid" else cache
   tkv = target["attn"] if cfg.family == "hybrid" else target
   s = kv["k"].shape[2]
   wholes = cm.gather_heads((kv["k"], kv["v"]), cfg.n_heads, cfg.n_kv_heads,
                            3, kv=(True, True))
+  c0, c1 = attn_mod.kv_group(cfg, tkv["k"].shape[3])
   for name, whole in zip(("k", "v"), wholes):
     rows = tkv[name].shape[2]
     row0 = rows * pos.rank if pos.seq_shard_decode else 0
     n = max(0, min(rows, s - row0))
-    tkv[name][:, :, :n] = whole[:, :, row0:row0 + n]
+    tkv[name][:, :, :n] = whole[:, :, row0:row0 + n, c0:c1]
   target["len"].copy_(cache["len"])
   if cfg.family == "hybrid":
     target["ssm"] = cache["ssm"]
@@ -92,12 +94,14 @@ def seat_cache(cfg, cache: dict, max_len: int, device, *,
   On a mesh (``model`` a ``zoo.ShardedLM``, ``cache`` the mesh prefill's
   ``PerPosition``) the head-sharded K/V are re-cut to the decode's layout,
   ``launch/specs.cache_specs``'s: with ``seq_shard_decode`` each position
-  keeps its Smax/tp rows of every kv head.
+  keeps its Smax/tp rows of every kv head, or, where the batch does not
+  split over the data lines and they divide the kv heads, of its line's
+  group of them.
   """
   if cfg.family == "ssm":
     return cache
   if model is not None:
-    lines = len(model.mesh.devices)
+    lines = 1 if cache.replicated else len(model.mesh.devices)
     kv = cache[(0, 0)]["attn"] if cfg.family == "hybrid" else cache[(0, 0)]
     batch = kv["k"].shape[1] * lines
     target = zoo.init_cache(
@@ -124,7 +128,13 @@ class Engine:
   it places the model's weights by ``specs_like`` under the mesh's sizes
   with fsdp and ``seq_shard_decode`` on (``zoo.shard``), the
   prompt rows split over the ``data`` lines and each line's positions
-  compute on their heads, widths and vocab pieces.  ``device`` is where
+  compute on their heads, widths and vocab pieces.  A batch that does not
+  split over the lines (``Parallelism.dp_for`` None: B = 1, say) goes
+  whole to every line, whose caches hold only the line's group of kv
+  heads where the lines divide them (the reference's 2-D cache cut); the
+  lines compute the same tokens and line 0's are returned.  The first
+  token is the vocab-parallel argmax of the prefill's logit pieces
+  (``common.vocab_argmax``, as every decode step's).  ``device`` is where
   the prompts and the tokens live (the mesh's first device).  With
   ``seq_shard_decode`` the cache's ``max_len`` is rounded up to a multiple
   of the model axis."""
@@ -181,7 +191,7 @@ class Engine:
 
     cache = seat_cache(self.cfg, cache, self.max_len, self.device,
                        model=None if self.mesh is None else self.model)
-    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
+    tok = self._first_token(last_logits)
     out = [tok]
     tok.cpu()  # the first token on the host ends the prefill
     t1 = time.perf_counter()
@@ -194,6 +204,20 @@ class Engine:
     self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                         "decode_steps": n_new - 1}
     return result
+
+
+  def _first_token(self, logits):
+    """The greedy first token (B, 1) int32 of the prefill's last logits;
+    on a mesh the vocab-parallel argmax of their pieces, ties to the
+    lowest index (the one-device argmax)."""
+    if self.mesh is None:
+      return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    vocab = logits.shape[1]
+    pieces = zoo.PerPosition(logits.pieces,
+                             replicated=logits.spec[0] is None)
+    tok = self.model.lines(self.model.run(
+        lambda _, piece: cm.vocab_argmax(piece, vocab), pieces))
+    return tok.to(torch.int32)[:, None]
 
 
 def main(argv=None):

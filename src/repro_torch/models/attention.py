@@ -23,7 +23,13 @@ kv head, the new row goes to the position that owns ``cache_len % Smax``,
 and each position's partial softmax (max, sum, weighted values) over its
 rows for all query heads is merged by log-sum-exp in position order
 (``_decode_rows``); without it the cache is whole on every position and
-each attends its own heads.
+each attends its own heads.  Where the batch does not split over the data
+lines (B = 1, the long-context cells), every line holds the whole batch
+and, when the data lines divide the kv heads, only its group of them
+(``cache_specs``' 2-D cut, ``kv_group``): the line attends that group's
+query heads (merged over its positions' rows as above), and one meeting
+of the column over the lines (``common.column_cat``) assembles all H
+heads in line order before each position takes its own for ``wo``.
 """
 from __future__ import annotations
 
@@ -415,12 +421,27 @@ def _merge_rows(parts, device) -> Tensor:
   return acc / l[..., None]
 
 
+def kv_group(cfg: cm.ModelConfig, held: int):
+  """(k0, k1): the kv heads a mesh position's cache holds when it holds
+  ``held`` of them: all, or under the 2-D cut (a batch that does not
+  split over the data lines, ``launch/specs.cache_specs``) its data
+  line's group."""
+  pos = cm.position()
+  if held == cfg.n_kv_heads:
+    return 0, held
+  return pos.line * held, (pos.line + 1) * held
+
+
 def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
                         positions: Tensor, layer_cache: dict,
                         cache_len: Tensor) -> Tensor:
   """A decode step's attention output (B, 1, H/tp, hd) for this mesh
-  position's query heads; the new k/v row (every kv head, gathered from
-  the positions) is written into ``layer_cache`` in place."""
+  position's query heads; the new k/v row (the kv heads the cache holds,
+  gathered from the positions) is written into ``layer_cache`` in place.
+  Where the cache holds only the data line's group of kv heads, the line
+  attends that group's query heads and the column of positions over the
+  lines assembles all H heads in line order (one meeting) before each
+  position takes its own."""
   pos = cm.position()
   h, kvh = cfg.n_heads, cfg.n_kv_heads
   (q0, q1), (k0, k1) = cm.head_range(h, kvh, pos.rank, pos.size)
@@ -429,7 +450,14 @@ def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
                                         kv=(False, True, True))
   k_cache, v_cache = layer_cache["k"], layer_cache["v"]
   rows = k_cache.shape[1]
+  c0, c1 = kv_group(cfg, k_cache.shape[2])
+  grouped = c1 - c0 < kvh
+  if grouped:
+    grp = h // kvh
+    q_all = q_all[:, :, c0 * grp:c1 * grp]
+    k_new, v_new = k_new[:, :, c0:c1], v_new[:, :, c0:c1]
   scale = cfg.hd ** -0.5
+  b, hd = q.shape[0], q.shape[-1]
   if not pos.seq_shard_decode:
     write_idx = (cache_len % rows).reshape(1).long()
     k_cache.index_copy_(1, write_idx, k_new.to(k_cache.dtype))
@@ -437,8 +465,12 @@ def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
     kv_len = torch.clamp(cache_len + 1, max=rows)
     window = (cfg.window if cfg.window is not None and cfg.window < rows
               else None)
-    return _full_decode(q, k_cache[:, :, k0:k1], v_cache[:, :, k0:k1],
-                        scale=scale, kv_len=kv_len, window=window)
+    if not grouped:
+      return _full_decode(q, k_cache[:, :, k0:k1], v_cache[:, :, k0:k1],
+                          scale=scale, kv_len=kv_len, window=window)
+    out = cm.column_cat(_full_decode(q_all, k_cache, v_cache, scale=scale,
+                                     kv_len=kv_len, window=window), 2)
+    return out[:, :, q0:q1]
   smax, row0 = rows * pos.size, rows * pos.rank
   local = (cache_len % smax - row0).reshape(1).long()
   mine = (local >= 0) & (local < rows)
@@ -446,13 +478,14 @@ def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
   for cache, new in ((k_cache, k_new), (v_cache, v_new)):
     old = cache.index_select(1, at)
     cache.index_copy_(1, at, torch.where(mine, new.to(cache.dtype), old))
-  kv_len = torch.clamp(cache_len + 1, max=smax).expand(q.shape[0])
+  kv_len = torch.clamp(cache_len + 1, max=smax).expand(b)
   window = cfg.window if cfg.window is not None and cfg.window < smax else None
   part = _decode_rows(q_all, k_cache, v_cache, scale=scale, row0=row0,
                       kv_len=kv_len, window=window)
   out = pos.group.meet(pos.rank, part,
                        lambda parts: _merge_rows(parts, q.device))
-  b, hd = q.shape[0], q.shape[-1]
+  if grouped:
+    out = cm.column_cat(out, 1)
   out = out.reshape(b, 1, h, hd)[:, :, q0:q1]
   return out.to(q.dtype)
 

@@ -30,8 +30,12 @@ and the vocab-parallel loss terms ``vocab_logsumexp`` and ``vocab_gold``.
 A meeting's result on a position is an ordinary differentiable function of
 every position's posted tensor (copies and f32 adds), so the positions'
 forwards record one autograd graph per data line, and its backward is the
-transposed collective with no meeting of its own.  With no position
-installed each of them is the one-device operation, unchanged.
+transposed collective with no meeting of its own.  A checkpointed layer's
+recompute replays its forward's meeting results instead of meeting again
+(``remat_contexts``).  Where a batch does not split over the data lines,
+the positions of one model index over the lines meet too
+(``column_cat``: a decode step's heads under the 2-D cache cut).  With no
+position installed each of them is the one-device operation, unchanged.
 """
 from __future__ import annotations
 
@@ -292,19 +296,39 @@ class LineGroup:
     posted values in position order.  A posted value stays referenced in
     its slot until the meeting after next, so its memory is not handed to
     later work on its stream while another position's copy of it may
-    still be queued."""
+    still be queued.  Inside a region that ``remat_contexts`` records,
+    the result is also kept for the region's recompute."""
     if self.size == 1:
-      return fn([value])
+      return _record(fn([value]))
     slots = self._slots[self._count[rank] % 2]
     slots[rank] = value
     self._count[rank] += 1
     mine = self._count[rank]
     self.baton.wait_for(self.keys[rank], lambda: min(self._count) >= mine)
     try:
-      return fn(list(slots))
+      return _record(fn(list(slots)))
     except BaseException:
       self.baton.abort()
       raise
+
+
+class _Replay:
+  """A recompute's stand-in for a position's groups: ``meet`` hands back
+  the results its forward recorded, in order, and neither posts nor
+  waits (the recompute runs inside the backward, where the other
+  positions do not meet)."""
+
+  def __init__(self, size: int, results):
+    self.size = size
+    self._results = results
+
+  def meet(self, rank: int, value, fn: Callable):
+    del rank, value, fn
+    try:
+      return next(self._results)
+    except StopIteration:
+      raise RuntimeError("a recompute holds more meetings than its "
+                         "forward recorded") from None
 
 
 @dataclasses.dataclass
@@ -312,13 +336,21 @@ class Position:
   """The mesh position the current thread computes for: its rank on the
   model axis of its line's group, the axis' name, and the serving knob
   ``seq_shard_decode``.  ``split`` is set while the residual stream holds
-  only this position's rows (``constrain_acts``)."""
+  only this position's rows (``constrain_acts``).  ``column`` is the
+  positions of its model index over the data lines (its rank there is
+  ``line``): where a batch does not split over the lines, each line holds
+  one group of the KV cache's heads and a decode step assembles the heads
+  over the column.  ``tape`` collects the meetings' results while a
+  checkpointed region runs (``remat_contexts``)."""
 
   group: LineGroup
   rank: int
   model_axis: str = "model"
   seq_shard_decode: bool = True
   split: bool = False
+  column: Optional[LineGroup] = None
+  line: int = 0
+  tape: Optional[list] = None
 
   @property
   def size(self) -> int:
@@ -331,6 +363,58 @@ _POSITION = threading.local()
 def position() -> Optional[Position]:
   """The position installed on this thread (None on one device)."""
   return getattr(_POSITION, "value", None)
+
+
+def _record(result):
+  pos = position()
+  if pos is not None and pos.tape is not None:
+    pos.tape.append(result)
+  return result
+
+
+def remat_contexts():
+  """(forward context, recompute context) for one checkpointed region
+  (``torch.utils.checkpoint``'s ``context_fn``) on this thread's mesh
+  position; two no-ops on one device.
+
+  The forward records the result of every meeting the region holds, in
+  order.  The recompute runs inside the backward, on autograd's thread,
+  where no position is installed and the other positions do not meet: it
+  installs a copy of the position as it was when the region began, whose
+  groups hand back the recorded results from the first on (``_Replay``),
+  so the recomputed tensors are the forward's bit for bit.  Each result
+  is an ordinary function of every position's posted tensor, so the
+  graph the backward runs is the forward's; the records live as long as
+  the region's saved tensors."""
+  pos = position()
+  if pos is None:
+    return contextlib.nullcontext(), contextlib.nullcontext()
+  tape, split = [], pos.split
+
+  @contextlib.contextmanager
+  def record():
+    if pos.tape is not None:
+      raise RuntimeError("checkpointed regions nest on a mesh position")
+    pos.tape = tape
+    try:
+      yield
+    finally:
+      pos.tape = None
+
+  @contextlib.contextmanager
+  def replay():
+    results = iter(tape)
+    again = dataclasses.replace(
+        pos, group=_Replay(pos.size, results), split=split, tape=None,
+        column=None if pos.column is None else _Replay(pos.column.size,
+                                                       results))
+    prev = position()
+    _POSITION.value = again
+    try:
+      yield
+    finally:
+      _POSITION.value = prev
+  return record(), replay()
 
 
 def run_positions(jobs: dict, devices: dict) -> dict:
@@ -505,6 +589,16 @@ def _gather(t: Tensor, dim: int) -> Tensor:
   pos = position()
   dev = t.device
   return pos.group.meet(pos.rank, t, lambda parts: torch.cat(
+      [p.to(dev) for p in parts], dim=dim))
+
+
+def column_cat(t: Tensor, dim: int) -> Tensor:
+  """The column's tensors (one per data line, this position's model
+  index) concatenated along ``dim`` in line order: the all-gather over the
+  data axis."""
+  pos = position()
+  dev = t.device
+  return pos.column.meet(pos.line, t, lambda parts: torch.cat(
       [p.to(dev) for p in parts], dim=dim))
 
 

@@ -14,6 +14,8 @@ embedding and the LM head are the position's vocab piece: the lookup is
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -42,22 +44,43 @@ def _save_dots(ctx, op, *args, **kwargs):
           else ckpt_mod.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+@contextlib.contextmanager
+def _both(first, second):
+  with contextlib.ExitStack() as stack:
+    stack.enter_context(first)
+    stack.enter_context(second)
+    yield
+
+
+def _contexts(remat: str):
+  """``context_fn`` of a checkpointed layer: on a mesh position the
+  meetings are recorded in the forward and replayed in the recompute
+  (``common.remat_contexts``); under 'dots' the saved matmuls besides."""
+  fwd, again = cm.remat_contexts()
+  if remat == "full":
+    return fwd, again
+  keep, reuse = ckpt_mod.create_selective_checkpoint_contexts(_save_dots)
+  return _both(fwd, keep), _both(again, reuse)
+
+
 def run_layer(layer, remat: str, *args, **kwargs):
   """One layer's forward under the ``remat`` policy: 'none' keeps every
   activation for the backward; 'full' keeps only the layer's input and
   recomputes the rest (``jax.checkpoint``); 'dots' keeps the outputs of the
   matmuls without batch dims and recomputes the rest (the reference's
-  ``dots_with_no_batch_dims_saveable``)."""
+  ``dots_with_no_batch_dims_saveable``).  On a mesh position the layer's
+  meetings are not held again in the recompute: their forward results
+  are kept and handed back (``common.remat_contexts``), so on a model
+  axis of more than one position 'full' also keeps those results; a
+  card's row-parallel bf16 product (``common.f32_product``, an
+  ``out_dtype`` mm) is not one of the matmuls 'dots' keeps."""
   if remat not in REMATS:
     raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
   if remat == "none" or not torch.is_grad_enabled():
     return layer(*args, **kwargs)
-  if remat == "full":
-    return ckpt_mod.checkpoint(layer, *args, use_reentrant=False, **kwargs)
-  return ckpt_mod.checkpoint(
-      layer, *args, use_reentrant=False,
-      context_fn=lambda: ckpt_mod.create_selective_checkpoint_contexts(
-          _save_dots), **kwargs)
+  return ckpt_mod.checkpoint(layer, *args, use_reentrant=False,
+                             context_fn=functools.partial(_contexts, remat),
+                             **kwargs)
 
 
 FAMILIES = ("dense", "moe", "vlm")

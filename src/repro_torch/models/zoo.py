@@ -18,6 +18,7 @@ the dense family's ``TransformerLM``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import weakref
@@ -25,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_mod
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_mod
@@ -174,9 +176,10 @@ def forward(model, cfg: cm.ModelConfig, batch: dict, *,
 
   With a ``ShardedLM`` for ``model`` every position of its mesh runs its
   part (``cache`` and ``enc_out`` as ``PerPosition``s, or the batch's
-  whole tensors, split over the data lines); the logits come back whole
-  (the positions' vocab pieces gathered, the lines' rows concatenated) on
-  the mesh's first device, the cache as a ``PerPosition``."""
+  whole tensors, split over the data lines, or whole on every line where
+  they do not split); the logits come back whole (the positions' vocab
+  pieces gathered, the lines' rows concatenated, or line 0's) on the
+  mesh's first device, the cache as a ``PerPosition``."""
   if isinstance(model, ShardedLM):
     def body(local, sub, c):
       logits, c, aux = forward(local, cfg, sub, mode=mode, cache=c,
@@ -185,9 +188,7 @@ def forward(model, cfg: cm.ModelConfig, batch: dict, *,
     if enc_out is not None:
       batch = dict(batch, enc_out=enc_out)
     out = model.run(body, batch, cache or PerPosition.of(model, None))
-    return (model.lines(out, 0), PerPosition({k: o[1] for k, o in
-                                               out.items()}),
-            out[(0, 0)][2])
+    return model.lines(out, 0), out.item(1), out[(0, 0)][2]
   if cfg.family == "encdec":
     return encdec_mod.forward_encdec(
         model, cfg, batch.get("src_embeds"), batch["tokens"], mode=mode,
@@ -262,11 +263,23 @@ _LAYERS = (tf_mod.Block, ssm_mod.SSMLayer, encdec_mod.EncoderLayer,
 
 class PerPosition(dict):
   """{(row, col): value} for every position of a mesh: the values a
-  ``ShardedLM.run`` hands to, or gets from, each position as they are."""
+  ``ShardedLM.run`` hands to, or gets from, each position as they are.
+  ``replicated`` says whether the rows they hold are the whole batch on
+  every data line (True), the line's share of it (False) or either
+  (None)."""
+
+  def __init__(self, *args, replicated: Optional[bool] = None):
+    super().__init__(*args)
+    self.replicated = replicated
 
   @classmethod
   def of(cls, model: "ShardedLM", value) -> "PerPosition":
     return cls({pos: value for pos in placement.positions(model.mesh)})
+
+  def item(self, index) -> "PerPosition":
+    """Each position's ``index``-th item, with this one's rows."""
+    return PerPosition({pos: v[index] for pos, v in self.items()},
+                       replicated=self.replicated)
 
 
 def _head_slice(path: str, ndim: int, cfg: cm.ModelConfig, rank: int,
@@ -304,6 +317,13 @@ class ShardedLM:
   cut along ``data``: the position's module holds meta placeholders, and
   each layer gathers its part from the line's column just before it runs
   and frees it after (``common.whole_weights``).
+
+  A batch that does not split over the data lines (``Parallelism.dp_for``
+  None, as B = 1 in the long_500k cells) goes whole to every line
+  (``run``); its caches take ``launch/specs.cache_specs``' 2-D cut (each
+  line the group of kv heads its index selects, where the lines divide
+  them), and each position also meets its column over the lines
+  (``common.Position.column``) to assemble a decode step's heads.
 
   In training (``grads``, a ``train.sharded.PositionGrads``) every part a
   position computes with wants a gradient, and ``grads.add(path, pos,
@@ -407,55 +427,92 @@ class ShardedLM:
           layer.register_forward_hook(_release_layer)
     return module
 
-  def _rows(self, value, pos: tuple):
+  def splits(self, rows: int) -> bool:
+    """Whether a batch of ``rows`` splits over the data lines
+    (``Parallelism.dp_for``); if not, every line computes all of it."""
+    return self.par.dp_for(rows) is not None
+
+  def _replicated(self, args) -> bool:
+    """Whether this run's rows are the whole batch on every line: a whole
+    tensor's batch that does not split, or ``PerPosition`` values held
+    so; the two must agree."""
+    says = set()
+
+    def walk(value):
+      if isinstance(value, PerPosition):
+        if value.replicated is not None:
+          says.add(value.replicated)
+      elif isinstance(value, dict):
+        for v in value.values():
+          walk(v)
+      elif isinstance(value, Tensor) and value.ndim:
+        says.add(not self.splits(value.shape[0]))
+    for a in args:
+      walk(a)
+    if len(says) > 1:
+      raise ValueError("a run mixes a batch split over the data lines with "
+                       "one that every line holds whole")
+    return says == {True}
+
+  def _rows(self, value, pos: tuple, whole: bool):
     """``value`` for position ``pos``: a ``PerPosition``'s entry, a dict's
-    values each so, or a whole tensor's rows of the position's data line
-    on its device."""
+    values each so, or on the position's device a whole tensor's rows of
+    the position's data line (all of them when ``whole``)."""
     if isinstance(value, PerPosition):
       return value[pos]
     if isinstance(value, dict):
-      return {k: self._rows(v, pos) for k, v in value.items()}
+      return {k: self._rows(v, pos, whole) for k, v in value.items()}
     if not isinstance(value, Tensor):
       return value
-    lines, b = len(self.mesh.devices), value.shape[0]
-    if b % lines:
-      raise ValueError(f"a batch of {b} rows does not split over {lines} "
-                       f"data lines")
-    n = b // lines
-    return value[pos[0] * n:(pos[0] + 1) * n].to(
-        self.mesh.devices[pos[0]][pos[1]], non_blocking=True)
+    if not whole:
+      n = value.shape[0] // len(self.mesh.devices)
+      value = value[pos[0] * n:(pos[0] + 1) * n]
+    return value.to(self.mesh.devices[pos[0]][pos[1]], non_blocking=True)
 
   def run(self, body: Callable, *args) -> PerPosition:
     """``body(module, *args)`` on every position, each in a thread of its
     own with its ``common.Position`` installed, the threads taking turns
     between meetings (``common.Baton``); each argument is taken per
-    position (``_rows``).  Returns the results as a ``PerPosition``;
-    ``meetings`` counts the meetings the first line has held over the
-    runs."""
+    position (``_rows``).  A batch that does not split over the data lines
+    (``Parallelism.dp_for`` is None: B = 1, say) goes whole to every line,
+    as the reference replicates it.  Returns the results as a
+    ``PerPosition`` (``replicated`` set so); ``meetings`` counts the
+    meetings the first line has held over the runs.  In training a
+    checkpointed layer's recompute runs to its end (no early stop), so
+    that its gathered weights are released."""
     order = placement.positions(self.mesh)
+    lines, tp = len(self.mesh.devices), self.par.tp_size
+    whole = self._replicated(args)
     if self.grads is not None:
       body = self._regather.around(body)
     baton = cm.Baton(order)
-    groups = [cm.LineGroup(self.par.tp_size, baton,
-                           [(i, j) for j in range(self.par.tp_size)])
-              for i in range(len(self.mesh.devices))]
+    groups = [cm.LineGroup(tp, baton, [(i, j) for j in range(tp)])
+              for i in range(lines)]
+    columns = [cm.LineGroup(lines, baton, [(i, j) for i in range(lines)])
+               for j in range(tp)]
     jobs, devices = {}, {}
     for pos in order:
-      mine = [self._rows(a, pos) for a in args]
+      mine = [self._rows(a, pos, whole) for a in args]
       jobs[pos] = functools.partial(body, self.modules[pos], *mine)
       jobs[pos].position = cm.Position(
-          groups[pos[0]], pos[1], self.par.tp, self.par.seq_shard_decode)
+          groups[pos[0]], pos[1], self.par.tp, self.par.seq_shard_decode,
+          column=columns[pos[1]], line=pos[0])
       devices[pos] = self.mesh.devices[pos[0]][pos[1]]
-    out = PerPosition(cm.run_positions(jobs, devices))
+    stop = (ckpt_mod.set_checkpoint_early_stop(False)
+            if self.grads is not None else contextlib.nullcontext())
+    with stop:
+      out = PerPosition(cm.run_positions(jobs, devices), replicated=whole)
     self.meetings += groups[0].held
     return out
 
   def lines(self, out: PerPosition, index=None) -> Tensor:
     """The lines' first positions' results (their ``index``-th item when
-    given), rows concatenated on the mesh's first device."""
+    given), rows concatenated on the mesh's first device; where every
+    line computed the whole batch, line 0's."""
     first = self.mesh.devices[0][0]
+    n = 1 if out.replicated else len(self.mesh.devices)
     parts = [out[(i, 0)] if index is None else out[(i, 0)][index]
-             for i in range(len(self.mesh.devices))]
+             for i in range(n)]
     return torch.cat([t.to(first) for t in parts])
 
 
@@ -571,7 +628,11 @@ def _init_cache_on(cfg: cm.ModelConfig, batch: int, max_len: int, mesh,
         raise ValueError(f"a cache dimension of {dim} does not split over "
                          f"{parts} positions")
   placement.map2(check, whole, specs)
-  out = PerPosition()
+  # the leaves' batch dim (dim 1) is cut over the data lines unless the
+  # batch does not split (launch/specs.cache_specs)
+  batch_cut = {spec[1] for spec in cm.tree_paths(specs).values()
+               if len(spec) > 1}
+  out = PerPosition(replicated=batch_cut == {None})
   for pos in placement.positions(mesh):
     dev = mesh.devices[pos[0]][pos[1]]
 

@@ -38,15 +38,20 @@ gradients go straight into the master's pieces
 (``train.sharded.PositionGrads``: summed in f32, rounded to bf16 for the
 copy under ``grad_comm_bf16``); AdamW runs piece by piece.  The loss is
 the global masked mean; the MoE aux is the mean of the lines' (the
-reference takes its fractions over the whole batch).  ``remat`` is
-refused with a model axis of more than one position: its recompute would
-run inside the backward, where a meeting cannot be held (ROADMAP item 16,
-step 3).  ``make_prefill_step`` / ``make_decode_step`` are the two serving
-steps, for every family's cache (dense, MoE, VLM and the enc-dec decoder's
-KV, SSM state, hybrid both), on one device or tensor-parallel on a
-``zoo.ShardedLM``.  A batch carries ``src_embeds`` for the
-enc-dec family (its source frames) and, in an enc-dec decode, the encoder
-output ``enc_out``.
+reference takes its fractions over the whole batch).  Each microbatch must
+split over the data lines.  ``remat`` ("full", "dots") checkpoints each
+position's layers as on one device; the recompute runs inside the
+backward, on autograd's thread, where no meeting can be held, so it
+replays the results its forward's meetings recorded
+(``common.remat_contexts``): the step's values and meetings are the
+"none" step's, and "full" keeps those results besides each layer's input.
+``make_prefill_step`` / ``make_decode_step`` are the two serving steps,
+for every family's cache (dense, MoE, VLM and the enc-dec decoder's KV,
+SSM state, hybrid both), on one device or tensor-parallel on a
+``zoo.ShardedLM``, which serves a batch that does not split over its data
+lines whole on every line (the reference's ``dp_for`` None).  A batch
+carries ``src_embeds`` for the enc-dec family (its source frames) and, in
+an enc-dec decode, the encoder output ``enc_out``.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.models import placement
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import zoo
 from repro_torch.train import optimizer as opt_mod
@@ -129,8 +135,9 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
   On a ``launch.mesh.Mesh`` the state is a ``ShardedState`` on that mesh
   (``train.sharded.shard_state``), updated in place by the
   tensor-parallel step (see the module's docstring); ``grad_specs``, when
-  given, must be its specs, and ``remat`` must be "none" when its model
-  axis has more than one position.  Metrics are device tensors: ``loss``,
+  given, must be its specs, each microbatch must split over the data
+  lines, and ``remat`` recomputes each position's layers in the backward
+  from their recorded meetings.  Metrics are device tensors: ``loss``,
   ``aux_loss``, ``grad_norm``, ``lr``; on a mesh also ``meetings``, the
   number of meetings a data line's positions held in the step (an int).
   """
@@ -141,12 +148,6 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
         f"reference's Pallas arms cannot be differentiated")
   if accum < 1:
     raise ValueError(f"accum must be >= 1, got {accum}")
-  if mesh is not None and mesh.shape[mesh.axis_names[1]] > 1 \
-      and remat != "none":
-    raise ValueError(
-        f"remat={remat!r} on a tensor-parallel mesh: the recompute runs "
-        f"inside the backward, where the positions cannot meet (ROADMAP "
-        f"item 16, step 3); train with remat='none'")
   # as in the reference, zero2 acts only with gradient specs to pin
   zero2 = zero2 and grad_specs is not None
 
@@ -201,7 +202,8 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
   def position_loss(local, sub, count, aux_weight):
     """One position's part of a line's loss: (loss + 0.01·aux·aux_weight
     with its graph, loss, aux), the loss Σ nll·mask over ``count``."""
-    logits, _, aux = zoo.forward(local, cfg, sub, mode="train", impl=impl)
+    logits, _, aux = zoo.forward(local, cfg, sub, mode="train", impl=impl,
+                                 remat=remat)
     loss = xent_sum(logits[:, :-1], sub["labels"][:, 1:], cfg.vocab,
                     vocab) / count
     return (loss + 0.01 * aux * aux_weight, loss.detach(), aux.detach())
@@ -224,6 +226,9 @@ def make_train_step(cfg: cm.ModelConfig, oc: opt_mod.AdamWConfig, *,
                        copy_dtype=cfg.dtype if zero2 else None)
     loss = aux = 0.0
     for mb in split(batch, batch["tokens"].shape[0], accum, "microbatches"):
+      if not lm.splits(mb["tokens"].shape[0]):
+        raise ValueError(f"a microbatch of {mb['tokens'].shape[0]} rows "
+                         f"does not split over {lines} data lines")
       # the global masked mean: every line divides by the microbatch's count
       count = torch.clamp(_mask(mb["labels"][:, 1:], cfg.vocab).sum(),
                           min=1.0)
@@ -266,23 +271,40 @@ def make_prefill_step(cfg: cm.ModelConfig, *, impl: str = "xla"):
 
   With a ``zoo.ShardedLM`` for ``model`` every position of its mesh runs
   the prefill on its heads and widths (K3 and K4 on ``impl="pallas"``);
-  the logits come back whole (B, padded V) on the mesh's first device,
-  gathered from the vocab pieces (the reference's ``out_specs`` leave them
-  vocab-sharded: the same values), and the cache as a ``zoo.PerPosition``
-  of each position's (its kv heads, SSM heads and conv channels), for
-  ``launch.serve.seat_cache``."""
+  the logits stay where they were computed, as the reference's
+  ``out_specs`` ``P(dp, tp)`` leave them: a ``placement.Sharded`` of the
+  whole (B, padded V) whose piece at each position is its line's rows
+  (every row where the batch does not split over the lines) of its vocab
+  piece (``whole_logits`` gathers them); the cache comes back as a
+  ``zoo.PerPosition`` of each position's (its kv heads, SSM heads and
+  conv channels), for ``launch.serve.seat_cache``."""
   def body(local, sub):
     logits, cache, _ = zoo.forward(local, cfg, sub, mode="prefill",
                                    impl=impl)
-    return cm.gather_vocab(logits[:, -1, :]), cache
+    return logits[:, -1, :], cache
 
   def prefill_step(model, batch):
     if not isinstance(model, zoo.ShardedLM):
       return body(model, batch)
     out = model.run(body, batch)
-    return model.lines(out, 0), zoo.PerPosition(
-        {pos: o[1] for pos, o in out.items()})
+    first = out[(0, 0)][0]
+    rows = first.shape[0] * (1 if out.replicated else len(model.mesh.devices))
+    spec = (None if out.replicated else model.par.dp, model.par.tp)
+    logits = placement.Sharded(
+        torch.Size((rows, tf_mod.padded_vocab(cfg))), first.dtype, spec,
+        model.mesh, {pos: o[0] for pos, o in out.items()})
+    return logits, out.item(1)
   return prefill_step
+
+
+def whole_logits(logits, device=None) -> Tensor:
+  """A prefill's last logits whole (B, padded V): a mesh prefill's vocab
+  pieces gathered onto ``device`` (default the mesh's first device); a
+  one-device prefill's tensor as it is."""
+  if isinstance(logits, Tensor):
+    return logits
+  return sharded.gather_leaf(
+      logits, logits.mesh.devices[0][0] if device is None else device)
 
 
 def make_decode_step(cfg: cm.ModelConfig):

@@ -59,6 +59,10 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 B, S, N = 4, 8, 12
 ACT = ("data", "model", None)
+# served with batches that do not split over the data lines (B = 1 and 3 on
+# 2 lines): the reference's long_500k families, whose kv heads (2, 2 and
+# 4; mamba2 has none) the 2 lines divide
+ONE_ROW = ["h2o-danube-1.8b", "mixtral-8x7b", "mamba2-780m", "zamba2-7b"]
 
 
 def _max_len(cfg) -> int:
@@ -79,6 +83,7 @@ _SCRIPT = textwrap.dedent("""
     from repro.train.steps import make_decode_step, make_prefill_step
 
     ARCHS, DTS, B, S, N = {archs}, {dts}, {b}, {s}, {n}
+    ONE_ROW = {one_row}
     DT = {{"f32": jnp.float32, "bf16": jnp.bfloat16}}
 
     def inputs(cfg):
@@ -94,28 +99,32 @@ _SCRIPT = textwrap.dedent("""
     ns = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
                                 is_leaf=lambda x: isinstance(x, P))
     out = {{}}
-    for arch in ARCHS:
-      for dt in DTS:
+    # every (arch, dtype) at B rows; then one row (B = 1 does not split
+    # over "data": the batch replicated, cache_specs' 2-D cut) in f32
+    runs = [(a, dt, B) for a in ARCHS for dt in DTS] + [
+        (a, "f32", 1) for a in ONE_ROW]
+    for arch, dt, rows in runs:
         cfg = configs.get_config(arch, smoke=True).replace(dtype=DT[dt])
-        tag = f"{{arch}}/{{dt}}"
+        tag = f"{{arch}}/{{dt}}" + ("" if rows == B else f"/b{{rows}}")
         params = zoo.init(cfg, jax.random.PRNGKey(0))
-        toks, feed, src = inputs(cfg)
+        toks, feed, src = (x[:rows] for x in inputs(cfg))
         max_len = 16 if cfg.window is not None else 24
-        shape = Shape("serve", max_len, B, "decode")
+        shape = Shape("serve", max_len, rows, "decode")
+        dp = par.dp_for(rows)
         p_specs = ns(cm.specs_like(params, cfg, par))
         c_specs = ns(sp.cache_specs(cfg, par, shape))
         ed = cfg.family == "encdec"
-        with mesh, cm.activation_sharding(P("data", "model", None)):
+        with mesh, cm.activation_sharding(P(dp, "model", None)):
           pd = jax.device_put(params, p_specs)
-          batch, b_specs = {{"tokens": toks}}, {{"tokens": P("data", None)}}
+          batch, b_specs = {{"tokens": toks}}, {{"tokens": P(dp, None)}}
           if ed:
             batch["src_embeds"] = src
-            b_specs["src_embeds"] = P("data", None, None)
+            b_specs["src_embeds"] = P(dp, None, None)
           prefill = jax.jit(make_prefill_step(cfg),
                             in_shardings=(p_specs, ns(b_specs)))
           logits, cache = prefill(pd, batch)
           out[f"{{tag}}/prefill"] = np.asarray(logits.astype(jnp.float32))
-          full = zoo.init_cache(cfg, B, max_len)
+          full = zoo.init_cache(cfg, rows, max_len)
           def seat(f, g):
             g = np.asarray(g)
             if f.shape == g.shape:
@@ -125,12 +134,12 @@ _SCRIPT = textwrap.dedent("""
           cache = jax.device_put(jax.tree.map(seat, full, cache), c_specs)
           for i, leaf in enumerate(jax.tree.leaves(cache)):
             out[f"{{tag}}/seated/{{i}}"] = np.asarray(leaf.astype(jnp.float32))
-          d_specs = {{"tokens": P("data", None)}}
+          d_specs = {{"tokens": P(dp, None)}}
           enc = None
           if ed:
             enc = np.asarray(jax.jit(lambda p, x: encdec.encode(p, cfg, x))(
                 pd, src))
-            d_specs["enc_out"] = P("data", None, None)
+            d_specs["enc_out"] = P(dp, None, None)
           decode = jax.jit(make_decode_step(cfg),
                            in_shardings=(p_specs, c_specs, ns(d_specs)),
                            donate_argnums=1)
@@ -160,7 +169,7 @@ def _one_thread():
 def reference(tmp_path_factory):
   out = tmp_path_factory.mktemp("tensor_parallel") / "ref.npz"
   script = _SCRIPT.format(archs=repr(ARCHS), dts=repr(sorted(DTYPES)), b=B,
-                          s=S, n=N)
+                          s=S, n=N, one_row=repr(ONE_ROW))
   env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
   r = subprocess.run([sys.executable, "-c", script, str(out)],
                      capture_output=True, text=True, env=env, timeout=900)
@@ -183,16 +192,16 @@ def _model(arch, dtype="f32", **over):
                                       tcfg, device="cpu")
 
 
-def _inputs(cfg):
+def _inputs(cfg, rows=B):
   """The reference script's prompt, teacher-forced decode tokens and
-  source frames."""
+  source frames (their first ``rows`` rows)."""
   rng = np.random.default_rng(1)
   toks = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
   feed = rng.integers(0, cfg.vocab, (B, N), dtype=np.int32)
   src = rng.standard_normal((B, cfg.src_len or 1, cfg.d_model)).astype(
       np.float32)
-  return (torch.from_numpy(toks).long(), torch.from_numpy(feed).long(),
-          torch.from_numpy(src))
+  return (torch.from_numpy(toks[:rows]).long(),
+          torch.from_numpy(feed[:rows]).long(), torch.from_numpy(src[:rows]))
 
 
 def _mesh(shape):
@@ -208,11 +217,12 @@ def _np(t):
   return t.detach().float().numpy().copy()   # a snapshot: caches change
 
 
-def _whole_cache(cfg, cache, mesh, par, max_len):
+def _whole_cache(cfg, cache, mesh, par, max_len, rows=B):
   """A mesh cache (``PerPosition``) gathered into the whole cache's leaves
   (numpy, ``init_cache``'s tree order)."""
-  meta = tzoo.init_cache(cfg, B, max_len, device="meta")
-  specs = tspecs.cache_specs(cfg, par, Shape("serve", max_len, B, "decode"))
+  meta = tzoo.init_cache(cfg, rows, max_len, device="meta")
+  specs = tspecs.cache_specs(cfg, par, Shape("serve", max_len, rows,
+                                             "decode"))
 
   def walk(m, spec, pick):
     if isinstance(m, dict):
@@ -230,11 +240,11 @@ def _leaves(cache):
   return [_np(cache)]
 
 
-def _run(cfg, model, mesh=None, par=None, act=True, impl="xla"):
+def _run(cfg, model, mesh=None, par=None, act=True, impl="xla", rows=B):
   """{'prefill': last logits, 'seated': cache leaves, 'decode': [logits],
-  'final': cache leaves} of a prefill and N teacher-forced decode steps,
-  on one device or (with ``mesh``) tensor-parallel."""
-  toks, feed, src = _inputs(cfg)
+  'final': cache leaves} of a prefill and N teacher-forced decode steps of
+  ``rows`` rows, on one device or (with ``mesh``) tensor-parallel."""
+  toks, feed, src = _inputs(cfg, rows)
   max_len = _max_len(cfg)
   batch = {"tokens": toks}
   on = None
@@ -253,7 +263,7 @@ def _run(cfg, model, mesh=None, par=None, act=True, impl="xla"):
 
     def leaves():
       return (_leaves(cache) if on is None else
-              _whole_cache(cfg, cache, mesh, on.par, max_len))
+              _whole_cache(cfg, cache, mesh, on.par, max_len, rows))
     out = {"prefill": _np(logits[:, -1]), "seated": leaves(), "decode": []}
     for t in range(N):
       step = {"tokens": feed[:, t:t + 1]}
@@ -263,6 +273,7 @@ def _run(cfg, model, mesh=None, par=None, act=True, impl="xla"):
                                       cache=cache)
       out["decode"].append(_np(logits[:, -1]))
     out["final"] = leaves()
+  out["cache"] = cache
   return out
 
 
@@ -417,13 +428,45 @@ def test_positions_take_turns_between_meetings():
   assert run() == log
 
 
+def _on_grid(fn, lines, size):
+  """``fn((line, rank))`` on a lines × size grid of positions, with the
+  row groups and the column groups over the lines under one baton, as
+  ``ShardedLM.run`` builds them."""
+  keys = [(i, j) for i in range(lines) for j in range(size)]
+  baton = tcm.Baton(keys)
+  rows = [tcm.LineGroup(size, baton, [(i, j) for j in range(size)])
+          for i in range(lines)]
+  cols = [tcm.LineGroup(lines, baton, [(i, j) for i in range(lines)])
+          for j in range(size)]
+  jobs = {}
+  for i, j in keys:
+    jobs[(i, j)] = lambda k=(i, j): fn(k)
+    jobs[(i, j)].position = tcm.Position(rows[i], j, column=cols[j], line=i)
+  return tcm.run_positions(jobs, {k: "cpu" for k in keys})
+
+
 def test_meetings_that_do_not_match_raise_instead_of_hanging():
+  """A position that holds a row meeting more than its line, or a column
+  meeting more than its column (interleaved with the rows' meetings),
+  breaks the run with an error instead of waiting for ever."""
   def fn(r):
     for _ in range(2 if r == 0 else 1):
       tcm.tp_sum(torch.ones(1), torch.float32)
     return r
   with pytest.raises(RuntimeError, match="meetings do not match"):
     _on_positions(fn, 2)
+
+  def column(key, extra):
+    tcm.tp_sum(torch.ones(1), torch.float32)
+    got = tcm.column_cat(torch.full((1,), float(key[0])), 0)
+    assert got.tolist() == [0.0, 1.0]
+    tcm.tp_sum(torch.ones(1), torch.float32)
+    if key == extra:
+      tcm.column_cat(torch.ones(1), 0)
+    return key
+  assert len(_on_grid(lambda k: column(k, None), 2, 2)) == 4
+  with pytest.raises(RuntimeError, match="meetings do not match"):
+    _on_grid(lambda k: column(k, (0, 1)), 2, 2)
 
 
 # --- per-position kernels ----------------------------------------------------
@@ -505,37 +548,126 @@ def test_engine_on_a_mesh_generates_the_one_device_tokens(arch, shape):
   assert eng.max_len % MESHES[shape][1] == 0
 
 
-def test_the_prefill_logits_come_back_whole_on_the_first_device():
-  """A declared difference: the mesh prefill's last logits are the whole
-  (B, padded V), gathered from the vocab pieces onto the mesh's first
-  device (the reference's ``out_specs`` leave them vocab-sharded), and
-  its cache a ``PerPosition`` of each position's kv heads."""
-  cfg, model = _model("tinyllama-1.1b")
+@pytest.mark.parametrize("arch,rows", [("tinyllama-1.1b", B),
+                                       ("h2o-danube-1.8b", 1)])
+def test_the_prefill_logits_stay_vocab_pieces(reference, arch, rows):
+  """The mesh prefill's last logits stay where they were computed, as the
+  reference's ``out_specs`` P(dp, tp) leave them: each position's piece
+  is its line's rows (every row where the batch does not split) of its
+  vocab piece; ``whole_logits`` gathers them onto the mesh's first
+  device, equal to the reference's logits.  The cache is a
+  ``PerPosition`` of each position's kv heads."""
+  cfg, model = _model(arch)
   shape = MESHES["2x2"]
   mesh = _mesh(shape)
   on = tzoo.shard(cfg, model, mesh, _par(shape))
-  with torch.inference_mode():
+  with torch.inference_mode(), tcm.activation_sharding(ACT):
     logits, cache = tsteps.make_prefill_step(cfg)(
-        on, {"tokens": _inputs(cfg)[0]})
-  assert logits.shape == (B, 512) and logits.device == mesh.devices[0][0]
+        on, {"tokens": _inputs(cfg, rows)[0]})
+  split = rows % shape[0] == 0
+  assert logits.shape == (rows, 512)
+  assert logits.spec == ("data" if split else None, "model")
+  for piece in logits.pieces.values():
+    assert piece.shape == (rows // shape[0] if split else rows, 256)
+  whole = tsteps.whole_logits(logits)
+  assert whole.shape == (rows, 512) and whole.device == mesh.devices[0][0]
+  want = reference[f"{arch}/f32" + ("" if split else f"/b{rows}")
+                   + "/prefill"]
+  np.testing.assert_allclose(_np(whole), want, **_tol("f32", want))
   assert isinstance(cache, tzoo.PerPosition) and len(cache) == 4
-  assert cache[(0, 0)]["k"].shape == (cfg.n_layers, B // 2, S,
-                                      cfg.n_kv_heads // 2, cfg.hd)
+  assert cache.replicated is not split
+  heads = cfg.n_kv_heads // shape[1]
+  assert cache[(0, 0)]["k"].shape == (
+      cfg.n_layers, rows // shape[0] if split else rows, S, heads, cfg.hd)
 
 
 def test_steps_refuse_a_model_placed_elsewhere():
   """A model placed under a Parallelism that does not describe its mesh, a
-  batch that does not split over the data lines and a cache whose rows do
-  not split over the model axis are refused."""
+  cache whose rows do not split over the model axis, and a run that mixes
+  a cache held whole on every line with a batch split over the lines are
+  refused."""
   cfg, model = _model("tinyllama-1.1b")
   on = tzoo.shard(cfg, model, _mesh((2, 2)), _par((2, 2)))
   with pytest.raises(ValueError, match="does not describe the mesh"):
     tzoo.shard(cfg, model, _mesh((2, 2)), _par((1, 4)))
-  with pytest.raises(ValueError, match="data lines"):
-    tsteps.make_prefill_step(cfg)(on, {"tokens": _inputs(cfg)[0][:3]})
   with pytest.raises(ValueError, match="does not split"):
     tzoo.init_cache(cfg, B, 21, mesh=on.mesh, specs=tspecs.cache_specs(
         cfg, on.par, Shape("serve", 21, B, "decode")))
+  one_row = tzoo.init_cache(cfg, 1, 16, mesh=on.mesh, specs=tspecs.cache_specs(
+      cfg, on.par, Shape("serve", 16, 1, "decode")))
+  assert one_row.replicated
+  with pytest.raises(ValueError, match="mixes"):
+    tsteps.make_decode_step(cfg)(on, one_row,
+                                 {"tokens": _inputs(cfg)[0][:2, :1]})
+
+
+# --- a batch that does not split over the data lines ---------------------------
+
+
+def _lines_spy(monkeypatch):
+  """Hold every run whose lines computed the whole batch to lines that
+  agree bit for bit (each line's first position's result); returns the
+  runs checked."""
+  checked = []
+  lines = tzoo.ShardedLM.lines
+
+  def spy(self, out, index=None):
+    if out.replicated:
+      pick = [out[(i, 0)] if index is None else out[(i, 0)][index]
+              for i in range(len(self.mesh.devices))]
+      for other in pick[1:]:
+        assert torch.equal(other, pick[0])
+      checked.append(len(pick))
+    return lines(self, out, index)
+  monkeypatch.setattr(tzoo.ShardedLM, "lines", spy)
+  return checked
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("arch", ONE_ROW)
+def test_a_batch_that_does_not_split_runs_whole_on_every_line(
+    arch, rows, monkeypatch):
+  """B = 1 and B = 3 on the (2, 2) mesh in f32: every line computes the
+  whole batch (the reference's ``dp_for`` None) and the lines agree bit
+  for bit (logits, tokens, the state replicated over them); the prefill
+  and decode logits and the caches gathered whole equal the one-device
+  run's; each KV piece holds its line's n_kv/2 heads and its Smax/2 rows;
+  the engine's tokens are the one-device engine's."""
+  cfg, model = _model(arch)
+  shape = MESHES["2x2"]
+  want = _run(cfg, model, rows=rows)
+  checked = _lines_spy(monkeypatch)
+  got = _run(cfg, model, _mesh(shape), _par(shape), rows=rows)
+  _same(got, want, "f32", cfg)
+  assert checked == [2] * (1 + N)
+  cache = got["cache"]
+  kv = {"hybrid": "attn"}.get(cfg.family)
+  for (i, j), mine in cache.items():
+    if cfg.family != "ssm":
+      k = (mine[kv] if kv else mine)["k"]
+      assert k.shape[1:] == (rows, _max_len(cfg) // shape[1],
+                             cfg.n_kv_heads // shape[0], cfg.hd)
+    if cfg.ssm_state:  # the SSM state is replicated over the lines
+      for a, b in zip(_leaves(mine["ssm"]), _leaves(cache[(1 - i, j)]["ssm"])):
+        np.testing.assert_array_equal(a, b)
+  toks = _inputs(cfg, rows)[0]
+  one = tserve.Engine(cfg, model, max_len=16, device="cpu").generate(toks, 6)
+  eng = tserve.Engine(cfg, model, max_len=16, device="cpu",
+                      mesh=_mesh(shape))
+  with tcm.activation_sharding(ACT):
+    np.testing.assert_array_equal(eng.generate(toks, 6), one)
+
+
+@pytest.mark.parametrize("arch", ONE_ROW)
+def test_one_row_matches_the_reference(reference, arch):
+  """B = 1 on the (2, 2) mesh against the reference's prefill and decode
+  steps jitted with ``dp_for(1)`` batch specs and the 2-D ``cache_specs``
+  on its (2, 4) mesh, in f32: prefill logits, the caches gathered whole
+  after seating and after the last step, and each decode step's greedy
+  token."""
+  cfg, model = _model(arch)
+  got = _run(cfg, model, _mesh(MESHES["2x2"]), _par(MESHES["2x2"]), rows=1)
+  _against_reference(got, reference, f"{arch}/f32/b1", "f32")
 
 
 def test_the_serve_command_runs_on_cpu_shards():
@@ -568,7 +700,10 @@ def test_mesh_serving_equals_the_reference(reference, arch, shape, dtype):
   # the reference where the port's one-device run agrees with it, and to
   # that run everywhere
   one = _run(cfg, model) if cfg.n_experts and dtype == "bf16" else None
-  tag = f"{arch}/{dtype}"
+  _against_reference(got, reference, f"{arch}/{dtype}", dtype, one)
+
+
+def _against_reference(got, reference, tag, dtype, one=None):
   np.testing.assert_allclose(got["prefill"], reference[f"{tag}/prefill"],
                              **_tol(dtype, reference[f"{tag}/prefill"]))
   for key in ("seated", "final"):

@@ -60,17 +60,18 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 STEPS, ROWS, SEQ, LR = 3, 8, 32, 1e-3
-# name → (arch, dtype, (grad_specs, zero2, grad_comm_bf16), accum)
+# name → (arch, dtype, (grad_specs, zero2, grad_comm_bf16), accum, remat)
 CASES = {
-    "tiny_plain": ("tinyllama-1.1b", "bf16", (0, 0, 0), 1),
-    "tiny_specs": ("tinyllama-1.1b", "bf16", (1, 0, 0), 1),
-    "tiny_zero2": ("tinyllama-1.1b", "bf16", (1, 1, 0), 1),
-    "tiny_comm": ("tinyllama-1.1b", "bf16", (1, 0, 1), 1),
-    "tiny_all_accum2": ("tinyllama-1.1b", "bf16", (1, 1, 1), 2),
-    "mixtral": ("mixtral-8x7b", "f32", (1, 0, 0), 1),
-    "mamba2": ("mamba2-780m", "f32", (1, 0, 0), 1),
-    "zamba2": ("zamba2-7b", "f32", (1, 0, 0), 1),
-    "seamless": ("seamless-m4t-large-v2", "f32", (1, 0, 0), 1),
+    "tiny_plain": ("tinyllama-1.1b", "bf16", (0, 0, 0), 1, "none"),
+    "tiny_specs": ("tinyllama-1.1b", "bf16", (1, 0, 0), 1, "none"),
+    "tiny_zero2": ("tinyllama-1.1b", "bf16", (1, 1, 0), 1, "none"),
+    "tiny_comm": ("tinyllama-1.1b", "bf16", (1, 0, 1), 1, "none"),
+    "tiny_all_accum2": ("tinyllama-1.1b", "bf16", (1, 1, 1), 2, "none"),
+    "tiny_remat": ("tinyllama-1.1b", "bf16", (1, 0, 0), 1, "full"),
+    "mixtral": ("mixtral-8x7b", "f32", (1, 0, 0), 1, "none"),
+    "mamba2": ("mamba2-780m", "f32", (1, 0, 0), 1, "none"),
+    "zamba2": ("zamba2-7b", "f32", (1, 0, 0), 1, "none"),
+    "seamless": ("seamless-m4t-large-v2", "f32", (1, 0, 0), 1, "none"),
 }
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -105,14 +106,14 @@ _SCRIPT = textwrap.dedent("""
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
     par = cm.Parallelism(data_axes=("data",), tp_size=2)
     out = {{}}
-    for name, (arch, dt, (gs, z2, cb), accum) in CASES.items():
+    for name, (arch, dt, (gs, z2, cb), accum, remat) in CASES.items():
       cfg = configs.get_config(arch, smoke=True).replace(dtype=DT[dt])
       params = zoo.init(cfg, jax.random.PRNGKey(0))
       specs = cm.specs_like(params, cfg, par)
       ns = lambda s: jax.tree.map(lambda sp: NamedSharding(mesh, sp), s,
                                   is_leaf=lambda x: isinstance(x, P))
       oc = jopt.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
-      step = make_train_step(cfg, oc, accum=accum,
+      step = make_train_step(cfg, oc, accum=accum, remat=remat,
                              grad_specs=specs if gs else None,
                              zero2=bool(z2), grad_comm_bf16=bool(cb))
       with mesh:
@@ -227,11 +228,12 @@ def _run(step, state, cfg, steps=STEPS):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_mesh_step_matches_the_reference(reference, name):
-  arch, dtype, (gs, z2, cb), accum = CASES[name]
+  arch, dtype, (gs, z2, cb), accum, remat = CASES[name]
   tcfg, model, _ = _model(arch, dtype)
   mesh = _mesh()
   state, specs = _sharded(tcfg, model, mesh)
   step = tsteps.make_train_step(tcfg, _oc(), accum=accum, mesh=mesh,
+                                remat=remat,
                                 grad_specs=specs if gs else None,
                                 zero2=bool(z2), grad_comm_bf16=bool(cb))
   loss_tol, norm_tol = TOL[dtype]
@@ -328,13 +330,117 @@ def test_the_model_axis_shards_compute(monkeypatch):
                                  * lines * 2 * tcfg.n_layers)
 
 
-def test_remat_on_a_tensor_parallel_mesh_is_refused():
-  """A declared difference: remat's recompute would run inside the
-  backward, where the positions cannot meet (ROADMAP item 16)."""
-  tcfg, _, _ = _model("tinyllama-1.1b")
-  for remat in ("full", "dots"):
-    with pytest.raises(ValueError, match="item 16"):
-      tsteps.make_train_step(tcfg, _oc(), mesh=_mesh(), remat=remat)
+REMAT_CASES = [(arch, remat) for arch in ("tinyllama-1.1b", "mixtral-8x7b",
+                                          "mamba2-780m", "zamba2-7b")
+               for remat in ("full", "dots")] + [
+                   ("seamless-m4t-large-v2", "full")]
+
+
+def _remat_spy(monkeypatch):
+  """Record every checkpointed region's runs: (region index on its
+  position, rank, line, whether the run replays, the position's split
+  flag), and the meetings held off the positions' threads."""
+  runs, off_thread = [], []
+  run_layer = tsteps.tf_mod.run_layer
+  meet = tcm.LineGroup.meet
+  seen = {}
+
+  def spy(layer, remat, *args, **kw):
+    pos = tcm.position()
+    if remat == "none" or pos is None:
+      return run_layer(layer, remat, *args, **kw)
+    key = (pos.line, pos.rank)
+    region = seen[key] = seen.get(key, -1) + 1
+
+    def counted(*a, **k):
+      here = tcm.position()
+      runs.append((region, None if here is None else here.rank,
+                   None if here is None else here.line,
+                   here is not None and isinstance(here.group, tcm._Replay),
+                   None if here is None else here.split))
+      return layer(*a, **k)
+    return run_layer(counted, remat, *args, **kw)
+
+  def meet_spy(self, *args, **kw):
+    if tcm.position() is None:
+      off_thread.append(1)
+    return meet(self, *args, **kw)
+  monkeypatch.setattr(tsteps.tf_mod, "run_layer", spy)
+  monkeypatch.setattr(tcm.LineGroup, "meet", meet_spy)
+  return runs, off_thread, seen
+
+
+def _one_step(arch, remat, monkeypatch=None):
+  tcfg, model, _ = _model(arch)
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, model, mesh)
+  spied = None if monkeypatch is None else _remat_spy(monkeypatch)
+  state, m = tsteps.make_train_step(tcfg, _oc(), mesh=mesh, remat=remat)(
+      state, _batch(tcfg, 0))
+  pieces = [x.pieces[p] for x in topt._leaves(state.master)
+            for p in sorted(x.pieces)]
+  return m, pieces, spied
+
+
+@pytest.mark.parametrize("arch,remat", REMAT_CASES)
+def test_remat_on_a_tensor_parallel_mesh_is_bit_equal(arch, remat,
+                                                      monkeypatch):
+  """remat 'full' and 'dots' on the (4, 2) mesh in f32: loss, grad norm
+  and every master piece after one step bit-equal to the 'none' step, as
+  many meetings, none of them off the positions' threads (the backward
+  holds none), and each checkpointed layer run twice — the forward, then
+  the recompute on the forward's position, replaying its meetings.  The
+  SSM and hybrid stacks and the enc-dec keep every activation under
+  'dots', as the reference's do: their layers run once."""
+  want, want_pieces, _ = _one_step(arch, "none")
+  got, pieces, (runs, off_thread, regions) = _one_step(arch, remat,
+                                                       monkeypatch)
+  for k in ("loss", "grad_norm", "aux_loss"):
+    assert float(got[k]) == float(want[k]), k
+  assert got["meetings"] == want["meetings"]
+  assert len(pieces) == len(want_pieces)
+  for a, b in zip(pieces, want_pieces):
+    assert torch.equal(a, b)
+  assert not off_thread
+  keeps_all = remat == "dots" and arch in ("mamba2-780m", "zamba2-7b")
+  assert not regions if keeps_all else regions
+  for (line, rank), last in regions.items():
+    for region in range(last + 1):
+      mine = [r for r in runs if r[:3] == (region, rank, line)]
+      assert [r[3] for r in mine] == [False, True]
+      assert mine[0][4] == mine[1][4]
+
+
+def test_the_recompute_replays_on_the_forwards_position(monkeypatch):
+  """Inside the backward a recomputed layer sees a copy of the position
+  its forward ran on, as it was when the layer began: its rank, its line
+  and the split of its stream (``activation_sharding`` on), with groups
+  that replay the recorded meetings; without it the layer would take the
+  one-device path on the position's slices.  Each recompute runs to its
+  end, so every layer's gathered weights are released (checkpoint's early
+  stop would skip the layer's release hook)."""
+  tcfg, model, _ = _model("tinyllama-1.1b")
+  mesh = _mesh()
+  state, _ = _sharded(tcfg, model, mesh)
+  runs, off_thread, regions = _remat_spy(monkeypatch)
+  hooks = []
+  for name in ("_gather_layer", "_release_layer"):
+    def counted(*args, hook=getattr(tzoo, name), name=name):
+      hooks.append(name)
+      return hook(*args)
+    monkeypatch.setattr(tzoo, name, counted)
+  with tcm.activation_sharding(("data", "model", None)):
+    tsteps.make_train_step(tcfg, _oc(), mesh=mesh, remat="full")(
+        state, _batch(tcfg, 0))
+  assert hooks.count("_gather_layer") == hooks.count("_release_layer") \
+      == 2 * tcfg.n_layers * 8
+  replays = [r for r in runs if r[3]]
+  assert len(replays) == len(runs) // 2 == tcfg.n_layers * 8
+  assert all(r[1] is not None for r in runs)
+  assert {r[4] for r in replays} == {False, True}   # the first block splits
+  assert sorted(r[:3] for r in replays) == sorted(
+      r[:3] for r in runs if not r[3])
+  assert not off_thread and len(regions) == 8
 
 
 # kv heads that tp does not divide: one kv head over 2 positions, and 2 kv
@@ -409,25 +515,65 @@ def test_row_parallel_meetings_match_the_dry_run(arch, monkeypatch):
   layer, 2 per encoder and 3 per decoder layer of the enc-dec); besides
   them only the embedding's sum, the gated norms' statistics and the
   loss's three (B, S) terms meet.  The backward holds none, and every
-  model-axis replica is bit-equal after the step."""
+  model-axis replica is bit-equal after the step.  Under remat "full" the
+  step holds the same meetings (the recompute replays them), as the dry
+  run's "full" cell charges the same ``tp_all_reduce`` as its "none"
+  cell."""
   tcfg, model, _ = _model(arch)
   mesh = _mesh()
-  state, _ = _sharded(tcfg, model, mesh)
-  sites = _meeting_sites(monkeypatch)
-  step = tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh)
-  _, m = step(state, _batch(tcfg, 0))
   per_tok, per_src = tdryrun._row_parallel_per_forward(tcfg)
-  row = [s for s in sites if s[0] == "row_parallel" or s[1] in (
-      "row_parallel", "_experts")]
-  assert len(row) == 2 * (per_tok + per_src)          # accum 2
-  rest = sorted(s for s in sites if s not in row)
   ssm = tcfg.n_layers if tcfg.family in ("ssm", "hybrid") else 0
-  assert rest == sorted(
-      [("tp_sum", "embed")] * 2 + [("tp_sum", "rms_norm_wide")] * 2 * ssm
-      + [("tp_sum", "vocab_gold"), ("tp_sum", "vocab_logsumexp"),
-         ("vocab_logsumexp", "xent_sum")] * 2)
-  assert m["meetings"] == len(sites)
-  _assert_replicas_equal(state)
+  held = []
+  for remat in ("none", "full"):
+    state, _ = _sharded(tcfg, model, mesh)
+    sites = _meeting_sites(monkeypatch)
+    step = tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh,
+                                  remat=remat)
+    _, m = step(state, _batch(tcfg, 0))
+    row = [s for s in sites if s[0] == "row_parallel" or s[1] in (
+        "row_parallel", "_experts")]
+    assert len(row) == 2 * (per_tok + per_src)          # accum 2
+    rest = sorted(s for s in sites if s not in row)
+    assert rest == sorted(
+        [("tp_sum", "embed")] * 2 + [("tp_sum", "rms_norm_wide")] * 2 * ssm
+        + [("tp_sum", "vocab_gold"), ("tp_sum", "vocab_logsumexp"),
+           ("vocab_logsumexp", "xent_sum")] * 2)
+    assert m["meetings"] == len(sites)
+    _assert_replicas_equal(state)
+    held.append(sorted(sites))
+    monkeypatch.undo()
+  assert held[0] == held[1]
+  cells = [tdryrun.build_cell(arch, "train_4k", "single", remat=remat)
+           for remat in ("none", "full")]
+  terms = [tdryrun.collective_model(c)[0] for c in cells]
+  assert terms[0]["tp_all_reduce"] == terms[1]["tp_all_reduce"] > 0
+  assert terms[1]["fsdp_all_gather"] == 2 * terms[0]["fsdp_all_gather"]
+
+
+def test_the_dry_run_charges_the_long_500k_column_meeting():
+  """zamba2-7b's long_500k decode cell on the single-pod mesh (data 16,
+  model 16): B = 1 does not split over data, whose 16 positions divide
+  its 32 kv heads, so each data line attends 2 heads of each of its 13
+  shared-block applications, merged over the model axis, and the column
+  assembles all 32 in f32; by hand."""
+  from repro_torch.roofline.collectives import ring_traffic_bytes
+  cell = tdryrun.build_cell("zamba2-7b", "long_500k", "single")
+  cfg = cell.cfg
+  assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (32, 32, 112)
+  terms, axis_bytes, _ = tdryrun.collective_model(cell)
+  apps = 13
+  assert terms["decode_heads_all_gather"] == apps * ring_traffic_bytes(
+      "all-gather", 1 * 32 * 112 * 4, 16)
+  assert terms["decode_attn_all_reduce"] == apps * ring_traffic_bytes(
+      "all-reduce", 1 * 2 * (112 + 2) * 4, 16)
+  assert terms["decode_heads_all_gather"] == pytest.approx(
+      13 * 15 / 16 * 14336)
+  assert axis_bytes["data"] == (terms["fsdp_all_gather"]
+                                + terms["decode_heads_all_gather"])
+  mixtral = tdryrun.build_cell("mixtral-8x7b", "long_500k", "single")
+  # 8 kv heads do not divide over 16 data positions: no 2-D cut
+  assert tdryrun.collective_model(mixtral)[0][
+      "decode_heads_all_gather"] == 0
 
 
 # --- against the port's one-device step --------------------------------------

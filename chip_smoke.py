@@ -107,6 +107,17 @@ Phases (any failure exits non-zero):
      share of its bound, its registers and shared memory, the f32
      instance's time on the same inputs, and K3 against SDPA at the other
      head dims (16, 32, 80, 112, 128) of the same shape;
+  6b. dense serving (lines ``[dense]``, after phase 7) — qwen2.5-3b (36
+     layers, d 2048, 16 heads over 2 kv heads of 128, QKV bias, vocabulary
+     151,936) and granite-8b (36 layers, d 4096, 32 over 8 kv heads of 128)
+     uncut, seeded weights, phase 6's prompts and checks on both arms (K3
+     36 launches per prefill, none in the decode; the prefill logits within
+     phase 6's limit, both arms' logits along the 'xla' tokens at every
+     decode step, the greedy tokens under the near-tie rule), no profile;
+     each also in f32 on the same weights (``dense_f32_check``: logits
+     along 8 tokens to 1e-4, the tokens wherever the top two are clear);
+     then K3 at qwen's prefill shape (B 4, H 16/2, S 2048, D 128, causal)
+     against its plain version and SDPA;
   7. SSM serving — the tinyllama model is freed; mamba2-780m at full width
      (48 layers, d 1536, 48 SSM heads of 64, state 128, chunk 256) with
      random weights serves the same 4 × 2048 prompts, 32 new tokens each, on
@@ -176,11 +187,11 @@ Phases (any failure exits non-zero):
      tinyllama-1.1b at its published width and depth, bf16 compute, f32
      master, AdamW, 4 × 2048 SyntheticLM tokens per step: one batch at
      accum=2 against accum=1 and remat="full" against none (lr 0), then 1
-     warm-up and 8 timed steps (CUDA events), every loss finite, step ms,
+     warm-up and 4 timed steps (CUDA events), every loss finite, step ms,
      tokens/s, peak ``max_memory_allocated`` and model FLOPs per step over
      the bf16 dense peak; (c) mamba2-780m at full width with 8 of its 48
      layers, the same step; (d) ``python -m repro_torch.launch.train
-     --smoke --deterministic`` killed at step 20 (exit 42) and resumed:
+     --smoke --deterministic`` killed at step 8 of 12 (exit 42) and resumed:
      the final loss equals the uninterrupted run's within rtol 1e-5; (e)
      mixtral-8x7b at full width with 2 of its 32 layers and (f) zamba2-7b
      at full width with 7 of its 81 (one application of the shared block,
@@ -235,11 +246,12 @@ Phases (any failure exits non-zero):
   16. the dry run (lines ``[dryrun]``) — (a) on the host, with no device
      memory allocated: ``launch.dryrun.run_cell`` for seven single-pod
      cells (tinyllama-1.1b × decode_32k, mixtral-8x7b × prefill_32k,
-     mamba2-780m × long_500k, zamba2-7b × train_4k, seamless-m4t-large-v2 ×
+     mamba2-780m × long_500k, qwen2.5-3b × train_4k, seamless-m4t-large-v2 ×
      prefill_32k, chameleon-34b × decode_32k: status "ok"; granite-8b ×
      long_500k: "skipped") and tinyllama's decode_32k on the multi-pod
-     mesh; (b) the rows of a (1, 1) mesh at two shapes the card ran, printed
-     beside phase 6's prefill and phase 10's train step as measured ÷ bound;
+     mesh; (b) the rows of a (1, 1) mesh at the shapes the card ran, printed
+     beside phase 6's and phase 6b's prefills and phase 10's train step as
+     measured ÷ bound;
      (c) the APSP anchor: one min-plus squaring C ← C ⊕ (C ⊗ C) at |V| =
      16384 (f32, 1 GiB) through ``core.distributed.summa_mmo`` on a virtual
      2 × 2 mesh of the card, 4 K1 launches, rows 0–255 bit for bit equal to
@@ -265,15 +277,20 @@ Phases (any failure exits non-zero):
      profile of one more mesh step; (b) one step each with
      ``grad_specs``, with ``grad_specs`` + ``zero2`` and with all three
      knobs, from the same weights, held to the same limits; (c) the train
-     driver with ``--shards 4 --smoke --deterministic`` killed at step 20
-     and resumed, as 10(d): the final loss within rtol 1e-5 of the
+     driver with ``--shards 4 --smoke --deterministic`` killed at step 8
+     of 12 and resumed, as 10(d): the final loss within rtol 1e-5 of the
      uninterrupted run's; (d) remat on the mesh: one step each with
      remat "none", "full" and "dots" on tinyllama-1.1b uncut and "none"
      and "full" on zamba2-7b (7 of 81), from the same seeded weights and
      batch, each remat step's loss and grad norm within rtol 1e-5 of
      "none"'s, as many meetings, a lower peak; step ms, peak memory,
-     gathers along ``data`` and the bytes of the recorded meeting results
-     per step (``RematSpy``).  No K1–K4 launch (impl="xla");
+     the bytes of the recorded meeting results and the step's collectives
+     counted by a ``roofline.collectives.CollectiveCounter``
+     (``RematSpy``), per device by the ring model, printed beside
+     ``dryrun.collective_model``'s for a cell of the same shapes and
+     required equal to them term by term, the gathers along ``data``
+     (1232 for tinyllama under every remat: 7 parts × 22 layers × 4
+     positions × 2) equal to the model's.  No K1–K4 launch (impl="xla");
   18. the examples (lines ``[examples]``) — each of the nine
      ``examples/torch_*.py`` in a subprocess on ``cuda`` at the reference
      examples' sizes (``torch_train_lm.py`` 40 steps of llama-100m at
@@ -292,7 +309,7 @@ Phases (any failure exits non-zero):
      seamless-m4t-large-v2 with 12 of 24 encoder and decoder layers (4
      sources of 4096 frames, 256-token prompts), chameleon-34b with 4 of 48
      (its image half tokenized by K1 once per data line); 4 × 2048 prompts
-     elsewhere, 32 new tokens.  Each is served by ``Engine(mesh=…)`` and by
+     elsewhere, 16 new tokens.  Each is served by ``Engine(mesh=…)`` and by
      the one-device ``Engine`` in the same call: every position launches K3
      once per attention layer and K4 once per SSM layer in the prefill (the
      one-device launches × 4 in all: × 2 model positions per data line,
@@ -304,7 +321,7 @@ Phases (any failure exits non-zero):
      mamba2-780m uncut at B = 1 (which does not split over the 2 data
      lines: each line serves it whole, h2o-danube's cache cut 2-D, 4 of
      8 KV heads and 2048 of 4096 window rows per position), 4096-token
-     prompts and 64 new tokens, the same checks plus the greedy tokens
+     prompts and 16 new tokens, the same checks plus the greedy tokens
      along the one-device tokens wherever its top two are clear, each
      position's cache bytes against ``dryrun.local_bytes``, and one
      decode step of the long_500k cell (a seeded cache, ``len`` 524288)
@@ -2117,6 +2134,103 @@ def phase_lm_serving(fa, torch, card: str) -> dict:
                      f"dim {cfg.hd}")
 
 
+# Phase 6b: the two dense configurations no other phase serves, uncut, on
+# phase 6's prompts and checks (no profile): qwen2.5-3b (QKV bias, 16
+# heads over 2 kv heads of 128, vocabulary 151,936) and granite-8b (d 4096,
+# 32 heads over 8 kv heads of 128), one after the other; then K3 at qwen's
+# prefill shape against its plain version and SDPA.
+DENSE_SERVED = ("qwen2.5-3b", "granite-8b")
+# bf16 logits pallas vs xla: the prefill's within phase 6's LM_LOGIT_ATOL
+# (the first card run: 0.0469 for qwen, logits std 0.905; 0.0547 for
+# granite, std 1.28); along the same tokens at most 0.0508 and 0.0625 (the
+# same run), the limit twice the larger.  With granite's narrow top-2 gaps
+# that rule compared no bf16 token, so both models also run in f32 on the
+# same weights (``dense_f32_check``): the prefill's and DENSE_F32_STEPS - 1
+# decode steps' logits along the f32 'xla' engine's tokens within the f32
+# limit of the other phases, and the greedy tokens where the top two are
+# max(TIE_GAP, 2·|d|) apart
+DENSE_DECODE_ATOL = 0.125
+DENSE_F32_ATOL, DENSE_F32_STEPS = 1e-4, 8
+
+
+def phase_dense_serving(fa, torch, card: str) -> dict:
+  """Phase 6b: ``DENSE_SERVED`` at full width and depth through
+  ``Engine``, K3 once per layer per prefill and never in the decode."""
+  from repro_torch import configs
+  t_phase = time.perf_counter()
+  out = {}
+  for arch in DENSE_SERVED:
+    cfg = configs.get_config(arch)
+    out[arch] = serve_phase(
+        torch, card, cfg, {fa.flash_attention: cfg.n_layers}, "dense",
+        LM_LOGIT_ATOL,
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocabulary {cfg.vocab}"
+        + (", QKV bias" if cfg.qkv_bias else ""),
+        decode_atol=DENSE_DECODE_ATOL, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[arch]["f32"] = dense_f32_check(torch, cfg)
+  qwen = configs.get_config(DENSE_SERVED[0])
+  out["k3_row"] = k3_served_row(
+      fa, torch, (LM_BATCH, qwen.n_heads, qwen.n_kv_heads, LM_PROMPT,
+                  LM_PROMPT, qwen.hd, True, None), "qwen2.5-3b prefill",
+      out[qwen.name]["launches"]["flash_attention"])
+  out["s"] = time.perf_counter() - t_phase
+  log(f"[dense] phase 6b in {out['s']:.1f}s {card}")
+  return out
+
+
+def dense_f32_check(torch, cfg) -> dict:
+  """``cfg``'s model computing in f32 on phase 6b's weights (seed 0): the
+  'xla' engine's first DENSE_F32_STEPS greedy tokens, both arms' logits
+  along them (the prefill's, then the decode steps') within
+  DENSE_F32_ATOL, and the 'pallas' arm's greedy token equal to the 'xla'
+  one at every step whose top two are max(TIE_GAP, 2·|d|) apart; raises
+  unless at least one token is compared."""
+  import numpy as np
+  from repro_torch.launch.serve import Engine
+  from repro_torch.models import zoo
+  cfg32 = cfg.replace(dtype=torch.float32)
+  model = zoo.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                   "cuda")
+  prompts = np.random.default_rng(0).integers(
+      0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+  max_len = LM_PROMPT + DENSE_F32_STEPS
+  toks = Engine(cfg32, model, max_len=max_len, impl="xla",
+                device="cuda").generate(prompts, DENSE_F32_STEPS)
+  tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+  along = torch.as_tensor(toks, device="cuda")
+  with torch.inference_mode():
+    want = logits_along(cfg32, model, zoo, torch, tokens, along, max_len)
+    got = logits_along(cfg32, model, zoo, torch, tokens, along, max_len,
+                       impl="pallas")
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  d = (got - want).abs().amax(dim=-1).amax(dim=0).tolist()
+  gap_rule = max(TIE_GAP, 2 * max(d))
+  top2 = want.topk(2, dim=-1).values
+  clear = (top2[..., 0] - top2[..., 1]) >= gap_rule
+  same = got.argmax(dim=-1) == want.argmax(dim=-1)
+  out = {"prefill_logits_max_abs_diff": d[0],
+         "logits_along_max_abs_diff": max(d), "steps": DENSE_F32_STEPS,
+         "atol": DENSE_F32_ATOL, "tokens_compared": int(clear.sum()),
+         "tokens_of": int(clear.numel()), "gap_rule": gap_rule}
+  log(f"[dense] {cfg.name} in f32, same weights: logits pallas vs xla "
+      f"along the xla tokens, max |d| per step {d} (atol "
+      f"{DENSE_F32_ATOL}); greedy tokens equal on {out['tokens_compared']} "
+      f"of {out['tokens_of']} (top two {gap_rule!r} apart)")
+  if not bool(torch.isfinite(got).all()) or max(d) > DENSE_F32_ATOL:
+    raise AssertionError(f"{cfg.name}: pallas and xla f32 logits disagree")
+  if not bool(same[clear].all()):
+    raise AssertionError(f"{cfg.name}: f32 pallas tokens differ from xla's "
+                         f"where the top two are {gap_rule} apart")
+  if not out["tokens_compared"]:
+    raise AssertionError(f"{cfg.name}: no f32 token compared")
+  return out
+
+
 def phase_ssm_serving(ssd, torch, card: str) -> dict:
   """Phase 7: mamba2-780m at full width through ``Engine``; then the same
   weights computing in f32, where the two arms' prefill logits must agree
@@ -2155,7 +2269,7 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
                 logit_atol: float, shape_note: str, tie_gap: float = TIE_GAP,
                 logit_check=None, profile_new: int = LM_NEW,
                 decode_atol=None, prompts=None, src=None,
-                front=None) -> dict:
+                front=None, profile: bool = True) -> dict:
   """Serve ``cfg`` at full width through ``Engine`` on both arms: the
   'pallas' prefill must launch each kernel of ``kernels`` ({wrapper: launches
   per prefill}) that many times and the decode never; prefill logits and
@@ -2173,7 +2287,8 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
   generate and prefill.  ``front()``, when given, makes the prompts on the
   card (a frontend with kernels of its own, counted in ``kernels``): the
   measured generates call it inside their counting windows, and its
-  prompts must equal ``prompts``."""
+  prompts must equal ``prompts``.  ``profile`` False skips the two
+  profiled generates at the end."""
   import numpy as np
   from repro_torch.launch.serve import Engine
   from repro_torch.models import zoo
@@ -2294,6 +2409,8 @@ def serve_phase(torch, card: str, cfg, kernels: dict, tag: str,
       f"{LM_BATCH * LM_NEW} positions (the rest follow a top-2 gap under "
       f"{tie_gap}); identical overall: {np.array_equal(toks, xla_toks)}")
   lm["tokens_compared"] = compared
+  if not profile:
+    return lm
   if profile_new != LM_NEW:
     # unprofiled, then profiled
     eng.generate(prompts, profile_new, src_embeds=src)
@@ -2761,7 +2878,7 @@ def phase_analysis() -> dict:
 # Phase 10: LM training on the card, impl="xla" (K3 and K4 are forward
 # kernels; the reference trains only on its XLA arm).  Batch 4 × 2048
 # tokens of SyntheticLM, bf16 compute, f32 master, AdamW.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 4
 SSM_TRAIN_LAYERS = 8  # of mamba2-780m's 48: a depth cut, widths as published
 # (e, f): the MoE and hybrid families at their published widths, cut in
 # depth: mixtral-8x7b with 2 of its 32 layers, zamba2-7b with 7 of its 81
@@ -3015,22 +3132,29 @@ TRAIN_CLI = [sys.executable, "-m", "repro_torch.launch.train", "--device",
              "cuda", "--deterministic"]
 
 
+# the train driver's kill and resume (phases 10(d), 17(c)): KILL_STEPS
+# steps, a checkpoint every KILL_EVERY, killed at KILL_AT
+KILL_STEPS, KILL_EVERY, KILL_AT = 12, 4, 8
+
+
 def phase_kill_resume(tmp: Path, extra=(), tag: str = "[train] (d)"
                       ) -> dict:
   """Phase 10(d), and 17(c) with ``extra`` = --shards 4: the train driver
-  killed at step 20 of 30 (exit 42) and restarted from its checkpoint ends
-  at the uninterrupted run's loss (rtol 1e-5, the reference's test); the
-  uninterrupted and the crashing run go at once."""
+  killed at step KILL_AT of KILL_STEPS (exit 42) and restarted from its
+  checkpoint ends at the uninterrupted run's loss (rtol 1e-5, the
+  reference's test); the uninterrupted and the crashing run go at once."""
   env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-  common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "30",
-            "--batch", "4", "--seq", "32", "--lr", "1e-3", "--ckpt-every",
-            "10", "--log-every", "30", *extra]
+  common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps",
+            str(KILL_STEPS), "--batch", "4", "--seq", "32", "--lr", "1e-3",
+            "--ckpt-every", str(KILL_EVERY), "--log-every", str(KILL_STEPS),
+            *extra]
   t0 = time.perf_counter()
   runs = [subprocess.Popen(
       TRAIN_CLI + common + extra, stdout=subprocess.PIPE,
       stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
       for extra in (["--ckpt-dir", str(tmp / "ref")],
-                    ["--ckpt-dir", str(tmp / "crash"), "--fail-at", "20"])]
+                    ["--ckpt-dir", str(tmp / "crash"), "--fail-at",
+                     str(KILL_AT)])]
   (ref_out, ref_err), (_, crash_err) = (r.communicate(timeout=300)
                                         for r in runs)
   if runs[0].returncode != 0 or runs[1].returncode != 42:
@@ -3040,7 +3164,7 @@ def phase_kill_resume(tmp: Path, extra=(), tag: str = "[train] (d)"
   r2 = subprocess.run(TRAIN_CLI + common + ["--ckpt-dir", str(tmp / "crash")],
                       capture_output=True, text=True, timeout=300, cwd=ROOT,
                       env=env)
-  if r2.returncode != 0 or "resumed from step 20" not in r2.stdout:
+  if r2.returncode != 0 or f"resumed from step {KILL_AT}" not in r2.stdout:
     raise AssertionError(f"resume failed:\n{r2.stdout}{r2.stderr}")
 
   def loss_of(text):
@@ -3049,7 +3173,8 @@ def phase_kill_resume(tmp: Path, extra=(), tag: str = "[train] (d)"
   want, got = loss_of(ref_out), loss_of(r2.stdout)
   out = {"crash_exit": runs[1].returncode, "uninterrupted_loss": want,
          "resumed_loss": got, "s": time.perf_counter() - t0}
-  log(f"{tag} kill at step 20 (exit 42) and resume: final loss "
+  log(f"{tag} kill at step {KILL_AT} of {KILL_STEPS} (exit 42) and resume: "
+      f"final loss "
       f"{got!r}, uninterrupted {want!r}, {out['s']:.1f}s")
   if abs(got - want) > 1e-5 * abs(want):
     raise AssertionError("the resumed run's loss differs from the "
@@ -3653,7 +3778,7 @@ def phase_pipeline(torch, card: str) -> dict:
 DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k", "single"),
                 ("mixtral-8x7b", "prefill_32k", "single"),
                 ("mamba2-780m", "long_500k", "single"),
-                ("zamba2-7b", "train_4k", "single"),
+                ("qwen2.5-3b", "train_4k", "single"),
                 ("seamless-m4t-large-v2", "prefill_32k", "single"),
                 ("chameleon-34b", "decode_32k", "single"),
                 ("granite-8b", "long_500k", "single"),
@@ -3678,10 +3803,12 @@ def apsp_graph(torch, v: int, seed: int):
   return w.fill_diagonal_(0.0)
 
 
-def phase_dryrun(sm, torch, card: str, lm: dict, train: dict) -> dict:
+def phase_dryrun(sm, torch, card: str, lm: dict, train: dict,
+                 dense: dict) -> dict:
   """Phase 16: (a) the dry run's rows on the host, (b) its bound against
-  two measurements of this run, (c) the APSP squaring at |V| = 16384 on a
-  virtual 2 × 2 mesh of the card against the dry run's K1 bound."""
+  four measurements of this run (tinyllama's prefill and train step, the
+  prefills of phase 6b), (c) the APSP squaring at |V| = 16384 on a virtual
+  2 × 2 mesh of the card against the dry run's K1 bound."""
   from repro_torch import configs
   from repro_torch.configs import Shape
   from repro_torch.core import distributed as dist
@@ -3714,26 +3841,29 @@ def phase_dryrun(sm, torch, card: str, lm: dict, train: dict) -> dict:
       f"{out['hbm_bytes']} bytes (hw.HBM_BYTES {hw.HBM_BYTES}) {card}")
   # -- (b) the bound against this run's measurements --------------------------
   one = AbstractMesh((1, 1), ("data", "model"))
-  pre = dryrun.run_cell(LM_ARCH, Shape("prefill_2k", LM_PROMPT, LM_BATCH,
-                                       "prefill"), one)
-  trn = dryrun.run_cell(LM_ARCH, Shape("train_2k", TRAIN_SEQ, TRAIN_BATCH,
-                                       "train"), one, remat="none", accum=1)
-  if device_allocations(torch) != allocs:
-    raise AssertionError("the dry run allocated device memory")
-  bound = {"prefill": max(pre["t_compute_s"], pre["t_memory_s"],
-                          pre["t_collective_s"]),
-           "train": max(trn["t_compute_s"], trn["t_memory_s"],
-                        trn["t_collective_s"])}
+  prefill_2k = Shape("prefill_2k", LM_PROMPT, LM_BATCH, "prefill")
+  rows_b = {"prefill": dryrun.run_cell(LM_ARCH, prefill_2k, one),
+            "train": dryrun.run_cell(LM_ARCH, Shape("train_2k", TRAIN_SEQ,
+                                                    TRAIN_BATCH, "train"),
+                                     one, remat="none", accum=1)}
   measured = {"prefill": lm["prefill_ms"] / 1e3,
               "train": train["tinyllama"]["step_ms_median"] / 1e3}
-  out["vs_card"] = {k: {"measured_s": measured[k], "bound_s": bound[k],
-                        "bottleneck": r["bottleneck"],
-                        "measured_over_bound": measured[k] / bound[k]}
-                    for k, r in (("prefill", pre), ("train", trn))}
-  log(f"[dryrun] (b) {LM_ARCH} on a (1, 1) mesh, {LM_BATCH} × {LM_PROMPT}: "
-      f"measured ÷ the dry run's bound {json.dumps(out['vs_card'])} (the "
-      f"prefill measured on 'pallas' with K3 in phase 6, host clock; the "
-      f"row counts the 'xla' arm; the train step phase 10's CUDA-event "
+  for arch in DENSE_SERVED:
+    rows_b[f"prefill {arch}"] = dryrun.run_cell(arch, prefill_2k, one)
+    measured[f"prefill {arch}"] = dense[arch]["prefill_ms"] / 1e3
+  if device_allocations(torch) != allocs:
+    raise AssertionError("the dry run allocated device memory")
+  out["vs_card"] = {}
+  for k, r in rows_b.items():
+    bound = max(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"])
+    out["vs_card"][k] = {"measured_s": measured[k], "bound_s": bound,
+                         "bottleneck": r["bottleneck"],
+                         "measured_over_bound": measured[k] / bound}
+  log(f"[dryrun] (b) {LM_ARCH} (and phase 6b's {', '.join(DENSE_SERVED)} "
+      f"prefills) on a (1, 1) mesh, {LM_BATCH} × {LM_PROMPT}: measured ÷ "
+      f"the dry run's bound {json.dumps(out['vs_card'])} (the prefills "
+      f"measured on 'pallas' with K3 in phases 6 and 6b, host clock; the "
+      f"rows count the 'xla' arm; the train step phase 10's CUDA-event "
       f"median, remat none) {card}")
   # -- (c) the APSP anchor ----------------------------------------------------
   v = APSP_V
@@ -3971,21 +4101,19 @@ MESH_REMAT_MODELS = (
 
 
 class RematSpy:
-  """Counts, while on, the parts gathered along ``data`` (each copy:
-  ``placement.assemble``, the forward's gather, the recompute's or the
-  backward's ``_Regather``) and the bytes of the meeting results recorded
-  for recomputes (``common._record`` inside a checkpointed region)."""
+  """Counts, while on, the collectives of the mesh step (``counter``, a
+  ``roofline.collectives.CollectiveCounter``: the meetings, the parts
+  gathered along ``data`` — the forward's gather, the recompute's or the
+  backward's ``_Regather`` — and the gradient sums) and the bytes of the
+  meeting results recorded for recomputes (``common._record`` inside a
+  checkpointed region)."""
 
   def __init__(self):
     from repro_torch.models import common as cm
-    from repro_torch.models import placement
-    self.cm, self.placement = cm, placement
-    self.assemble, self.record = placement.assemble, cm._record
-    self.gathers = self.recorded_bytes = 0
-
-  def _assemble(self, *args, **kw):
-    self.gathers += 1
-    return self.assemble(*args, **kw)
+    from repro_torch.roofline.collectives import CollectiveCounter
+    self.cm, self.record = cm, cm._record
+    self.counter = CollectiveCounter()
+    self.recorded_bytes = 0
 
   def _record(self, result):
     pos = self.cm.position()
@@ -3996,21 +4124,53 @@ class RematSpy:
     return self.record(result)
 
   def __enter__(self):
-    self.gathers = self.recorded_bytes = 0
-    self.placement.assemble, self.cm._record = self._assemble, self._record
+    self.recorded_bytes = 0
+    self.counter.__enter__()
+    self.cm._record = self._record
     return self
 
   def __exit__(self, *exc):
-    self.placement.assemble, self.cm._record = self.assemble, self.record
-    return False
+    self.cm._record = self.record
+    return self.counter.__exit__(*exc)
+
+
+def counted_against_model(cfg, rows: int, remat: str, counter) -> dict:
+  """The collectives ``counter`` recorded over one mesh step of ``rows``
+  × TRAIN_SEQ tokens (no activation sharding), per device by the ring
+  model, beside ``dryrun.collective_model`` for a cell of the same shapes
+  on a (2, 2) mesh; raises unless every term and axis group agree and the
+  gathers along ``data`` are the model's on each of the four positions."""
+  from repro_torch.configs import Shape
+  from repro_torch.launch import dryrun
+  from repro_torch.launch.mesh import AbstractMesh
+  cell = dryrun.build_cell(
+      cfg.name, Shape(f"train_{TRAIN_SEQ}", TRAIN_SEQ, rows, "train"),
+      AbstractMesh((2, 2), ("data", "model")), remat=remat, accum=1,
+      act_seq_shard=False, cfg_overrides={"n_layers": cfg.n_layers})
+  model_terms, model_axes, _ = dryrun.collective_model(cell)
+  terms, axes = counter.ring_bytes()
+  gathers = counter.count("fsdp_all_gather")
+  want = 4 * sum(c.times for c in dryrun.step_collectives(cell)
+                 if c.term == "fsdp_all_gather")
+  out = {"counted": terms, "model": model_terms, "counted_axes": axes,
+         "model_axes": model_axes, "gathers": gathers,
+         "model_gathers": want}
+  if (terms != model_terms or gathers != want
+      or {k: axes.get(k, 0.0) for k in model_axes} != model_axes):
+    raise AssertionError(f"{cfg.name} remat {remat}: the counted "
+                         f"collectives differ from the dry run's model "
+                         f"{json.dumps(out)}")
+  return out
 
 
 def mesh_remat_model(torch, card: str, key: str, cfg, rows: int, mesh,
                      remats: tuple) -> dict:
   """Phase 17 (d) for one model: one mesh step with remat "none", then one
   with each of ``remats``, each from the same seeded weights on the same
-  batch; step ms (CUDA events), peak memory, meetings, gathers along
-  ``data`` and the recorded meeting results' bytes per step."""
+  batch; step ms (CUDA events), peak memory, meetings, the recorded meeting
+  results' bytes per step, and the step's collectives counted
+  (``RematSpy``) beside the dry run's model of them
+  (``counted_against_model``)."""
   from repro_torch.data import DataConfig, SyntheticLM
   from repro_torch.train import optimizer as opt_mod
   from repro_torch.train.steps import make_train_step
@@ -4025,11 +4185,21 @@ def mesh_remat_model(torch, card: str, key: str, cfg, rows: int, mesh,
     torch.cuda.reset_peak_memory_stats()
     with RematSpy() as spy:
       ss, m, ms, meetings = timed_steps(torch, step, ss, data, 1)
+    coll = counted_against_model(cfg, rows, remat, spy.counter)
+    log(f"[mesh-train] (d) {key} remat {remat}: counted collectives per "
+        f"device {json.dumps(coll['counted'])}, the dry run's model "
+        f"{json.dumps(coll['model'])}: equal; gathers along data "
+        f"{coll['gathers']} (model {coll['model_gathers']})")
     runs[remat] = {"loss": m[0][0], "grad_norm": m[0][1], "step_ms": ms[0],
                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                    "meetings_per_step": meetings,
-                   "gathers_per_step": spy.gathers,
-                   "recorded_meeting_bytes": spy.recorded_bytes}
+                   "gathers_per_step": coll["gathers"],
+                   "recorded_meeting_bytes": spy.recorded_bytes,
+                   "collectives": coll}
+    if cfg.name == LM_ARCH and coll["gathers"] != 7 * cfg.n_layers * 4 * 2:
+      raise AssertionError(f"{key} remat {remat}: {coll['gathers']} gathers "
+                           f"along data, want 7 parts × {cfg.n_layers} "
+                           f"layers × 4 positions × 2")
     del ss, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4220,7 +4390,10 @@ TP_MESH = (2, 2)
 # depth cuts that let phase 19 fit TP_PHASE_BUDGET_S with (g) in it:
 # tinyllama 11 of 22 layers, mamba2-780m 12 of 48 (served uncut at B = 1
 # in (g)), seamless 12 of 24 encoder and of 24 decoder layers (an enc-dec
-# entry cuts both); widths stay as published
+# entry cuts both); widths stay as published.  Each generate makes TP_NEW
+# tokens (phase 6's 32 until a host whose mesh decode ran 1.7× slower
+# took the phase past its budget)
+TP_NEW = 16
 TP_SERVED = (
     ("tinyllama-1.1b", 11, LM_PROMPT, LM_LOGIT_ATOL, LM_LOGIT_ATOL,
      TIE_GAP),
@@ -4350,7 +4523,7 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
   prompts = (front(1).cpu().numpy() if front is not None else
              np.random.default_rng(0).integers(
                  0, cfg.vocab, (LM_BATCH, n_prompt), dtype=np.int32))
-  max_len = n_prompt + LM_NEW
+  max_len = n_prompt + TP_NEW
   one = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda")
   tp = Engine(cfg, model, max_len=max_len, impl="pallas", device="cuda",
               mesh=mesh)
@@ -4377,7 +4550,7 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
       kernel.launches = 0
     if front is not None:  # the frontend's launches are the main path's
       made = front(parts)
-    toks = eng.generate(made, LM_NEW, src_embeds=src)
+    toks = eng.generate(made, TP_NEW, src_embeds=src)
     launches = {k.__name__: k.launches for k in kernels}
     tm = eng.last_timing
     runs[label] = {
@@ -4414,7 +4587,7 @@ def tp_serve_one(sm, fa, ssd, torch, np, card: str, arch: str, layers,
   compared = 0
   for b in range(LM_BATCH):
     ties = np.nonzero(gaps[b] < gap_rule)[0]
-    upto = int(ties[0]) if len(ties) else LM_NEW
+    upto = int(ties[0]) if len(ties) else TP_NEW
     if not np.array_equal(runs["mesh"]["tokens"][b, :upto],
                           one_toks[b, :upto]):
       raise AssertionError(f"{arch} row {b}: mesh tokens differ from one "
@@ -4502,13 +4675,14 @@ def tp_f32_check(torch, cfg, tokens, along, max_len: int, atol: float,
 # divide the kv heads, holds one group of them (h2o-danube: 4 of 8 per
 # line, 2048 of its 4096-row window per position).  Published widths and
 # depths; a 4096-token prompt (the window, so the ring wraps at the first
-# decode step) and 64 new tokens; the logits along the first
+# decode step) and 16 new tokens (64 until a host whose mesh decode ran
+# 1.7× slower took phase 19 past its budget); the logits along the first
 # TP_LONG_ALONG tokens held to the family's bf16 limit of (c); then one
 # decode step of the long_500k cell itself from a seeded cache whose
 # ``len`` is its 524288, mesh against one device.
 TP_LONG = (("h2o-danube-1.8b", LM_LOGIT_ATOL),
            ("mamba2-780m", SSM_LOGIT_ATOL))
-TP_LONG_PROMPT, TP_LONG_NEW, TP_LONG_ALONG = 4096, 64, TP_F32_STEPS
+TP_LONG_PROMPT, TP_LONG_NEW, TP_LONG_ALONG = 4096, 16, TP_F32_STEPS
 # h2o-danube's 2-D cut also in f32 on the same weights, mesh against one
 # device along the first TP_LONG_ALONG tokens (tp_f32_check), to the f32
 # limit the mesh's other f32 runs hold; there a wrong head group or ring row
@@ -5219,6 +5393,11 @@ def main() -> int:
   k4 = phase_ssd_timing(ssd, torch, k4_err,
                         ssm_run["launches"]["ssd_intra_chunk"])
 
+  # -- phase 6b: the dense configurations no other phase serves -------------
+  gc.collect()
+  torch.cuda.empty_cache()
+  dense = phase_dense_serving(fa, torch, card)
+
   # -- phase 8: the rest of the applications ----------------------------------
   gc.collect()
   torch.cuda.empty_cache()
@@ -5257,7 +5436,9 @@ def main() -> int:
   k3_paths = {"tinyllama-1.1b": k3["launches"],
               **{arch: moe_run[arch]["launches"]["flash_attention"]
                  for arch, _ in MOE_SERVED},
-              HYBRID_ARCH: hyb["launches"]["flash_attention"]}
+              HYBRID_ARCH: hyb["launches"]["flash_attention"],
+              **{arch: dense[arch]["launches"]["flash_attention"]
+                 for arch in DENSE_SERVED}}
   k4_paths = {SSM_ARCH: k4["launches"],
               HYBRID_ARCH: hyb["launches"]["ssd_intra_chunk"]}
 
@@ -5277,11 +5458,12 @@ def main() -> int:
   pipe = phase_pipeline(torch, card)
   k3_paths[ENCDEC_ARCH] = encdec_run["launches"]["flash_attention"]
   k3_paths[VLM_ARCH] = vlm_run["launches"]["flash_attention"]
-  served = {arch: moe_run[arch] for arch, _ in MOE_SERVED}
+  served = {arch: dense[arch] for arch in DENSE_SERVED}
+  served.update({arch: moe_run[arch] for arch, _ in MOE_SERVED})
   served[HYBRID_ARCH] = hyb
   served[ENCDEC_ARCH] = encdec_run
   served[VLM_ARCH] = vlm_run
-  log(f"[summary] phases 11-15 {card}: " + "; ".join(
+  log(f"[summary] phases 6b, 11-15 {card}: " + "; ".join(
       f"{arch} prefill {r['prefill_ms']!r} ms, decode "
       f"{r['decode_ms_per_token']!r} ms/token, peak "
       f"{r['max_memory_allocated_gib']!r} GiB" for arch, r in served.items())
@@ -5294,7 +5476,7 @@ def main() -> int:
   # -- phase 16: the dry run and its APSP anchor --------------------------------
   gc.collect()
   torch.cuda.empty_cache()
-  dry = phase_dryrun(sm, torch, card, lm, train)
+  dry = phase_dryrun(sm, torch, card, lm, train, dense)
 
   # -- phase 17: training on a mesh -----------------------------------------------
   gc.collect()
@@ -5388,7 +5570,8 @@ def main() -> int:
       "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
       "library_ms": k3["library_ms"],
       "instances": [served_instance(row) for row in (
-          moe_run["k3_row"], hyb["k3_row"], *encdec_run["k3_rows"],
+          dense["k3_row"], moe_run["k3_row"], hyb["k3_row"],
+          *encdec_run["k3_rows"],
           vlm_run["k3_row"], *tp["k3_rows"])]}, {
       "name": "ssd_intra_chunk", "design": K4_DESIGN, "route": "cuda",
       "source": "src/repro_torch/kernels/csrc/ssd.cu",

@@ -35,55 +35,87 @@ executable and have no counterpart.  The values:
     f32 gradient sum) divided by the chips, as if every temporary were
     sharded over the whole mesh.
   * ``peak_mem_per_dev`` = arg + out + temp.
-  * ``coll_bytes_per_dev``, ``coll_breakdown`` — a closed-form ring model
-    (``collectives.ring_traffic_bytes``), per device, by axis group; D is
-    the data axes' size, T the model axis's, a leaf's local bytes are its
-    bytes divided over the axes its spec names other than the data axes,
-    and tokens are a microbatch's tokens on one data shard:
-      fsdp_all_gather       Σ_leaves sharded over data
-                              ring(all-gather, local bytes, D) × n_g, the
-                              master's f32 per microbatch (n_g = accum, ×2
-                              in a train cell under remat "full": the
-                              recompute gathers again, as the port's
-                              does: two gathers of each part per
-                              microbatch, counted on the CPU), or with
-                              ``zero2`` the bf16 compute copy once per
-                              step (n_g = 1)
-      grad_reduce_scatter   train: Σ_leaves sharded over data
-                              ring(reduce-scatter, local grad bytes, D) ×
-                              accum; f32, bf16 with ``grad_comm_bf16``
-      grad_all_reduce       train: the same over the leaves replicated over
-                              data, ring(all-reduce, ...)
-      tp_all_reduce         ring(all-reduce, tokens · d_model · 2, T) per
-                              row-parallel projection (attention's wo, the
-                              MLP's or experts' w2, the SSM's out_proj: 2 per
-                              transformer block, 1 per SSM layer, 3 per
-                              decoder layer of the enc-dec), × accum; a
-                              train cell adds as many for the backward.
-                              Under remat the recompute holds none: it
-                              replays the forward's results
-                              (``common.remat_contexts``).  The port's
-                              tensor-parallel train step holds exactly
-                              these row-parallel meetings per forward,
-                              under every remat; its other meetings are
-                              not charged:
-                              the vocab-parallel embedding's sum (tokens ·
-                              d_model in f32, once per forward), and
-                              (B, S) statistics (the gated norms', the
-                              loss's)
-      decode_attn_all_reduce  decode with the cache's sequence on the model
-                              axis: ring(all-reduce, B · H · (hd + 2) · 4, T)
-                              per attention layer (partial outputs, max and
-                              sum in f32; B the rows on one data line, H
-                              the heads it attends)
+  * ``coll_bytes_per_dev``, ``coll_breakdown`` — a closed-form model of the
+    collectives the port's own step holds on its single-controller mesh
+    (``step_collectives``: the first position's, by the ring model of
+    ``collectives.ring_traffic_bytes``), per device, by axis group.  D is
+    the data axes' size, T the model axis's; b a microbatch's rows on one
+    data line (all of them where the batch does not split over the lines),
+    s its tokens per row (1 in a decode); a part is a leaf's piece on the
+    first position with the data axes left uncut (its heads' slice of a
+    leaf replicated over the model axis, ``zoo.head_slice``):
+      fsdp_all_gather       Σ_leaves cut over data ring(all-gather, part,
+                              D) per gather: in a train cell two per
+                              microbatch under every remat (the forward's,
+                              then the backward's regather, ``zoo.
+                              _Regather``, or the recompute's gather) in
+                              ``cfg.dtype`` (the router in f32), or with
+                              ``zero2`` one ``cfg.dtype`` copy per step;
+                              in serving one per forward in the stored
+                              dtype; a shared block's parts once per
+                              application, the encoder's not in a decode,
+                              the decoder's cross-attention parts once more
+                              per forward (``encdec.cross_kv``; its wk and
+                              wv, unused by the layer, are not regathered
+                              but are gathered again in a recompute)
+      grad_reduce_scatter   train, per microbatch: Σ_leaves cut over data
+                              and over the model axis ring(reduce-scatter,
+                              part's gradient, D) per use of a gathered part
+                              (once per leaf under zero2); f32, bf16 with
+                              ``grad_comm_bf16``; a leaf replicated over
+                              the model axis and cut over data (the router)
+                              ring(reduce-scatter, the whole leaf's, D)
+      grad_all_reduce       train, per microbatch: the same over the leaves
+                              not cut over data, ring(all-reduce, ..., D);
+                              besides, every leaf replicated over the model
+                              axis is summed over the line first:
+                              ring(all-reduce, the whole leaf in f32, T)
+      tp_all_reduce         the residual stream's meetings on the model
+                              axis: per row-parallel projection (attention's
+                              wo, the MLP's w2, the SSM's out_proj)
+                              ring(all-reduce, b·s·d_model·4, T) of f32
+                              partials; with the stream's sequence cut over
+                              the model axis (``act_seq_shard``, s
+                              divisible by T) a ring(reduce-scatter, same)
+                              and a ring(all-gather, b·s·d_model in
+                              ``cfg.dtype``, T) ahead of each column-parallel
+                              input and at the stack's end; the MoE's
+                              expert sum ring(all-reduce, E·b·C·d_model·4,
+                              T); the enc-dec's encoder (never cut) 2 per
+                              layer over its b·src_len tokens
+      tp_embed_all_reduce   the vocab-parallel embedding's sum,
+                              ring(all-reduce, b·s·d_model·4, T) per forward
+      tp_stats_all_reduce   (B, S) statistics in f32: each SSM layer's gated
+                              norm ring(all-reduce, b·s·4, T); the loss's
+                              log-sum-exp (max and Σ exp, 2·b·(s−1)·4), its
+                              gradient's carrier and the gold logit
+                              (b·(s−1)·4 each); a decode's greedy token
+                              (value and int64 index, b·(dtype + 8))
+      decode_attn_all_reduce  decode, per attention layer: the new row's
+                              q, k and v heads all-gathered
+                              (ring(all-gather, T·b·(H/T + 2·KV_p)·hd·dtype,
+                              T), KV_p the kv heads one position computes)
+                              and, with ``seq_shard_decode``, the partial
+                              outputs, max and sum ring(all-reduce,
+                              b·H·(hd + 2)·4, T) (H the heads a line
+                              attends)
       decode_heads_all_gather decode of a batch that does not split over the
                               data axes, whose kv heads they divide (the
                               2-D cache cut: each data line attends H/D
-                              heads): ring(all-gather, B · H · hd · 4, D)
-                              per attention layer (the heads assembled
-                              over the column, f32)
-    The data terms run over the data axes' group, the others over the
-    model axis; ``analysis.axis_group_rate`` gives each group's link rate.
+                              heads): ring(all-gather, b·H·hd·4, D) per
+                              attention layer (the heads assembled over the
+                              column; in ``cfg.dtype`` without
+                              ``seq_shard_decode``)
+    A train cell holds each meeting per microbatch and, in the backward,
+    its transposed collective over the same bytes (the gradient goes back
+    to every posted tensor; the loss's max and Σ exp carry none); a
+    recompute replays its meetings' results (``common.remat_contexts``)
+    and holds none.  The data terms run over the data axes' group, the
+    model axis terms and the line sums of the gradients over the model
+    axis; ``analysis.axis_group_rate`` gives each group's link rate.  On
+    a real mesh ``roofline/collectives.CollectiveCounter`` counts the same
+    from the step (``tests/test_torch_dryrun_collectives.py`` holds the two
+    equal, term by term, for every family, remat and knob).
 
 A train cell's step gets the reference cell's knobs: ``grad_specs`` (the
 parameters' specs), ``zero2`` and ``grad_comm_bf16``, so the bf16 compute
@@ -115,9 +147,12 @@ from repro_torch.launch import specs as sp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common as cm
 from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import transformer as tf_mod
 from repro_torch.models import zoo
 from repro_torch.roofline import analysis
-from repro_torch.roofline.collectives import ring_traffic_bytes
+from repro_torch.roofline.collectives import (TRANSPOSE, Collective,
+                                              ring_totals)
 from repro_torch.roofline.flops import CostCounter
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import steps as steps_mod
@@ -286,87 +321,200 @@ def new_outputs(cell: Cell, outs) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _row_parallel_per_forward(cfg) -> tuple:
-  """(row-parallel projections per token of the step's tokens, per token of
-  the enc-dec's source)."""
+def _itemsize(dtype: torch.dtype) -> int:
+  return torch.empty((), dtype=dtype).element_size()
+
+
+def _meetings(cell: Cell, b: int) -> list:
+  """(Collective, differentiable) for each meeting the first position
+  holds in one forward over ``b`` rows of its data line."""
+  cfg, par, shape = cell.cfg, cell.par, cell.shape
+  t_size, d_size = par.tp_size, par.dp_size
+  model, data = par.model_axis, "+".join(par.data_axes)
+  comp, d, hd = _itemsize(cfg.dtype), cfg.d_model, cfg.hd
+  decode = shape.kind == "decode"
+  s = 1 if decode else shape.seq_len
+  act = cell.act_spec
+  split = (act is not None and len(act) > 1 and act[1] == model
+           and t_size > 1 and s % t_size == 0)
+  grouped = (decode and par.dp_for(shape.global_batch) is None
+             and cfg.n_kv_heads % d_size == 0)
+  out = []
+
+  def meet(term, kind, nbytes, diff=True, axis=model, group=t_size):
+    out.append((Collective(term, axis, kind, nbytes, group), diff))
+
+  def row(tokens, stream=True):
+    """A row-parallel projection over ``tokens`` of the stream, and the
+    column-parallel input ahead of it."""
+    if stream and split:
+      meet("tp_all_reduce", "all-gather", tokens * d * comp)
+      meet("tp_all_reduce", "reduce-scatter", tokens * d * 4)
+    else:
+      meet("tp_all_reduce", "all-reduce", tokens * d * 4)
+
+  def attention():
+    if not decode:
+      row(b * s)
+      return
+    (q0, q1), (k0, k1) = cm.head_range(cfg.n_heads, cfg.n_kv_heads, 0,
+                                       t_size)
+    meet("decode_attn_all_reduce", "all-gather",
+         t_size * b * (q1 - q0 + 2 * (k1 - k0)) * hd * comp, False)
+    heads = cfg.n_heads // d_size if grouped else cfg.n_heads
+    if par.seq_shard_decode:
+      meet("decode_attn_all_reduce", "all-reduce",
+           b * heads * (hd + 2) * 4, False)
+    if grouped:
+      meet("decode_heads_all_gather", "all-gather",
+           b * cfg.n_heads * hd * (4 if par.seq_shard_decode else comp),
+           False, data, d_size)
+    row(b * s)
+
+  def block(moe: bool):
+    attention()
+    if not moe:
+      row(b * s)
+      return
+    if split:
+      meet("tp_all_reduce", "all-gather", b * s * d * comp)
+    slots = cfg.n_experts * b * moe_mod.capacity(cfg, s)
+    meet("tp_all_reduce", "all-reduce", slots * d * 4)
+
+  def ssm_layer():
+    if split:
+      meet("tp_all_reduce", "all-gather", b * s * d * comp)
+    meet("tp_stats_all_reduce", "all-reduce", b * s * 4)   # the gated norm
+    meet("tp_all_reduce", "reduce-scatter" if split else "all-reduce",
+         b * s * d * 4)
+
+  meet("tp_embed_all_reduce", "all-reduce", b * s * d * 4)
   if cfg.family == "ssm":
-    return cfg.n_layers, 0
-  if cfg.family == "hybrid":
-    return cfg.n_layers + 2 * hybrid_mod.layout(cfg)[1], 0
-  if cfg.family == "encdec":
-    return 3 * cfg.dec_layers, 2 * cfg.enc_layers
-  return 2 * cfg.n_layers, 0
+    for _ in range(cfg.n_layers):
+      ssm_layer()
+  elif cfg.family == "hybrid":
+    for _ in range(cfg.n_layers):
+      ssm_layer()
+    for _ in range(hybrid_mod.layout(cfg)[1]):
+      block(False)
+  elif cfg.family == "encdec":
+    if not decode:      # a decode's batch carries the encoder's output
+      for _ in range(2 * cfg.enc_layers):
+        row(b * cfg.src_len, stream=False)
+    for _ in range(cfg.dec_layers):
+      attention()       # self-attention
+      row(b * s)        # cross-attention
+      row(b * s)        # the MLP
+  else:
+    for _ in range(cfg.n_layers):
+      block(bool(cfg.n_experts))
+  if split:
+    meet("tp_all_reduce", "all-gather", b * s * d * comp)  # end_stream
+  if shape.kind == "train":
+    stat = b * (s - 1) * 4
+    meet("tp_stats_all_reduce", "all-reduce", 2 * stat, False)  # max, Σexp
+    meet("tp_stats_all_reduce", "all-reduce", stat)   # log-sum-exp's grad
+    meet("tp_stats_all_reduce", "all-reduce", stat)   # the gold logit
+  elif decode:
+    meet("tp_stats_all_reduce", "all-reduce", b * (comp + 8), False)
+  return out
 
 
-def _attention_layers(cfg) -> int:
-  return {"ssm": 0, "hybrid": hybrid_mod.layout(cfg)[1],
-          "encdec": cfg.dec_layers}.get(cfg.family, cfg.n_layers)
+def _part_numel(cell: Cell, path: str, t: torch.Tensor, spec) -> int:
+  """Elements of the first position's part of a leaf: its ceil-sized
+  piece along every axis but the data axes, or its heads' slice of a leaf
+  replicated over the model axis (``zoo.head_slice``)."""
+  numel = local_bytes(t, spec, cell.mesh.shape,
+                      skip=tuple(cell.par.data_axes)) // t.element_size()
+  cut = zoo.head_slice(path, t.ndim, cell.cfg, 0, cell.par.tp_size)
+  if cut is not None:
+    dim, lo, hi = cut
+    numel = numel // t.shape[dim] * (hi - lo)
+  return numel
+
+
+def _leaf_collectives(cell: Cell) -> list:
+  """The first position's gathers along ``data`` and gradient sums over
+  one step, leaf by leaf."""
+  cfg, par, kind = cell.cfg, cell.par, cell.shape.kind
+  data, model = tuple(par.data_axes), par.model_axis
+  data_key, d_size, t_size = "+".join(data), par.dp_size, par.tp_size
+  comp = _itemsize(cfg.dtype)
+  train, accum = kind == "train", cell.accum
+  grad_size = 2 if cell.grad_comm_bf16 else 4
+  apps_shared = hybrid_mod.layout(cfg)[1] if cfg.family == "hybrid" else 0
+  # a layer's recompute gathers its parts again; without one the
+  # backward regathers each part it saved
+  layer_remat = cell.remat == "full" or (
+      cell.remat == "dots" and cfg.family in tf_mod.FAMILIES)
+  specs = cm.tree_paths(cell.param_specs)
+  out = []
+  for path, t in cm.tree_paths(zoo.param_tree(cell.model)).items():
+    spec = specs[path]
+    axes = {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+    over_data, over_model = bool(axes & set(data)), model in axes
+    top = path.split("/")[0]
+    apps = {"shared": apps_shared,
+            "enc": 0 if kind == "decode" else 1}.get(top, 1)
+    # every forward's cross K/V gathers the decoder's cross-attention
+    # weights again (``encdec.cross_kv``); its layer uses only wq and wo
+    cross = top == "dec" and "/cross/" in path
+    unused = cross and path.endswith(("/wk", "/wv"))
+    part = _part_numel(cell, path, t, spec)
+    if over_data:
+      if not train:
+        n, size = apps + cross, t.element_size()
+      elif cell.zero2:
+        n, size = 1, comp
+      else:
+        back = apps if layer_remat or not unused else 0
+        n = accum * (apps + cross + back)
+        size = 4 if path.endswith(zoo.F32_LEAVES) else comp
+      out.append(Collective("fsdp_all_gather", data_key, "all-gather",
+                            part * size, d_size, times=n))
+    if not train:
+      continue
+    key, ring = (("grad_reduce_scatter", "reduce-scatter") if over_data
+                 else ("grad_all_reduce", "all-reduce"))
+    if over_model:
+      uses = apps if over_data and not cell.zero2 else 1
+      out.append(Collective(key, data_key, ring, part * grad_size, d_size,
+                            times=accum * uses))
+    else:  # summed over the line in f32, then into every replica
+      out.append(Collective("grad_all_reduce", model, "all-reduce",
+                            t.numel() * 4, t_size, times=accum))
+      out.append(Collective(key, data_key, ring, t.numel() * grad_size,
+                            d_size, times=accum))
+  return out
+
+
+def step_collectives(cell: Cell) -> list:
+  """The collectives the first mesh position takes part in over one of
+  the cell's steps (``roofline.collectives.Collective``, with ``times``):
+  what a ``CollectiveCounter`` records of it in the port's step."""
+  b = cell.shape.global_batch // cell.accum
+  if cell.par.dp_for(b) is not None:
+    b //= cell.par.dp_size
+  out = _leaf_collectives(cell)
+  for c, diff in _meetings(cell, b):
+    out.append(dataclasses.replace(c, times=cell.accum))
+    if diff and cell.shape.kind == "train":
+      out.append(dataclasses.replace(c, kind=TRANSPOSE[c.kind],
+                                     times=cell.accum))
+  return out
 
 
 def collective_model(cell: Cell) -> tuple:
   """({term: per-device bytes}, {axis group: per-device bytes},
   {axis group: link rate})."""
-  cfg, par, shape, mesh = cell.cfg, cell.par, cell.shape, cell.mesh
-  ms = mesh.shape
-  data, model = tuple(par.data_axes), par.model_axis
-  d_size, t_size = par.dp_size, par.tp_size
-  train = shape.kind == "train"
-  terms = dict.fromkeys(("fsdp_all_gather", "grad_reduce_scatter",
-                         "grad_all_reduce", "tp_all_reduce",
-                         "decode_attn_all_reduce",
-                         "decode_heads_all_gather"), 0.0)
-  comp = torch.empty((), dtype=cfg.dtype).element_size()
-  if train and not cell.zero2:
-    gathers = cell.accum * (2 if cell.remat == "full" else 1)
-  else:
-    gathers = 1
-  grad_size = 2 if cell.grad_comm_bf16 else 4
-  for t, spec in _leaves_with_specs(cell.model, cell.param_specs):
-    over_data = any(a in data for e in spec if e is not None
-                    for a in (e if isinstance(e, tuple) else (e,)))
-    elems = local_bytes(t, spec, ms, skip=data) // t.element_size()
-    if over_data:
-      size = comp if cell.zero2 else t.element_size()
-      terms["fsdp_all_gather"] += gathers * ring_traffic_bytes(
-          "all-gather", elems * size, d_size)
-    if train:
-      kind = "reduce-scatter" if over_data else "all-reduce"
-      key = "grad_reduce_scatter" if over_data else "grad_all_reduce"
-      terms[key] += cell.accum * ring_traffic_bytes(kind, elems * grad_size,
-                                                    d_size)
-  b = shape.global_batch // cell.accum
-  split = par.dp_for(shape.global_batch) is not None
-  b_local = b // d_size if split else b
-  step_tokens = b_local * (1 if shape.kind == "decode" else shape.seq_len)
-  per_tok, per_src = _row_parallel_per_forward(cfg)
-  passes = 2 if train else 1   # the recompute replays its meetings
-  if shape.kind == "decode":
-    per_src = 0  # the encoder's output comes in the batch
-  act = (per_tok * step_tokens + per_src * b_local * cfg.src_len) \
-      * cfg.d_model * comp
-  terms["tp_all_reduce"] = cell.accum * passes * ring_traffic_bytes(
-      "all-reduce", act, t_size)
-  # a batch that does not split: each data line holds a group of the kv
-  # heads where they divide (cache_specs' 2-D cut) and attends its heads
-  grouped = (shape.kind == "decode" and not split
-             and cfg.n_kv_heads % d_size == 0)
-  heads = cfg.n_heads // d_size if grouped else cfg.n_heads
-  if shape.kind == "decode" and par.seq_shard_decode:
-    partial = b_local * heads * (cfg.hd + 2) * 4
-    terms["decode_attn_all_reduce"] = _attention_layers(cfg) * \
-        ring_traffic_bytes("all-reduce", partial, t_size)
-  if grouped:
-    terms["decode_heads_all_gather"] = _attention_layers(cfg) * \
-        ring_traffic_bytes("all-gather", b * cfg.n_heads * cfg.hd * 4,
-                           d_size)
-  data_key, model_key = "+".join(data), model
-  axis_bytes = {
-      data_key: (terms["fsdp_all_gather"] + terms["grad_reduce_scatter"]
-                 + terms["grad_all_reduce"]
-                 + terms["decode_heads_all_gather"]),
-      model_key: terms["tp_all_reduce"] + terms["decode_attn_all_reduce"]}
-  rates = {data_key: analysis.axis_group_rate(mesh, data),
-           model_key: analysis.axis_group_rate(mesh, model)}
+  par, mesh = cell.par, cell.mesh
+  data_key, model_key = "+".join(par.data_axes), par.model_axis
+  terms, by_axis = ring_totals(step_collectives(cell))
+  axis_bytes = {data_key: by_axis.get(data_key, 0.0),
+                model_key: by_axis.get(model_key, 0.0)}
+  rates = {data_key: analysis.axis_group_rate(mesh, par.data_axes),
+           model_key: analysis.axis_group_rate(mesh, model_key)}
   return terms, axis_bytes, rates
 
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import defaultdict
 from typing import Optional
 
 

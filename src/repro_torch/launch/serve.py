@@ -66,7 +66,7 @@ def _seat_on_position(cfg, cache: dict, target: dict) -> dict:
   tkv = target["attn"] if cfg.family == "hybrid" else target
   s = kv["k"].shape[2]
   wholes = cm.gather_heads((kv["k"], kv["v"]), cfg.n_heads, cfg.n_kv_heads,
-                           3, kv=(True, True))
+                           3, kv=(True, True), term="seat_kv_all_gather")
   c0, c1 = attn_mod.kv_group(cfg, tkv["k"].shape[3])
   for name, whole in zip(("k", "v"), wholes):
     rows = tkv[name].shape[2]

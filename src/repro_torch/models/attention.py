@@ -483,7 +483,8 @@ def _decode_on_position(p: dict, cfg: cm.ModelConfig, x: Tensor,
   part = _decode_rows(q_all, k_cache, v_cache, scale=scale, row0=row0,
                       kv_len=kv_len, window=window)
   out = pos.group.meet(pos.rank, part,
-                       lambda parts: _merge_rows(parts, q.device))
+                       lambda parts: _merge_rows(parts, q.device),
+                       term="decode_attn_all_reduce", kind="all-reduce")
   if grouped:
     out = cm.column_cat(out, 1)
   out = out.reshape(b, 1, h, hd)[:, :, q0:q1]

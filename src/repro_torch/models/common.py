@@ -36,6 +36,9 @@ recompute replays its forward's meeting results instead of meeting again
 the positions of one model index over the lines meet too
 (``column_cat``: a decode step's heads under the 2-D cache cut).  With no
 position installed each of them is the one-device operation, unchanged.
+Each meeting names the dry-run term it is charged to
+(``roofline/collectives.TERMS``) and its ring kind, and reports itself to
+a ``roofline.collectives.CollectiveCounter`` that is on.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.roofline import collectives
 
 Tensor = torch.Tensor
 
@@ -274,11 +279,13 @@ class Baton:
 class LineGroup:
   """The model-axis positions of one data line: ``meet`` is their
   rendezvous, under the run's ``Baton`` (a group of its own when none is
-  given)."""
+  given).  ``axis`` names the mesh axis group its positions span (a
+  column over the data lines spans the data axes)."""
 
   def __init__(self, size: int, baton: Optional[Baton] = None,
-               keys: Optional[Sequence] = None):
+               keys: Optional[Sequence] = None, axis: str = "model"):
     self.size = size
+    self.axis = axis
     self.keys = list(range(size)) if keys is None else list(keys)
     self.baton = Baton(self.keys) if baton is None else baton
     # two sets of slots, used by turns: a position cannot post to a set
@@ -291,13 +298,15 @@ class LineGroup:
     """The meetings every position of the group has passed."""
     return min(self._count)
 
-  def meet(self, rank: int, value, fn: Callable):
+  def meet(self, rank: int, value, fn: Callable, *, term: str,
+           kind: str):
     """Every position posts ``value``; each then gets ``fn`` of all the
     posted values in position order.  A posted value stays referenced in
     its slot until the meeting after next, so its memory is not handed to
     later work on its stream while another position's copy of it may
     still be queued.  Inside a region that ``remat_contexts`` records,
-    the result is also kept for the region's recompute."""
+    the result is also kept for the region's recompute.  ``term`` and
+    ``kind`` (a ring kind) are what a ``CollectiveCounter`` is told."""
     if self.size == 1:
       return _record(fn([value]))
     slots = self._slots[self._count[rank] % 2]
@@ -306,10 +315,36 @@ class LineGroup:
     mine = self._count[rank]
     self.baton.wait_for(self.keys[rank], lambda: min(self._count) >= mine)
     try:
-      return _record(fn(list(slots)))
+      result = fn(list(slots))
     except BaseException:
       self.baton.abort()
       raise
+    if collectives.counting():
+      self._report(rank, value, result, term, kind)
+    return _record(result)
+
+  def _report(self, rank: int, value, result, term: str, kind: str) -> None:
+    """The meeting as a collective of ``kind`` over the posted bytes (an
+    all-gather's output: the size times one posted value), and, when its
+    gradient arrives in the backward, the transposed collective over the
+    same bytes: the gradient goes back to every posted tensor."""
+    nbytes = collectives.tensor_bytes(value)
+    if kind == "all-gather":
+      nbytes *= self.size
+    said = (term, self.axis, kind, nbytes, self.size, self.keys[rank])
+    collectives.record(*said)
+    if isinstance(result, Tensor) and result.requires_grad:
+      # the hook holds no reference to the group, whose slots hold
+      # tensors of the graph: a cycle through autograd's nodes would
+      # never be collected
+      back = said[:2] + (collectives.TRANSPOSE[kind],) + said[3:]
+      result.register_hook(functools.partial(_report_backward, back))
+
+
+def _report_backward(said: tuple, grad: Tensor) -> None:
+  """A meeting's gradient has arrived: its transposed collective runs."""
+  del grad
+  collectives.record(*said)
 
 
 class _Replay:
@@ -322,8 +357,8 @@ class _Replay:
     self.size = size
     self._results = results
 
-  def meet(self, rank: int, value, fn: Callable):
-    del rank, value, fn
+  def meet(self, rank: int, value, fn: Callable, **collective):
+    del rank, value, fn, collective
     try:
       return next(self._results)
     except StopIteration:
@@ -558,15 +593,18 @@ def _rows(pos: Position, n: int) -> slice:
   return slice(pos.rank * per, (pos.rank + 1) * per)
 
 
-def tp_sum(partial: Tensor, dtype: torch.dtype) -> Tensor:
+def tp_sum(partial: Tensor, dtype: torch.dtype,
+           term: str = "tp_all_reduce") -> Tensor:
   """The sum over the line's positions of their f32 ``partial``s, added in
-  position order and rounded once to ``dtype`` (the all-reduce)."""
+  position order and rounded once to ``dtype`` (the all-reduce, charged to
+  the dry run's ``term``)."""
   pos = position()
   if pos is None:
     return partial.to(dtype)
   dev = partial.device
   return pos.group.meet(pos.rank, partial,
-                        lambda parts: _ordered_sum(parts, dev).to(dtype))
+                        lambda parts: _ordered_sum(parts, dev).to(dtype),
+                        term=term, kind="all-reduce")
 
 
 def row_parallel(x: Tensor, w: Tensor) -> Tensor:
@@ -582,14 +620,15 @@ def row_parallel(x: Tensor, w: Tensor) -> Tensor:
     return tp_sum(partial, x.dtype)
   dev, rows = partial.device, _rows(pos, partial.shape[1])
   return pos.group.meet(pos.rank, partial, lambda parts: _ordered_sum(
-      parts, dev, rows).to(x.dtype))
+      parts, dev, rows).to(x.dtype), term="tp_all_reduce",
+      kind="reduce-scatter")
 
 
-def _gather(t: Tensor, dim: int) -> Tensor:
+def _gather(t: Tensor, dim: int, term: str = "tp_all_reduce") -> Tensor:
   pos = position()
   dev = t.device
   return pos.group.meet(pos.rank, t, lambda parts: torch.cat(
-      [p.to(dev) for p in parts], dim=dim))
+      [p.to(dev) for p in parts], dim=dim), term=term, kind="all-gather")
 
 
 def column_cat(t: Tensor, dim: int) -> Tensor:
@@ -599,7 +638,8 @@ def column_cat(t: Tensor, dim: int) -> Tensor:
   pos = position()
   dev = t.device
   return pos.column.meet(pos.line, t, lambda parts: torch.cat(
-      [p.to(dev) for p in parts], dim=dim))
+      [p.to(dev) for p in parts], dim=dim), term="decode_heads_all_gather",
+      kind="all-gather")
 
 
 def col_input(x: Tensor) -> Tensor:
@@ -631,11 +671,12 @@ def end_stream(x: Tensor) -> Tensor:
 
 
 def gather_heads(tensors: tuple, n_heads: int, n_kv: int, dim: int,
-                 kv: tuple) -> tuple:
+                 kv: tuple, term: str = "decode_attn_all_reduce") -> tuple:
   """All heads of each tensor of ``tensors`` whose ``dim`` holds this
   position's query heads (its ``kv`` entry False) or kv heads (True) of
-  ``head_range``, in one meeting: each head from the first position that
-  holds it (replicated kv heads are held by several)."""
+  ``head_range``, in one meeting (an all-gather charged to ``term``):
+  each head from the first position that holds it (replicated kv heads
+  are held by several)."""
   pos = position()
   if pos is None:
     return tensors
@@ -652,7 +693,8 @@ def gather_heads(tensors: tuple, n_heads: int, n_kv: int, dim: int,
           done = hi
       out.append(torch.cat(pieces, dim=dim))
     return tuple(out)
-  return pos.group.meet(pos.rank, tuple(tensors), assemble)
+  return pos.group.meet(pos.rank, tuple(tensors), assemble, term=term,
+                        kind="all-gather")
 
 
 def vocab_start(vocab: int) -> int:
@@ -676,13 +718,15 @@ def embed(table: Tensor, tokens: Tensor, vocab: int,
   local = tokens - vocab_start(vocab)
   inside = (local >= 0) & (local < table.shape[0])
   rows = table[local.clamp(0, max(table.shape[0] - 1, 0))].float()
-  return tp_sum(torch.where(inside[..., None], rows, 0.0), dtype)
+  return tp_sum(torch.where(inside[..., None], rows, 0.0), dtype,
+                "tp_embed_all_reduce")
 
 
 def gather_vocab(logits: Tensor) -> Tensor:
   """Logits (..., V) over the whole padded vocab, all-gathered from the
   positions' pieces."""
-  return logits if position() is None else _gather(logits, -1)
+  return (logits if position() is None else
+          _gather(logits, -1, "tp_logits_all_gather"))
 
 
 def vocab_argmax(logits: Tensor, vocab: int) -> Tensor:
@@ -708,7 +752,8 @@ def vocab_argmax(logits: Tensor, vocab: int) -> Tensor:
         best_v, best_i = torch.where(take, v, best_v), torch.where(
             take, i, best_i)
     return best_i
-  return pos.group.meet(pos.rank, (val, idx + vocab_start(vocab)), merge)
+  return pos.group.meet(pos.rank, (val, idx + vocab_start(vocab)), merge,
+                        term="tp_stats_all_reduce", kind="all-reduce")
 
 
 class _LogsumexpGrad(torch.autograd.Function):
@@ -753,10 +798,12 @@ def vocab_logsumexp(logits: Tensor) -> Tensor:
         term = ps * torch.exp(pm - top)
         total = term if total is None else total + term
       return top + torch.log(total)
-    logz = pos.group.meet(pos.rank, (m, s), merge)
+    logz = pos.group.meet(pos.rank, (m, s), merge,
+                          term="tp_stats_all_reduce", kind="all-reduce")
   if not (torch.is_grad_enabled() and logits.requires_grad):
     return logz
-  return logz + tp_sum(_LogsumexpGrad.apply(logits, logz), torch.float32)
+  return logz + tp_sum(_LogsumexpGrad.apply(logits, logz), torch.float32,
+                       "tp_stats_all_reduce")
 
 
 def vocab_gold(logits: Tensor, idx: Tensor, vocab: int) -> Tensor:
@@ -770,7 +817,8 @@ def vocab_gold(logits: Tensor, idx: Tensor, vocab: int) -> Tensor:
   inside = (local >= 0) & (local < logits.shape[-1])
   at = local.clamp(0, max(logits.shape[-1] - 1, 0))
   picked = torch.gather(logits.float(), -1, at[..., None])[..., 0]
-  return tp_sum(torch.where(inside, picked, 0.0), torch.float32)
+  return tp_sum(torch.where(inside, picked, 0.0), torch.float32,
+                "tp_stats_all_reduce")
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
@@ -791,7 +839,8 @@ def rms_norm_wide(x: Tensor, scale: Tensor, eps: float) -> Tensor:
     return rms_norm(x, scale, eps)
   dt = x.dtype
   x = x.float()
-  ss = tp_sum(torch.sum(x * x, dim=-1, keepdim=True), torch.float32)
+  ss = tp_sum(torch.sum(x * x, dim=-1, keepdim=True), torch.float32,
+              "tp_stats_all_reduce")
   x = x * torch.rsqrt(ss / (x.shape[-1] * pos.size) + eps)
   return (x * scale.float()).to(dt)
 

@@ -15,11 +15,12 @@ positions that differ only along an axis the spec does not name hold real
 copies of the same piece (replicas).
 
 In training, ``gather_part`` is the gather along ``data`` with a
-backward: the part is copied together from the pieces (no gradient is
-recorded on them), and its backward hands the part's gradient to a
-callback that adds it into the owners' gradient sums
-(``train/sharded.PositionGrads``).  Nothing keeps the gathered part alive
-but the tensors the forward saves from it.
+backward: the part is copied together from the pieces by a ``fetch``
+callable (``assemble`` bound to the part, no gradient recorded on the
+pieces), and its backward hands the part's gradient to a callback that
+adds it into the owners' gradient sums (``train/sharded.PositionGrads``).
+Nothing keeps the gathered part alive but the tensors the forward saves
+from it.
 """
 from __future__ import annotations
 
@@ -153,25 +154,25 @@ def assemble(box: tuple, sources, device, dtype: torch.dtype) -> Tensor:
 
 
 class _Gathered(torch.autograd.Function):
-  """``assemble`` as a node of the autograd graph: the ``anchor`` (an
-  empty leaf that wants a gradient) puts it there, and the backward gives
-  the part's gradient to ``route`` instead of to any input."""
+  """``fetch()`` as a node of the autograd graph: the ``anchor`` (an empty
+  leaf that wants a gradient) puts it there, and the backward gives the
+  part's gradient to ``route`` instead of to any input."""
 
   @staticmethod
-  def forward(ctx, anchor, box, sources, device, dtype, route):
+  def forward(ctx, anchor, fetch, route):
     ctx.route = route
-    return assemble(box, sources, device, dtype)
+    return fetch()
 
   @staticmethod
   def backward(ctx, grad):
     ctx.route(grad)
-    return (None,) * 6
+    return (None,) * 3
 
 
-def gather_part(box: tuple, sources, device, dtype: torch.dtype,
-                route) -> Tensor:
-  """``assemble(box, sources, device, dtype)`` as a part of the autograd
-  graph: ``route(grad)`` receives its gradient (once per use of the part)
-  during the backward."""
+def gather_part(fetch, route) -> Tensor:
+  """The part ``fetch()`` copies together (``assemble`` bound to a box,
+  its sources, a device and a dtype) as a part of the autograd graph:
+  ``route(grad)`` receives its gradient (once per use of the part) during
+  the backward."""
   anchor = torch.empty(0, requires_grad=True)
-  return _Gathered.apply(anchor, box, sources, device, dtype, route)
+  return _Gathered.apply(anchor, fetch, route)

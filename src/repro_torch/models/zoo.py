@@ -36,6 +36,7 @@ from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import placement
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.roofline import collectives
 
 Tensor = torch.Tensor
 
@@ -282,14 +283,19 @@ class PerPosition(dict):
                        replicated=self.replicated)
 
 
-def _head_slice(path: str, ndim: int, cfg: cm.ModelConfig, rank: int,
+def head_slice(path: str, ndim: int, cfg: cm.ModelConfig, rank: int,
                 tp: int):
   """(dim, lo, hi): the part of a leaf that ``spec_for`` replicates over
-  the model axis but position ``rank`` computes with only in part — the kv
-  projections of the query heads it holds when tp does not divide the kv
-  heads, and the per-head SSM leaves of its heads; None for any other."""
+  the model axis but position ``rank`` computes with only in part — the
+  query biases of the query heads it holds, the kv biases (and the kv
+  projections, when tp does not divide the kv heads) of the kv heads those
+  query heads read, and the per-head SSM leaves of its heads; None for any
+  other."""
   name = path.rsplit("/", 1)[-1]
-  if name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % tp:
+  if name == "bq":
+    (q0, q1), _ = cm.head_range(cfg.n_heads, cfg.n_kv_heads, rank, tp)
+    return ndim - 2, q0, q1
+  if name in ("bk", "bv") or (name in ("wk", "wv") and cfg.n_kv_heads % tp):
     _, (k0, k1) = cm.head_range(cfg.n_heads, cfg.n_kv_heads, rank, tp)
     return ndim - 2, k0, k1
   if "/ssm/" in path:
@@ -313,7 +319,7 @@ class ShardedLM:
   of ``placement.Sharded``).  Position (i, j) computes with the part
   of each leaf that its model-axis index j selects: its own piece, or a
   view of it where the leaf is replicated but the position needs only its
-  heads (``_head_slice``).  With ``par.fsdp`` the layer leaves are also
+  heads (``head_slice``).  With ``par.fsdp`` the layer leaves are also
   cut along ``data``: the position's module holds meta placeholders, and
   each layer gathers its part from the line's column just before it runs
   and frees it after (``common.whole_weights``).
@@ -338,7 +344,10 @@ class ShardedLM:
   (``_Regather``), so a position holds one layer's gathered weights at a
   time, as ZeRO-3 does.  With ``copy_dtype`` (``zero2``) every part is
   instead a copy in that dtype, gathered once when the positions are
-  built, and a leaf parameter.
+  built, and a leaf parameter.  Each gather of a part along ``data`` (the
+  forward's, the backward's regather, the recompute's, zero2's copy)
+  reports an all-gather over the data axes to a
+  ``roofline.collectives.CollectiveCounter`` that is on (``_fetch``).
   """
 
   cfg: cm.ModelConfig
@@ -368,6 +377,7 @@ class ShardedLM:
     cfg, mesh, tp = self.cfg, self.mesh, self.par.tp_size
     dev = mesh.devices[pos[0]][pos[1]]
     data = set(self.par.data_axes)
+    data_key, lines = "+".join(self.par.data_axes), len(mesh.devices)
     gathers: dict = {}
     boxes: dict = {}
     regather = self._regather
@@ -376,7 +386,7 @@ class ShardedLM:
       spec = tuple(None if set(placement.names(e)) & data else e
                    for e in x.spec)
       box = list(placement.piece_box(x.shape, spec, mesh, pos))
-      cut = _head_slice(path, len(box), cfg, pos[1], tp)
+      cut = head_slice(path, len(box), cfg, pos[1], tp)
       if cut is not None:
         dim, lo, hi = cut
         box[dim] = slice(box[dim].start + lo, box[dim].start + hi)
@@ -384,26 +394,31 @@ class ShardedLM:
       own = x.box(pos)
       inside = all(o.start <= b.start and b.stop <= o.stop
                    for o, b in zip(own, box))
-      sources = ([(own, x.pieces[pos])] if inside else
-                 [(x.box(p), x.pieces[p]) for p in x.distinct()])
-      if self.copy_dtype is not None:
-        return placement.assemble(box, sources, dev, self.copy_dtype)
       if inside:
+        sources = [(own, x.pieces[pos])]
+        if self.copy_dtype is not None:
+          return placement.assemble(box, sources, dev, self.copy_dtype)
         return x.pieces[pos][tuple(slice(b.start - o.start, b.stop - o.start)
                                    for b, o in zip(box, own))]
+      sources = [(x.box(p), x.pieces[p]) for p in x.distinct()]
+
+      def fetch(dtype):
+        return functools.partial(_fetch, box, sources, dev, dtype, pos,
+                                 data_key, lines)
+      if self.copy_dtype is not None:
+        return fetch(self.copy_dtype)()
       placeholder = nn.Parameter(torch.empty(
           [b.stop - b.start for b in box], dtype=x.dtype, device="meta"),
           requires_grad=False)
       if self.grads is None:
-        gathers[path] = (lambda: placement.assemble(box, sources, dev,
-                                                    x.dtype), placeholder)
+        gathers[path] = (fetch(x.dtype), placeholder)
         return placeholder
-      dtype = torch.float32 if path.endswith(_F32_LEAVES) else cfg.dtype
+      dtype = torch.float32 if path.endswith(F32_LEAVES) else cfg.dtype
       route = functools.partial(self.grads.add, path, pos, box)
       # no reference back to self: the step's gradient sums are freed with
       # the positions, without waiting for the cycle collector
-      gathers[path] = (functools.partial(regather.gathered, box, sources,
-                                         dev, dtype, route), placeholder)
+      gathers[path] = (functools.partial(regather.gathered, fetch(dtype),
+                                         route), placeholder)
       return placeholder
 
     module = from_params(cfg, _map_paths(leaf, self.weights, ""))
@@ -486,10 +501,10 @@ class ShardedLM:
     if self.grads is not None:
       body = self._regather.around(body)
     baton = cm.Baton(order)
-    groups = [cm.LineGroup(tp, baton, [(i, j) for j in range(tp)])
-              for i in range(lines)]
-    columns = [cm.LineGroup(lines, baton, [(i, j) for i in range(lines)])
-               for j in range(tp)]
+    groups = [cm.LineGroup(tp, baton, [(i, j) for j in range(tp)],
+                           self.par.tp) for i in range(lines)]
+    columns = [cm.LineGroup(lines, baton, [(i, j) for i in range(lines)],
+                            "+".join(self.par.data_axes)) for j in range(tp)]
     jobs, devices = {}, {}
     for pos in order:
       mine = [self._rows(a, pos, whole) for a in args]
@@ -528,7 +543,18 @@ def _map_paths(fn: Callable, tree, prefix: str):
 
 
 # leaves the block code computes with in f32 (``moe._route``)
-_F32_LEAVES = ("router",)
+F32_LEAVES = ("router",)
+
+
+def _fetch(box: tuple, sources, device, dtype: torch.dtype, pos: tuple,
+           axis: str, lines: int) -> Tensor:
+  """Position ``pos``'s part ``box`` copied together from the pieces along
+  the data axes (``placement.assemble``): one all-gather over ``lines``
+  positions, reported to a ``CollectiveCounter`` that is on."""
+  part = placement.assemble(box, sources, device, dtype)
+  collectives.record("fsdp_all_gather", axis, "all-gather",
+                     collectives.tensor_bytes(part), lines, pos)
+  return part
 
 
 class _Regather:
@@ -541,13 +567,14 @@ class _Regather:
   def __init__(self):
     self._live: dict = {}
 
-  def gathered(self, box, sources, device, dtype, route) -> Tensor:
-    t = placement.gather_part(box, sources, device, dtype, route)
+  def gathered(self, fetch: Callable, route) -> Tensor:
+    """``placement.gather_part(fetch, route)``, known by its storage while
+    it lives, with ``fetch`` as the recipe to gather it again."""
+    t = placement.gather_part(fetch, route)
     if not t.numel():
       return t
     key = (t.device, t.untyped_storage().data_ptr())
-    self._live[key] = (weakref.ref(t), functools.partial(
-        placement.assemble, box, sources, device, dtype))
+    self._live[key] = (weakref.ref(t), fetch)
     return t
 
   def _pack(self, t: Tensor):

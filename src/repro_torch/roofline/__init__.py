@@ -1,8 +1,9 @@
 """Roofline constants of the card the port runs on (``hw``), the ring model
-of one collective and the reference's HLO collective parser
-(``collectives``), the three-term roofline of a dry-run cell
-(``analysis``) and the dispatch-time counter of FLOPs, bytes and live
-memory that takes the place of the reference's HLO walk (``flops``).
+of one collective, the reference's HLO collective parser and the counter
+of the collectives a mesh step holds (``collectives``), the three-term
+roofline of a dry-run cell (``analysis``) and the dispatch-time counter
+of FLOPs, bytes and live memory that takes the place of the reference's
+HLO walk (``flops``).
 
 Counterpart of ``repro/roofline``.
 """

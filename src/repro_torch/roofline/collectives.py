@@ -16,9 +16,28 @@ text, copied: shapes like ``bf16[16,4096,128]`` give element counts (tuple
 shapes sum), n is the op's replica-group size.  Torch emits no HLO, so the
 port's dry run models its collectives in closed form instead; the parser
 stays for HLO text that comes from elsewhere.
+
+``CollectiveCounter`` is the port's counterpart of the reference's walk of
+the compiled program (``repro/roofline/hlo_walk.py``, ``coll_breakdown``):
+while one is on, every point where the port's single-controller mesh
+moves a tensor between positions reports a ``Collective`` (``record``):
+the meetings (``models/common.LineGroup.meet``, and the transposed
+collective of each differentiable meeting when its gradient arrives in
+the backward), the gathers of parts cut along ``data``
+(``models/zoo.ShardedLM``: the forward's, the backward's regather or the
+recompute's, zero2's copy) and the gradient sums that land in other
+positions' pieces (``train/sharded.PositionGrads``).  ``ring_bytes``
+reduces them, by the ring model, to the ``{term: bytes}`` and ``{axis
+group: bytes}`` per device that ``launch/dryrun.collective_model`` gives
+for a cell; the dry run's pod-scale cells keep their closed form, and the
+counter is what holds that form to the step
+(``tests/test_torch_dryrun_collectives.py``).  Scalar moves (the token
+count, the losses, the grad norm's piece sums) are not collectives of the
+model and are not recorded.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from collections import defaultdict
 
@@ -92,3 +111,108 @@ def collective_bytes(hlo_text: str) -> dict:
   out["total"] = sum(v for k, v in out.items()
                      if not k.startswith("count:") and k != "total")
   return dict(out)
+
+
+# the dry run's collective terms (``launch/dryrun.py``'s docstring), in
+# ``coll_breakdown``'s order
+TERMS = ("fsdp_all_gather", "grad_reduce_scatter", "grad_all_reduce",
+         "tp_all_reduce", "tp_embed_all_reduce", "tp_stats_all_reduce",
+         "decode_attn_all_reduce", "decode_heads_all_gather")
+
+# the collective whose ring traffic equals a collective's backward (the
+# transposed collective moves the same bytes)
+TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+             "reduce-scatter": "all-gather"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+  """One collective as one mesh position ``pos`` takes part in it, ``times``
+  over: its dry-run ``term``, the axis group it runs over (``"data"``,
+  ``"model"``, ``"pod+data"``), its ring ``kind``, the bytes the ring
+  formula takes (an all-reduce's tensor, an all-gather's output, a
+  reduce-scatter's input) and the positions in its ``group``."""
+
+  term: str
+  axis: str
+  kind: str
+  nbytes: float
+  group: int
+  pos: object = (0, 0)
+  times: int = 1
+
+  @property
+  def ring_bytes(self) -> float:
+    return self.times * ring_traffic_bytes(self.kind, self.nbytes,
+                                           self.group)
+
+
+def ring_totals(collectives) -> tuple:
+  """({term: per-device bytes}, {axis group: per-device bytes}) of
+  ``collectives`` (one device's), every term of ``TERMS`` present."""
+  terms = dict.fromkeys(TERMS, 0.0)
+  axes: dict = {}
+  for c in collectives:
+    b = c.ring_bytes
+    terms[c.term] = terms.get(c.term, 0.0) + b
+    axes[c.axis] = axes.get(c.axis, 0.0) + b
+  return terms, axes
+
+
+_ON: list = []   # the counters that are on
+
+
+def counting() -> bool:
+  """Whether a ``CollectiveCounter`` is on (a site may skip the work of
+  describing its collective otherwise)."""
+  return bool(_ON)
+
+
+def record(term: str, axis: str, kind: str, nbytes: float, group: int,
+           pos) -> None:
+  """Report one collective position ``pos`` takes part in to every counter
+  that is on (a no-op when none is).  Called from the positions' threads
+  and autograd's."""
+  if not _ON or group <= 1:
+    return
+  c = Collective(term, axis, kind, nbytes, group, pos)
+  for counter in tuple(_ON):
+    counter.collectives.append(c)
+
+
+def tensor_bytes(value) -> int:
+  """Bytes of a tensor or of a tuple of them."""
+  if isinstance(value, (tuple, list)):
+    return sum(tensor_bytes(v) for v in value)
+  return value.numel() * value.element_size()
+
+
+class CollectiveCounter:
+  """Context manager: the collectives the port's mesh runs while it is on
+  (``collectives``, every position's), and their ring-model bytes per
+  device (``ring_bytes``: the first position's, whose pieces are the
+  ceil-sized ones ``launch/dryrun.local_bytes`` reckons)."""
+
+  def __init__(self):
+    self.collectives: list = []
+
+  def __enter__(self) -> "CollectiveCounter":
+    _ON.append(self)
+    return self
+
+  def __exit__(self, *exc) -> bool:
+    _ON.remove(self)
+    return False
+
+  def of(self, pos=(0, 0)) -> list:
+    return [c for c in self.collectives if c.pos == pos]
+
+  def count(self, term: str = None) -> int:
+    """How many times the positions took part in ``term``'s collectives
+    (all terms' when None)."""
+    return sum(c.times for c in self.collectives
+               if term is None or c.term == term)
+
+  def ring_bytes(self, pos=(0, 0)) -> tuple:
+    """``ring_totals`` of position ``pos``'s collectives."""
+    return ring_totals(self.of(pos))

@@ -31,6 +31,7 @@ import torch
 from repro_torch.models.common import tree_paths
 from repro_torch.models.placement import (Sharded, assemble, names,
                                           positions, shard_leaf, shard_tree)
+from repro_torch.roofline import collectives
 from repro_torch.train.optimizer import _leaves, tree_map
 
 Tensor = torch.Tensor
@@ -98,6 +99,13 @@ class PositionGrads:
       replicas stay bit-equal.
   With ``bf16`` each copy is rounded to bf16 before it is added
   (``grad_comm_bf16``).
+
+  To a ``roofline.collectives.CollectiveCounter`` that is on, each copy
+  into the pieces along the data axes is a reduce-scatter over them (a
+  leaf cut along ``data``, ``grad_reduce_scatter``) or an all-reduce (a
+  leaf replicated there, ``grad_all_reduce``) of the part, in the copy's
+  dtype; a flushed leaf's sum over the line is besides an f32 all-reduce
+  of the whole leaf over the model axis (``grad_all_reduce``).
   """
 
   def __init__(self, like, model_axis: str, bf16: bool = False):
@@ -111,9 +119,21 @@ class PositionGrads:
   def _cut_over_model(self, x: Sharded) -> bool:
     return any(self.model_axis in names(e) for e in x.spec)
 
+  def _report(self, x: Sharded, pos: tuple, numel: int) -> None:
+    """The copy of ``numel`` gradient elements of ``x`` from position
+    ``pos`` into the pieces along the data axes."""
+    data = [a for a in x.mesh.axis_names if a != self.model_axis]
+    over = any(a in data for e in x.spec for a in names(e))
+    collectives.record(
+        "grad_reduce_scatter" if over else "grad_all_reduce",
+        "+".join(data), "reduce-scatter" if over else "all-reduce",
+        numel * (2 if self.bf16 else 4), len(x.mesh.devices), pos)
+
   def add(self, path: str, pos: tuple, box: tuple, grad: Tensor) -> None:
     x = self.leaves[path]
     if self._cut_over_model(x):
+      if collectives.counting():
+        self._report(x, pos, grad.numel())
       self._scatter(x, box, grad)
       return
     held = self._held.setdefault(path, {})
@@ -126,6 +146,12 @@ class PositionGrads:
     """Sum the held parts of a line that has finished its backward."""
     for path, held in self._held.items():
       x = self.leaves[path]
+      if collectives.counting():
+        for pos in held:
+          collectives.record("grad_all_reduce", self.model_axis,
+                             "all-reduce", x.shape.numel() * 4,
+                             len(x.mesh.devices[0]), pos)
+          self._report(x, pos, x.shape.numel())
       dev = held[min(held)][1].device
       total = torch.zeros(x.shape, dtype=torch.float32, device=dev)
       for pos in sorted(held):

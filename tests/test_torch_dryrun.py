@@ -120,9 +120,16 @@ def test_one_microbatch_times_accum_is_the_whole_step(arch):
 
 def test_collective_formulas_by_hand():
   """Each term of the ring model on tinyllama's smoke config (2 layers,
-  d 64, 4 heads over 2 kv heads) on a (2, 2) mesh, counted by hand."""
+  d 64, 4 heads over 2 kv heads, bf16) on a (2, 2) mesh, counted by hand
+  from what the port's step holds: two gathers of each part per
+  microbatch in the compute dtype, the residual stream's meetings (its
+  sequence cut over the model axis: an f32 reduce-scatter per
+  row-parallel projection, a bf16 all-gather ahead of each column-parallel
+  one and at the end) and in the backward their transposes, the
+  embedding's sum, the loss's (B, S) statistics, and the norms' gradients
+  summed over the model axis."""
   cfg = configs.get_config("tinyllama-1.1b", smoke=True)
-  assert (cfg.n_layers, cfg.d_model) == (2, 64)
+  assert (cfg.n_layers, cfg.d_model, cfg.dtype) == (2, 64, torch.bfloat16)
   mesh = AbstractMesh((2, 2), ("data", "model"))
   d, t = 2, 2
   # -- train, accum 2, remat full -------------------------------------------
@@ -132,7 +139,7 @@ def test_collective_formulas_by_hand():
   params = zoo.param_tree(cell.model)
   # leaves over data (fsdp): every projection (wq, wk, wv, wo, w1, w2, w3);
   # not the embedding/head (vocab over model) or the norms (replicated)
-  gathered = replicated = 0
+  gathered = replicated = norms = 0
   for path, leaf in cm.tree_paths(params).items():
     n = leaf.numel()
     if any(s in path for s in ("wq", "wo", "w1", "w2", "w3")):
@@ -144,21 +151,38 @@ def test_collective_formulas_by_hand():
       replicated += n // t
     else:
       replicated += n
-  ag = ring_traffic_bytes("all-gather", 4 * gathered, d)
-  assert terms["fsdp_all_gather"] == 2 * 2 * ag   # accum 2, remat full
+      norms += n
+  # the forward's gather and the recompute's, per microbatch, in bf16
+  assert terms["fsdp_all_gather"] == 2 * 2 * ring_traffic_bytes(
+      "all-gather", 2 * gathered, d)
   assert terms["grad_reduce_scatter"] == 2 * ring_traffic_bytes(
       "reduce-scatter", 4 * gathered, d)
+  model_sums = 2 * ring_traffic_bytes("all-reduce", 4 * norms, t)
   assert terms["grad_all_reduce"] == 2 * ring_traffic_bytes(
-      "all-reduce", 4 * replicated, d)
-  tokens = (4 // 2) // d * 16           # a microbatch's rows on one shard
-  act = 2 * cfg.n_layers * tokens * cfg.d_model * 2
-  # forward and backward: the recompute replays its meetings' results
-  assert terms["tp_all_reduce"] == 2 * 2 * ring_traffic_bytes(
-      "all-reduce", act, t)
+      "all-reduce", 4 * replicated, d) + model_sums
+  rows = (4 // 2) // d                  # a microbatch's rows on one line
+  stream = rows * 16 * cfg.d_model
+  forward = (2 * cfg.n_layers * (ring_traffic_bytes("all-gather", stream * 2,
+                                                    t)
+                                 + ring_traffic_bytes("reduce-scatter",
+                                                      stream * 4, t))
+             + ring_traffic_bytes("all-gather", stream * 2, t))
+  # forward and backward, per microbatch: the recompute replays its
+  # meetings' results
+  assert terms["tp_all_reduce"] == 2 * 2 * forward
+  assert terms["tp_embed_all_reduce"] == 2 * 2 * ring_traffic_bytes(
+      "all-reduce", stream * 4, t)
+  stat = rows * (16 - 1)                # the loss's positions
+  assert terms["tp_stats_all_reduce"] == 2 * (
+      ring_traffic_bytes("all-reduce", 2 * stat * 4, t)
+      + 2 * 2 * ring_traffic_bytes("all-reduce", stat * 4, t))
   assert terms["decode_attn_all_reduce"] == 0
   assert axis_bytes["data"] == (terms["fsdp_all_gather"]
                                 + terms["grad_reduce_scatter"]
-                                + terms["grad_all_reduce"])
+                                + terms["grad_all_reduce"] - model_sums)
+  assert axis_bytes["model"] == (terms["tp_all_reduce"]
+                                 + terms["tp_embed_all_reduce"]
+                                 + terms["tp_stats_all_reduce"] + model_sums)
   assert rates == {"data": hw.NVLINK_BYTES_S, "model": hw.NVLINK_BYTES_S}
   # -- zero2 and bf16 gradients -----------------------------------------------
   cell = _smoke_cell("tinyllama-1.1b", "train", accum=2, mesh=mesh,
@@ -170,14 +194,22 @@ def test_collective_formulas_by_hand():
   # -- decode with the cache's sequence on the model axis --------------------
   cell = _smoke_cell("tinyllama-1.1b", "decode", mesh=mesh, batch=4)
   terms3, _, _ = dryrun.collective_model(cell)
-  assert terms3["fsdp_all_gather"] == ag
+  # serving gathers the stored f32 parts, once per layer per step
+  assert terms3["fsdp_all_gather"] == ring_traffic_bytes(
+      "all-gather", 4 * gathered, d)
   assert terms3["grad_reduce_scatter"] == terms3["grad_all_reduce"] == 0
   b_local = 4 // d
-  assert terms3["tp_all_reduce"] == ring_traffic_bytes(
-      "all-reduce", 2 * cfg.n_layers * b_local * cfg.d_model * 2, t)
-  assert terms3["decode_attn_all_reduce"] == cfg.n_layers * \
-      ring_traffic_bytes("all-reduce",
-                         b_local * cfg.n_heads * (cfg.hd + 2) * 4, t)
+  assert terms3["tp_all_reduce"] == 2 * cfg.n_layers * ring_traffic_bytes(
+      "all-reduce", b_local * cfg.d_model * 4, t)
+  # the new row's heads (2 query and 1 kv head per position, q, k and v)
+  # all-gathered, then the partial outputs all-reduced
+  heads = ring_traffic_bytes("all-gather", t * b_local * (2 + 2 * 1)
+                             * cfg.hd * 2, t)
+  assert terms3["decode_attn_all_reduce"] == cfg.n_layers * (
+      heads + ring_traffic_bytes(
+          "all-reduce", b_local * cfg.n_heads * (cfg.hd + 2) * 4, t))
+  assert terms3["tp_stats_all_reduce"] == ring_traffic_bytes(
+      "all-reduce", b_local * (2 + 8), t)   # the greedy token's argmax
 
 
 def test_smoke_rows_fit_and_split_their_bytes():

@@ -349,6 +349,26 @@ def test_kv_heads_that_do_not_divide_tp(n_kv):
         "f32", cfg)
 
 
+@pytest.mark.parametrize("n_kv", [1, 2])
+@pytest.mark.parametrize("shape", sorted(MESHES))
+def test_qkv_biases_are_cut_to_each_positions_heads(shape, n_kv):
+  """qwen2.5-3b's QKV biases (replicated by ``spec_for``) on each mesh, kv
+  heads that tp divides or not, with seeded non-zero biases: each position
+  adds the biases of its query heads and of the kv heads they read
+  (``zoo.head_slice``), and the mesh's values are the one-device ones in
+  f32."""
+  cfg, model = _model("qwen2.5-3b", n_kv_heads=n_kv)
+  assert cfg.qkv_bias
+  g = torch.Generator().manual_seed(7)
+  with torch.no_grad():
+    for block in model.blocks:
+      for name in ("bq", "bk", "bv"):
+        b = getattr(block.attn, name)
+        b.copy_(torch.randn(b.shape, generator=g))
+  _same(_run(cfg, model, _mesh(MESHES[shape]), _par(MESHES[shape])),
+        _run(cfg, model), "f32", cfg)
+
+
 # --- the vocab-parallel pieces ------------------------------------------------
 
 

@@ -23,6 +23,7 @@ batch), so mixtral's aux, grad norm and later losses are held to the
 port's one-device step at accum = 4, the number of data lines, and its
 first loss to the reference's.
 """
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -44,15 +45,18 @@ from repro.models import zoo as jzoo  # noqa: E402
 from repro.train import make_train_step as jmake_train_step  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs import Shape  # noqa: E402
 from repro_torch.launch import dryrun as tdryrun  # noqa: E402
 from repro_torch.launch.dryrun import (_leaves_with_specs,  # noqa: E402
                                        local_bytes)
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh, make_host_mesh  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import hybrid as thybrid  # noqa: E402
 from repro_torch.models import placement  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
+from repro_torch.roofline.collectives import CollectiveCounter  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import sharded  # noqa: E402
@@ -488,66 +492,72 @@ def _assert_replicas_equal(state):
           assert torch.equal(x.pieces[pos], x.pieces[group[0]])
 
 
-def _meeting_sites(monkeypatch):
-  """Record, for each meeting position (0, 0) holds, the function that
-  called ``meet`` and its caller."""
-  sites = []
-  meet = tcm.LineGroup.meet
-
-  def spy(self, rank, value, fn):
-    pos = tcm.position()
-    if pos is not None and pos.group is self and rank == 0 and \
-        self.keys[0] == (0, 0):
-      f = sys._getframe(1)
-      sites.append((f.f_code.co_name, f.f_back.f_code.co_name))
-    return meet(self, rank, value, fn)
-  monkeypatch.setattr(tcm.LineGroup, "meet", spy)
-  return sites
+def _row_parallel_per_forward(cfg) -> int:
+  """Row-parallel projections per forward: 2 per transformer block, 1 per
+  SSM layer, 2 per encoder and 3 per decoder layer of the enc-dec."""
+  if cfg.family == "ssm":
+    return cfg.n_layers
+  if cfg.family == "hybrid":
+    return cfg.n_layers + 2 * thybrid.layout(cfg)[1]
+  if cfg.family == "encdec":
+    return 3 * cfg.dec_layers + 2 * cfg.enc_layers
+  return 2 * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b",
                                   "mamba2-780m", "zamba2-7b",
                                   "seamless-m4t-large-v2"])
-def test_row_parallel_meetings_match_the_dry_run(arch, monkeypatch):
-  """The meetings one microbatch of the tensor-parallel step holds: the
-  row-parallel sums are the projections ``launch/dryrun.py``'s
-  ``tp_all_reduce`` charges per forward (2 per transformer block, 1 per SSM
-  layer, 2 per encoder and 3 per decoder layer of the enc-dec); besides
-  them only the embedding's sum, the gated norms' statistics and the
-  loss's three (B, S) terms meet.  The backward holds none, and every
-  model-axis replica is bit-equal after the step.  Under remat "full" the
-  step holds the same meetings (the recompute replays them), as the dry
-  run's "full" cell charges the same ``tp_all_reduce`` as its "none"
-  cell."""
+def test_row_parallel_meetings_match_the_dry_run(arch):
+  """The collectives one step of two microbatches holds on the (4, 2)
+  mesh, counted by ``roofline.collectives.CollectiveCounter``: on position
+  (0, 0) the row-parallel sums (2 per transformer block, 1 per SSM layer,
+  2 per encoder and 3 per decoder layer of the enc-dec), the embedding's
+  sum, the gated norms' statistics and the loss's three (B, S) terms, each
+  with its transposed collective in the backward but the loss's max and
+  Σ exp (computed without a gradient), which is 2 × ``meetings`` − 1 per
+  microbatch: the backward holds no meeting of its own.  Under remat
+  "full" the step holds the same meetings (the recompute replays them)
+  and every part cut along ``data`` is gathered twice per microbatch as
+  under "none" (forward, then the regather or the recompute's gather;
+  the enc-dec's decoder gathers its unused cross-attention wk and wv in
+  the recompute too): the counted gathers equal the dry run's model of
+  the same cell on every position, and every model-axis replica is
+  bit-equal after the step."""
   tcfg, model, _ = _model(arch)
   mesh = _mesh()
-  per_tok, per_src = tdryrun._row_parallel_per_forward(tcfg)
-  ssm = tcfg.n_layers if tcfg.family in ("ssm", "hybrid") else 0
-  held = []
+  meetings = {}
   for remat in ("none", "full"):
     state, _ = _sharded(tcfg, model, mesh)
-    sites = _meeting_sites(monkeypatch)
     step = tsteps.make_train_step(tcfg, _oc(), accum=2, mesh=mesh,
                                   remat=remat)
-    _, m = step(state, _batch(tcfg, 0))
-    row = [s for s in sites if s[0] == "row_parallel" or s[1] in (
-        "row_parallel", "_experts")]
-    assert len(row) == 2 * (per_tok + per_src)          # accum 2
-    rest = sorted(s for s in sites if s not in row)
-    assert rest == sorted(
-        [("tp_sum", "embed")] * 2 + [("tp_sum", "rms_norm_wide")] * 2 * ssm
-        + [("tp_sum", "vocab_gold"), ("tp_sum", "vocab_logsumexp"),
-           ("vocab_logsumexp", "xent_sum")] * 2)
-    assert m["meetings"] == len(sites)
+    with CollectiveCounter() as c:
+      _, m = step(state, _batch(tcfg, 0))
+    first = [x for x in c.of((0, 0))
+             if x.term not in ("fsdp_all_gather", "grad_reduce_scatter",
+                               "grad_all_reduce")]
+    ssm = tcfg.n_layers if tcfg.family in ("ssm", "hybrid") else 0
+    per_term = {t: sum(x.times for x in first if x.term == t)
+                for t in {x.term for x in first}}
+    assert per_term == {
+        "tp_all_reduce": 2 * 2 * _row_parallel_per_forward(tcfg),
+        "tp_embed_all_reduce": 2 * 2,
+        "tp_stats_all_reduce": 2 * (5 + 2 * ssm)}
+    assert len(first) == 2 * m["meetings"] - 2
+    meetings[remat] = sorted(
+        (x.term, x.kind, x.nbytes) for x in first)
+    fields = {f.name: getattr(tcfg, f.name)
+              for f in dataclasses.fields(tcfg) if f.name != "name"}
+    cell = tdryrun.build_cell(
+        arch, Shape("train_smoke", SEQ, ROWS, "train"),
+        AbstractMesh((4, 2), ("data", "model")), remat=remat, accum=2,
+        act_seq_shard=False, cfg_overrides=fields)
+    want = sum(x.times for x in tdryrun.step_collectives(cell)
+               if x.term == "fsdp_all_gather")
+    assert c.count("fsdp_all_gather") == mesh.size * want
+    if arch == "tinyllama-1.1b":   # 7 parts × 2 layers, gathered twice
+      assert want == 7 * tcfg.n_layers * 2 * 2
     _assert_replicas_equal(state)
-    held.append(sorted(sites))
-    monkeypatch.undo()
-  assert held[0] == held[1]
-  cells = [tdryrun.build_cell(arch, "train_4k", "single", remat=remat)
-           for remat in ("none", "full")]
-  terms = [tdryrun.collective_model(c)[0] for c in cells]
-  assert terms[0]["tp_all_reduce"] == terms[1]["tp_all_reduce"] > 0
-  assert terms[1]["fsdp_all_gather"] == 2 * terms[0]["fsdp_all_gather"]
+  assert meetings["none"] == meetings["full"]
 
 
 def test_the_dry_run_charges_the_long_500k_column_meeting():
@@ -555,7 +565,9 @@ def test_the_dry_run_charges_the_long_500k_column_meeting():
   model 16): B = 1 does not split over data, whose 16 positions divide
   its 32 kv heads, so each data line attends 2 heads of each of its 13
   shared-block applications, merged over the model axis, and the column
-  assembles all 32 in f32; by hand."""
+  assembles all 32 in f32; ahead of them the new row's heads (2 query and
+  2 kv heads per model position, q, k and v in bf16) meet over the model
+  axis; by hand."""
   from repro_torch.roofline.collectives import ring_traffic_bytes
   cell = tdryrun.build_cell("zamba2-7b", "long_500k", "single")
   cfg = cell.cfg
@@ -564,8 +576,9 @@ def test_the_dry_run_charges_the_long_500k_column_meeting():
   apps = 13
   assert terms["decode_heads_all_gather"] == apps * ring_traffic_bytes(
       "all-gather", 1 * 32 * 112 * 4, 16)
-  assert terms["decode_attn_all_reduce"] == apps * ring_traffic_bytes(
-      "all-reduce", 1 * 2 * (112 + 2) * 4, 16)
+  assert terms["decode_attn_all_reduce"] == apps * (
+      ring_traffic_bytes("all-gather", 16 * 1 * (2 + 2 * 2) * 112 * 2, 16)
+      + ring_traffic_bytes("all-reduce", 1 * 2 * (112 + 2) * 4, 16))
   assert terms["decode_heads_all_gather"] == pytest.approx(
       13 * 15 / 16 * 14336)
   assert axis_bytes["data"] == (terms["fsdp_all_gather"]

@@ -187,11 +187,18 @@ Phases (any failure exits non-zero):
      tinyllama-1.1b at its published width and depth, bf16 compute, f32
      master, AdamW, 4 × 2048 SyntheticLM tokens per step: one batch at
      accum=2 against accum=1 and remat="full" against none (lr 0), then 1
-     warm-up and 4 timed steps (CUDA events), every loss finite, step ms,
+     warm-up and 3 timed steps (CUDA events), every loss finite, step ms,
      tokens/s, peak ``max_memory_allocated`` and model FLOPs per step over
-     the bf16 dense peak; (c) mamba2-780m at full width with 8 of its 48
+     the bf16 dense peak; (b2) the same weights and batches through the
+     tensor-parallel step on a mesh of one position of the card
+     (``make_train_step(mesh=...)`` over ``shard_state``), 1 warm-up and 3
+     timed steps: median, spread and peak beside (b)'s, the ratio, and the
+     first loss and grad norm held to (b)'s within phase 17's tolerance
+     (the train driver runs (b)'s step on one position, so (b) times the
+     step it runs); (c) mamba2-780m at full width with 8 of its 48
      layers, the same step; (d) ``python -m repro_torch.launch.train
-     --smoke --deterministic`` killed at step 8 of 12 (exit 42) and resumed:
+     --smoke --deterministic`` (one position: the one-device step) killed
+     at step 8 of 12 (exit 42) and resumed:
      the final loss equals the uninterrupted run's within rtol 1e-5; (e)
      mixtral-8x7b at full width with 2 of its 32 layers and (f) zamba2-7b
      at full width with 7 of its 81 (one application of the shared block,
@@ -2878,7 +2885,9 @@ def phase_analysis() -> dict:
 # Phase 10: LM training on the card, impl="xla" (K3 and K4 are forward
 # kernels; the reference trains only on its XLA arm).  Batch 4 × 2048
 # tokens of SyntheticLM, bf16 compute, f32 master, AdamW.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 4
+# 3 timed steps: (b2) times the one-position mesh step inside the
+# phase's time
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 3
 SSM_TRAIN_LAYERS = 8  # of mamba2-780m's 48: a depth cut, widths as published
 # (e, f): the MoE and hybrid families at their published widths, cut in
 # depth: mixtral-8x7b with 2 of its 32 layers, zamba2-7b with 7 of its 81
@@ -3054,6 +3063,7 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool,
   state, m = step(state, data.batch_at(0))  # warm-up
   losses = [float(m["loss"])]
   auxes = [float(m["aux_loss"])]
+  norms = [float(m["grad_norm"])]
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   times = []
@@ -3066,6 +3076,7 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool,
     e1.record()
     losses.append(float(m["loss"]))  # waits for the step
     auxes.append(float(m["aux_loss"]))
+    norms.append(float(m["grad_norm"]))
     times.append(e0.elapsed_time(e1))
   peak = torch.cuda.max_memory_allocated()
   if not all(x == x and abs(x) < float("inf") for x in losses + auxes):
@@ -3091,12 +3102,68 @@ def train_phase_model(torch, cfg, card: str, tag: str, probes: bool,
             * TRAIN_SEQ ** 2 * cfg.hd / 2)
   row.update(step_ms_median=step_ms, step_ms=times,
              tokens_s=tokens / (step_ms / 1e3), losses=losses, auxes=auxes,
+             grad_norms=norms,
              max_memory_allocated_gib=peak / 2 ** 30,
              model_flops_per_step=flops,
              bf16_peak_share=flops / (step_ms / 1e3) / hw.PEAK_OPS[
                  "bfloat16"])
   log(f"[train] {tag} {json.dumps(row)}")
   del state, model, params, opt
+  return row
+
+
+def one_position_mesh_step(torch, card: str, cfg, one: dict) -> dict:
+  """Phase 10(b2): ``cfg``'s step through ``make_train_step(mesh=...)`` on
+  a mesh of one position of cuda:0, over a ``shard_state`` of (b)'s seeded
+  weights, timed as (b) times the one-device step (``one``, (b)'s row): 1
+  warm-up and TRAIN_TIMED steps on the same batches, the peak after the
+  warm-up.  Its first loss and grad norm are held to (b)'s within phase
+  17's bf16 tolerance.  The train driver runs the one-device step on such
+  a mesh; this prices the tensor-parallel machinery on one position."""
+  from repro_torch.data import DataConfig, SyntheticLM
+  from repro_torch.launch.mesh import make_host_mesh
+  from repro_torch.train import optimizer as opt_mod
+  from repro_torch.train.steps import make_train_step
+  mesh = make_host_mesh(model=1, devices=["cuda:0"])
+  data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0))
+  oc = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+  state, _ = mesh_train_state(torch, cfg, mesh)
+  step = make_train_step(cfg, oc, mesh=mesh)
+  state, m = step(state, data.batch_at(0))  # warm-up
+  first = (float(m["loss"]), float(m["grad_norm"]))
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  state, metrics, times, _ = timed_steps(torch, step, state, data,
+                                         TRAIN_TIMED, first=1)
+  peak = torch.cuda.max_memory_allocated()
+  del state, step
+  if not all(x == x and abs(x) < float("inf")
+             for x in first + tuple(v for m in metrics for v in m)):
+    raise AssertionError(f"(b2): a loss or grad norm is not finite: "
+                         f"{first} {metrics}")
+
+  def side(ms, peak_gib, loss, norm):
+    return {"median_ms": sorted(ms)[len(ms) // 2], "min_ms": min(ms),
+            "max_ms": max(ms), "step_ms": ms, "peak_gib": peak_gib,
+            "first_loss": loss, "first_grad_norm": norm}
+  row = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "dtype": str(cfg.dtype).removeprefix("torch."),
+         "one_device": side(one["step_ms"], one["max_memory_allocated_gib"],
+                            one["losses"][0], one["grad_norms"][0]),
+         "one_position_mesh": side(times, peak / 2 ** 30, *first),
+         "card": card}
+  row["mesh_over_one_device"] = (row["one_position_mesh"]["median_ms"]
+                                 / row["one_device"]["median_ms"])
+  log(f"[train] (b2) {cfg.name}, one-device step against the "
+      f"tensor-parallel step on a mesh of one position (1 warm-up, "
+      f"{TRAIN_TIMED} timed steps each, CUDA events): {json.dumps(row)}")
+  want = (one["losses"][0], one["grad_norms"][0])
+  if not close_to(first, want):
+    raise AssertionError(f"(b2): the one-position mesh step's first loss "
+                         f"and grad norm {first} differ from the one-device "
+                         f"step's {want} (rtol {MESH_LOSS_RTOL}, "
+                         f"{MESH_NORM_RTOL})")
   return row
 
 
@@ -3184,7 +3251,8 @@ def phase_kill_resume(tmp: Path, extra=(), tag: str = "[train] (d)"
 
 def phase_training(torch, card: str, kernels) -> dict:
   """Phase 10: (a) the flash backward, (b) tinyllama-1.1b at full width and
-  depth, (c) mamba2-780m at full width, 8 layers, (d) kill and resume
+  depth, (b2) its step on a mesh of one position against (b)'s, (c)
+  mamba2-780m at full width, 8 layers, (d) kill and resume
   through the driver, (e) mixtral-8x7b at full width, 2 layers, (f)
   zamba2-7b at full width, 7 layers.  Training launches none of K1–K4
   (impl='xla')."""
@@ -3197,6 +3265,10 @@ def phase_training(torch, card: str, kernels) -> dict:
   torch.cuda.empty_cache()
   out["tinyllama"] = train_phase_model(
       torch, configs.get_config(LM_ARCH), card, "(b)", probes=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+  out["tinyllama_one_position"] = one_position_mesh_step(
+      torch, card, configs.get_config(LM_ARCH), out["tinyllama"])
   gc.collect()
   torch.cuda.empty_cache()
   ssm = configs.get_config(SSM_ARCH).replace(n_layers=SSM_TRAIN_LAYERS)
@@ -3965,11 +4037,12 @@ def mesh_train_state(torch, cfg, mesh):
   return shard_state(params, specs, mesh), specs
 
 
-def timed_steps(torch, step, state, data, n: int) -> tuple:
+def timed_steps(torch, step, state, data, n: int, first: int = 0
+                ) -> tuple:
   """(state, [(loss, grad norm)], [CUDA-event ms], meetings of the last
-  step or None) of ``n`` steps on batches 0..n-1."""
+  step or None) of ``n`` steps on batches first..first+n-1."""
   metrics, times, meetings = [], [], None
-  for i in range(n):
+  for i in range(first, first + n):
     batch = data.batch_at(i)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -5422,7 +5495,10 @@ def main() -> int:
       f"{SSM_TRAIN_LAYERS} layers), {train['mixtral']['step_ms_median']!r} "
       f"(mixtral-8x7b, {MOE_TRAIN_LAYERS} layers), "
       f"{train['zamba2']['step_ms_median']!r} (zamba2-7b, "
-      f"{HYBRID_TRAIN_LAYERS} layers) {card}")
+      f"{HYBRID_TRAIN_LAYERS} layers); tinyllama-1.1b's tensor-parallel "
+      f"step on one position "
+      f"{train['tinyllama_one_position']['mesh_over_one_device']!r}x the "
+      f"one-device step {card}")
 
   # -- phase 11: MoE serving ---------------------------------------------------
   gc.collect()

@@ -12,17 +12,23 @@ Counterpart of ``repro/launch/train.py``, with its flags plus ``--device``
 (default ``cuda``; ``cpu`` for the CPU), ``--shards`` and
 ``--deterministic``.  As the reference does, it builds a host mesh over
 the devices of ``--device``'s type that exist (``model`` 2 when there are
-more than one), ``Parallelism(data_axes=("data",), tp_size=<model>)``, and
-places the f32 master and both AdamW moments by ``specs_like``
-(``train/sharded.py``); the step gets none of the mesh knobs.  The step is
-tensor-parallel: each mesh position runs its data line's rows forward and
-backward on its heads, widths and vocab piece, and its gradients land in
-the master's pieces (``train/steps.py``).
-``--shards N`` builds a virtual mesh of N shards of ``--device`` instead
-(the counterpart of the reference's
-``XLA_FLAGS=--xla_force_host_platform_device_count``).  Every
-``--ckpt-every`` steps the full train state is gathered and committed
-atomically; on restart the driver resumes from LATEST, on whatever mesh it
+more than one); ``--shards N`` builds a virtual mesh of N shards of
+``--device`` instead (the counterpart of the reference's
+``XLA_FLAGS=--xla_force_host_platform_device_count``).  The step gets
+none of the mesh knobs.
+
+A mesh of one position (one card, ``--device cpu``, ``--shards 1``) runs
+what the reference's GSPMD compiles on a 1 × 1 mesh: the one-device step
+(``make_train_step(cfg, oc, accum=...)``) on the state ``(model,
+init_opt_state(param_tree(model)))``.  On more positions the driver takes
+``Parallelism(data_axes=("data",), tp_size=<model>)``, places the f32
+master and both AdamW moments by ``specs_like`` (``train/sharded.py``)
+and runs the tensor-parallel step: each mesh position runs its data
+line's rows forward and backward on its heads, widths and vocab piece,
+and its gradients land in the master's pieces (``train/steps.py``).  The
+``[train] mesh`` line names the step.  Every ``--ckpt-every`` steps the
+full train state is gathered and committed atomically in the reference's
+layout; on restart the driver resumes from LATEST, on whatever mesh it
 runs, and the stateless data pipeline replays the exact stream.
 ``--fail-at`` kills the process (exit code 42) at that step so tests can
 exercise the restart path.  ``--deterministic`` makes every kernel pick a
@@ -78,7 +84,7 @@ def main(argv=None):
   from repro_torch.models import common as cm
   from repro_torch.models import zoo
   from repro_torch.train import (AdamWConfig, checkpoint as ckpt,
-                                 make_train_step)
+                                 init_opt_state, make_train_step)
   from repro_torch.train.sharded import shard_state
   if args.deterministic:
     torch.use_deterministic_algorithms(True)
@@ -104,18 +110,31 @@ def main(argv=None):
 
   start = 0
   home = mesh.devices[0][0]
-  params = zoo.param_tree(zoo.init(
-      cfg, torch.Generator(device=home).manual_seed(args.seed), home))
-  state = shard_state(params, cm.specs_like(params, cfg, par), mesh)
-  del params
+  one_position = mesh.size == 1
+  model = zoo.init(cfg, torch.Generator(device=home).manual_seed(args.seed),
+                   home)
+  params = zoo.param_tree(model)
+  if one_position:
+    state = (model, init_opt_state(params))
+  else:
+    state = shard_state(params, cm.specs_like(params, cfg, par), mesh)
+  del model, params
   if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-    state, start = ckpt.restore(args.ckpt_dir, template=state)
+    if one_position:
+      restored, start = ckpt.restore(
+          args.ckpt_dir,
+          template={"params": zoo.param_tree(state[0]), "opt": state[1]})
+      state = (zoo.from_params(cfg, restored["params"]), restored["opt"])
+    else:
+      state, start = ckpt.restore(args.ckpt_dir, template=state)
     print(f"[train] resumed from step {start}")
   print(f"[train] mesh data={mesh.shape['data']} x "
         f"model={mesh.shape['model']} on {mesh.device_type}, "
-        f"tensor-parallel over model", flush=True)
+        + ("one-device step" if one_position
+           else "tensor-parallel step over model"), flush=True)
 
-  step_fn = make_train_step(cfg, oc, accum=args.accum, mesh=mesh)
+  step_fn = make_train_step(cfg, oc, accum=args.accum,
+                            mesh=None if one_position else mesh)
   checkpointer = (ckpt.AsyncCheckpointer(args.ckpt_dir)
                   if args.ckpt_dir and args.async_ckpt else None)
   t0 = time.time()
@@ -129,16 +148,19 @@ def main(argv=None):
       loss = float(metrics["loss"])
       dt = time.time() - t0
       tok_s = args.batch * args.seq * (step + 1 - start) / max(dt, 1e-9)
-      print(f"[train] step={step + 1} loss={loss:.4f} "
+      print(f"[train] step={step + 1} loss={loss:.6f} "
             f"aux={float(metrics['aux_loss']):.4f} "
             f"lr={float(metrics['lr']):.2e} "
             f"gnorm={float(metrics['grad_norm']):.2f} tok/s={tok_s:,.0f}",
             flush=True)
     if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+      # the reference's tree: {'params', 'opt'} whatever the state
+      payload = ({"params": zoo.param_tree(state[0]), "opt": state[1]}
+                 if one_position else state)
       if checkpointer is not None:
-        checkpointer.save(step + 1, state)
+        checkpointer.save(step + 1, payload)
       else:
-        ckpt.save(args.ckpt_dir, step + 1, state)
+        ckpt.save(args.ckpt_dir, step + 1, payload)
   if checkpointer is not None:
     checkpointer.wait()
   print("[train] done")

@@ -58,7 +58,7 @@ GUARDED_BY = {
                "_expired", "_next_id", "_pending", "_inflight", "_running",
                "_stopped", "scheduler", "admission", "_arenas",
                "_arenas_ticked", "_arena_cold", "_arena_failures",
-               "_abandoned", "_thread")),
+               "_abandoned", "_thread", "_stamp_pool", "_in_service")),
     ("serve_mmo/arena.py", "RequestArena"): LockSpec(
         locks=("_lock",),
         # device state handles (_c/_adj/_kv/_act/_it) are guarded too: admit

@@ -13,7 +13,8 @@ with the host.  Here the per-iteration ('dispatch') loop is Python over
 device tensors and syncs once per iteration, to read whether any request is
 still changing (``bool(active.any())``); the fused arm
 (``fixpoint_backend="megakernel"``, kernel K2) syncs once per chunk of
-``megakernel_g`` iterations.
+``megakernel_g`` iterations.  The batched loops' syncs go through
+``core.stamps.sync``, so a serving batch stamps each one.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import semiring as sr_mod
+from repro_torch.core import stamps
 from repro_torch.core.mmo import mmo as _mmo
 
 Tensor = torch.Tensor
@@ -153,7 +155,7 @@ def _batched_fixpoint(adj: Tensor, step_fn, max_iters: int,
   """Iterate ``c ← step_fn(c, k_valid)`` per-request-masked to convergence."""
   state = _fixpoint_state(adj, valid_n)
   i = 0
-  while i < max_iters and bool(state[1].any()):
+  while i < max_iters and stamps.sync(state[1].any()):
     state = _fixpoint_step(state, step_fn)
     i += 1
   return state[0], state[2]

@@ -51,6 +51,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import semiring as sr_mod
+from repro_torch.core import stamps
 from repro_torch.core.mmo import mmo as _mmo
 
 Tensor = torch.Tensor
@@ -410,8 +411,9 @@ def _dp_closure(adj, *, op, algorithm, mesh, backend, block, max_iters,
       sh["state"] = cl._fixpoint_step(sh["state"], sh["step"])
       sh["i"] += 1
     at = running[0]["state"][1].device
-    flags = torch.stack([sh["state"][1].any().to(at, non_blocking=True)
-                         for sh in running]).tolist()
+    flags = stamps.sync(
+        torch.stack([sh["state"][1].any().to(at, non_blocking=True)
+                     for sh in running]), torch.Tensor.tolist)
     running = [sh for sh, live in zip(running, flags)
                if live and sh["i"] < sh["budget"]]
   closed = torch.cat([sh["state"][0].to(adj.device) for sh in shards])

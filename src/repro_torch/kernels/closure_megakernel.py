@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import closure as cl_mod
 from repro_torch.core import semiring as sr_mod
+from repro_torch.core import stamps
 from repro_torch.kernels import nan_check, nvcc
 from repro_torch.kernels.semiring_mmo import (OP_CODES, TILE,
                                               semiring_mmo_plain)
@@ -284,6 +285,6 @@ def megakernel_fixpoint(adj: Tensor, *, op: str, algorithm: str = "leyzorek",
         torch.full((r,), glim, dtype=torch.int32, device=dev), op=op,
         g_steps=g_steps)
     i += glim
-    if not bool(act.any()):  # the one host sync per chunk
+    if not stamps.sync(act.any()):  # the one host sync per chunk
       break
   return c[:, :n, :n], it

@@ -29,6 +29,7 @@ import torch
 from repro_torch.apps.solvers import smallest_k
 from repro_torch.core import closure as cl_mod
 from repro_torch.core import semiring as sr_mod
+from repro_torch.core import stamps
 from repro_torch.core.mmo import mmo, mmo_batched
 from repro_torch.serve_mmo.api import MMOResult, ProblemRequest
 from repro_torch.serve_mmo.scheduler import BucketKey
@@ -242,6 +243,7 @@ def make_batch_fn(key: BucketKey, *, backend: str, device, block: tuple = (),
       row_ok = torch.arange(d2.shape[-1], device=d2.device) < valid[:, None]
       # repro: ignore[semiring-hardcoded-identity] — top-k mask, not a pad
       d2 = torch.where(row_ok[:, None, :], d2, float("inf"))
+      stamps.mark("select")
       return smallest_k(d2, k)
 
     return fn

@@ -68,6 +68,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import stamps as stage_hook
 from repro_torch.core.mmo import BACKENDS
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.serve_mmo import batching
@@ -85,7 +86,7 @@ from repro_torch.serve_mmo.faults import (ARM_FAILURE_KINDS,
                                           classify_failure)
 from repro_torch.serve_mmo.metrics import ServeMetrics, bucket_label
 from repro_torch.serve_mmo.observability import (DEFAULT_TRACE_CAPACITY,
-                                                 FlightRecorder)
+                                                 BatchStamps, FlightRecorder)
 from repro_torch.serve_mmo.resilience import ResilienceManager
 from repro_torch.serve_mmo.scheduler import (BucketScheduler, MIN_BUCKET,
                                              bucket_dim, contract_shape,
@@ -105,6 +106,14 @@ _ARENA_ARM = (_ARENA, (), _LOCAL)
 
 def _to_numpy(x) -> np.ndarray:
   return x.detach().cpu().numpy()
+
+
+def _outputs_to_numpy(out):
+  """The device-to-host copy of a batch's outputs: one synchronisation
+  per output."""
+  if isinstance(out, (tuple, list)):
+    return tuple(_to_numpy(x) for x in out)
+  return _to_numpy(out)
 
 
 @dataclasses.dataclass
@@ -185,9 +194,11 @@ class MMOEngine:
   every live slot advances one K2 launch per step, and each request
   completes when its slot converges — whatever the arm ``backend`` names.
 
-  Telemetry: ``trace`` (on by default) stamps request-lifecycle spans into
-  a ``FlightRecorder`` of ``trace_capacity`` events (or ``tracer=``);
-  ``export_trace()`` returns Chrome trace-event JSON and
+  Telemetry: ``trace`` (on by default) stamps request-lifecycle spans and
+  each batch's stages (observability.py; the device stages from a pool of
+  ``BatchStamps`` whose CUDA events are reused) into a ``FlightRecorder``
+  of ``trace_capacity`` events (or ``tracer=``) and the stage histograms
+  of the metrics; ``export_trace()`` returns Chrome trace-event JSON and
   ``observability_state()`` the document ``render_prometheus`` and the
   HTTP endpoint serve.
 
@@ -295,6 +306,12 @@ class MMOEngine:
     self.resilience = resilience
     self._fallback_arms_memo: dict = {}  # BucketKey → tuple of arms
     self._abandoned: list = []  # watchdog workers of timed-out batches
+    # stage stamps free for the next batch; a timed-out batch's set stays
+    # with its abandoned worker
+    self._stamp_pool: list = []
+    # (bucket, size, pick time) of the batch last picked: what an expiry
+    # in the queue waited behind
+    self._in_service: Optional[tuple] = None
     self._lock = threading.RLock()
     self._work = threading.Condition(self._lock)
     self._idle = threading.Condition(self._lock)  # signaled: _pending empty
@@ -528,13 +545,27 @@ class MMOEngine:
 
   def _expire_locked(self, reqs) -> None:
     """Fail requests whose deadline passed while queued, or that the policy
-    failed fast as hopeless.  Engine lock held."""
+    failed fast as hopeless.  Engine lock held.  The trace's ``queued`` end
+    says how long each waited and which batch was in service (the last one
+    picked: between batches, the one that just ended), with its pick
+    time."""
     self._expired += len(reqs)
+    args = None
+    if self.tracer.enabled:
+      now = self._clock()
+      args = {}
+      if self._in_service is not None:
+        key, size, start_s = self._in_service
+        args["in_service"] = {"bucket": bucket_label(key), "batch": size,
+                              "start_s": start_s}
     for r in reqs:
       self.admission.on_dequeue(r)
       self.admission.on_done(r)
       self.metrics.on_expire(request_bucket(r, self.scheduler.min_bucket))
-      self.tracer.request_end(r.request_id, "expired", executing=False)
+      if args is not None:
+        args["waited_ms"] = (now - r.arrival_s) * 1e3
+        self.tracer.request_end(r.request_id, "expired", executing=False,
+                                args=args)
       fut = self._pending.pop(r.request_id, None)
       if fut is not None:
         fut._fail(DeadlineExceededError(
@@ -558,7 +589,8 @@ class MMOEngine:
     Requests whose deadline lapsed in the queue are failed here without
     costing a batch slot."""
     with self._lock:
-      picked = self.scheduler.next_batch(now=self._clock())
+      now = self._clock()
+      picked = self.scheduler.next_batch(now=now)
       expired = self.scheduler.take_expired()
       if expired:
         self._expire_locked(expired)
@@ -568,6 +600,7 @@ class MMOEngine:
       for r in reqs:
         self.admission.on_dequeue(r)
       self._inflight.update(r.request_id for r in reqs)
+      self._in_service = (key, len(reqs), now)
     scheduled_s = self._clock()
     try:
       return self._serve_batch(key, reqs, scheduled_s)
@@ -684,7 +717,14 @@ class MMOEngine:
     The watched device run holds the host-to-device copy, the launches and
     the device-to-host copy that waits for them: launches return before
     the kernels end, so a watchdog around the launches alone would never
-    see a slow kernel."""
+    see a slow kernel.
+
+    While the engine traces, a ``BatchStamps`` from the pool stamps each
+    stage where it runs: the device stages' boundaries in the watched run
+    (its fixpoint syncs and KNN selection through the ``core.stamps`` hook,
+    installed in the thread that runs the batch function), the host stages
+    around them.  It adds no synchronisation: the events' times are read
+    after the output copies returned."""
     label = bucket_label(key)
     rids = [r.request_id for r in reqs]
     rb = self._batch_bucket(len(reqs))
@@ -697,13 +737,17 @@ class MMOEngine:
                                 "schedule": schedule})
     faults = self.faults
     attempt_s = self._clock() if start_s is None else start_s
+    stamps = self._take_stamps() if self.tracer.enabled else None
     phase = "stack"
     try:
       # fill the padded batch slots with copies of the last request — wasted
       # compute bounded at 2×, in exchange for a bounded executable set
+      t0 = self._clock()
       stacked = batching.stack_batch(key, reqs + [reqs[-1]] * (rb - len(reqs)))
       h2d_bytes = sum(int(x.nbytes) for x in stacked)
       stacked_s = self._clock()
+      if stamps is not None:
+        stamps.span("stack", t0, stacked_s)
       phase = "compile"
       if faults is not None and faults.check("compile", label=label,
                                              backend=backend,
@@ -736,13 +780,27 @@ class MMOEngine:
           raise InjectedFault("execute", label)
         if slow_rule is not None:
           time.sleep(slow_rule.delay_s)
-        out = compiled(*batching.to_device(stacked, self.device))
-        # the device-to-host copy is the batch's synchronisation point
-        return (tuple(_to_numpy(x) for x in out)
-                if isinstance(out, (tuple, list)) else _to_numpy(out))
+        if stamps is None:
+          out = compiled(*batching.to_device(stacked, self.device))
+          # the device-to-host copy is the batch's synchronisation point
+          return _outputs_to_numpy(out)
+        stamps.boundary(stamps.H2D)
+        args = batching.to_device(stacked, self.device)
+        stamps.boundary(stamps.COMPUTE)
+        stage_hook.install(stamps)
+        try:
+          out = compiled(*args)
+        finally:
+          stage_hook.clear()
+        stamps.boundary(stamps.D2H)
+        out = _outputs_to_numpy(out)
+        stamps.boundary(stamps.END)
+        return out
 
       out = self._call_with_watchdog(run, label)
       device_s = self._clock()
+      d2h_bytes = (sum(int(x.nbytes) for x in out)
+                   if isinstance(out, tuple) else int(out.nbytes))
       cold = self.cache.first_run(exec_key)
       if faults is not None:
         nf = faults.check("nonfinite", label=label, backend=backend,
@@ -764,16 +822,25 @@ class MMOEngine:
           self.estimator.observe_iterations(key, iters_live[fresh])
           observed.update(reqs[i].request_id for i in fresh)
       if self.validate_results:
+        t0 = self._clock()
         bad = batching.validate_finite(key, out, len(reqs))
+        if stamps is not None:
+          stamps.span("nan_scan", t0, self._clock())
         if bad:
           # NaN means the arm misbehaved (±inf is legitimate tropical output)
           raise NonFiniteResultError(label, bad)
       phase = "split"
+      t0 = self._clock()
       results = batching.split_results(key, reqs, out)
+      if stamps is not None:
+        stamps.span("split", t0, self._clock())
       if len(results) != len(reqs):
         raise RuntimeError(f"split_results returned {len(results)} results "
                            f"for {len(reqs)} requests in {label}")
     except Exception as e:  # noqa: BLE001 — classify, count, feed the breaker
+      if stamps is not None and not isinstance(e, BatchTimeoutError):
+        # a timed-out batch's worker may still record into its stamps
+        self._give_back_stamps(stamps)
       kind = classify_failure(e, phase)
       self.metrics.on_batch_failure(kind)
       # only arm-implicating kinds feed the breaker: a host-side stack/split
@@ -783,6 +850,10 @@ class MMOEngine:
                                arm, kind)
       raise
     completed_s = self._clock()
+    stages = None
+    if stamps is not None:
+      stages = stamps.read(len(out) if isinstance(out, tuple) else 1)
+      self._give_back_stamps(stamps)
     self._trace_transition(self.resilience.on_success(key, arm), label, arm)
     if not cold:
       # per padded slot, keyed by the arm that ran; a function's first run
@@ -792,9 +863,25 @@ class MMOEngine:
     info = {"start_s": attempt_s, "stacked_s": stacked_s,
             "executed_s": executed_s, "device_s": device_s,
             "completed_s": completed_s, "rb": rb, "h2d_bytes": h2d_bytes,
-            "cache_hit": cache_hit, "backend": backend,
-            "schedule": schedule, "iters_live": iters_live}
+            "d2h_bytes": d2h_bytes, "cache_hit": cache_hit,
+            "backend": backend, "schedule": schedule,
+            "iters_live": iters_live, "stages": stages}
     return results, info
+
+  def _take_stamps(self) -> BatchStamps:
+    """A free ``BatchStamps`` from the pool (one is made only when none is
+    free: the first batch, a batch beside another step's, or after a
+    timed-out batch kept its set), reset for one batch."""
+    with self._lock:
+      stamps = self._stamp_pool.pop() if self._stamp_pool else None
+    if stamps is None:
+      stamps = BatchStamps(self.device, self._clock)
+    stamps.begin()
+    return stamps
+
+  def _give_back_stamps(self, stamps: BatchStamps) -> None:
+    with self._lock:
+      self._stamp_pool.append(stamps)
 
   def _complete_sub(self, key, reqs, results, info, scheduled_s: float,
                     *, emit_pick: bool) -> int:
@@ -814,7 +901,8 @@ class MMOEngine:
           h2d_bytes=info["h2d_bytes"], cache_hit=info["cache_hit"],
           request_ids=[r.request_id for r in reqs],
           arrivals_s=[r.arrival_s for r in reqs],
-          iterations=info["iters_live"], emit_pick=emit_pick)
+          iterations=info["iters_live"], emit_pick=emit_pick,
+          stages=info["stages"])
     with self._lock:
       self._batches += 1
       self.metrics.on_batch(
@@ -822,7 +910,8 @@ class MMOEngine:
           host_s=((info["stacked_s"] - info["start_s"])
                   + (completed_s - info["device_s"])),
           device_s=info["device_s"] - info["executed_s"],
-          h2d_bytes=info["h2d_bytes"])
+          h2d_bytes=info["h2d_bytes"], d2h_bytes=info["d2h_bytes"],
+          stages=info["stages"])
       for r, res in zip(reqs, results):
         self._inflight.discard(r.request_id)
         self._records.append(RequestRecord(

@@ -143,6 +143,10 @@ def render_prometheus(state: dict) -> str:
       "h2d_bytes": "Host-to-device bytes pad-and-stacked into batches.",
       "retries": "Sub-batches re-dispatched by the recovery path "
                  "(transient retries + bisection halves).",
+      "d2h_bytes": "Device-to-host bytes copied out of batches.",
+      "syncs": "Host synchronisations of the batches stamped while "
+               "tracing: fixpoint convergence checks and one per output "
+               "copied to the host.",
   }
   for name, count in sorted(m["counters"].items()):
     w.family(f"serve_{name}_total", "counter",
@@ -181,7 +185,34 @@ def render_prometheus(state: dict) -> str:
       "host": ("serve_batch_host_seconds",
                "Per-batch host time (pad-and-stack + split) per bucket."),
       "device": ("serve_batch_device_seconds",
-                 "Per-batch device compute time per bucket."),
+                 "Per-batch host-clock time around the host-to-device copy, "
+                 "the launches and the device-to-host copy that waits for "
+                 "them, per bucket."),
+      "stack": ("serve_batch_stack_seconds",
+                "Per-batch host time padding and stacking the requests "
+                "(stack_batch) per bucket."),
+      "h2d": ("serve_batch_h2d_seconds",
+              "Per-batch host-to-device copy time (device clock: CUDA "
+              "events) per bucket."),
+      "compute": ("serve_batch_compute_seconds",
+                  "Per-batch device time from the host-to-device copy's "
+                  "end to the first output copy, the selection excluded "
+                  "(CUDA events) per bucket."),
+      "select": ("serve_batch_select_seconds",
+                 "Per-batch device time of the KNN top-k selection (CUDA "
+                 "events) per bucket."),
+      "sync": ("serve_sync_seconds",
+               "Host wait of each synchronisation in a closure's fixpoint "
+               "loop per bucket."),
+      "d2h": ("serve_batch_d2h_seconds",
+              "Per-batch device-to-host copy time of every output (device "
+              "clock: CUDA events) per bucket."),
+      "nan_scan": ("serve_batch_nan_scan_seconds",
+                   "Per-batch host time of the NaN scan of the results per "
+                   "bucket."),
+      "split": ("serve_batch_split_seconds",
+                "Per-batch host time splitting the batch into per-request "
+                "results per bucket."),
   }
   for which, (name, help_text) in hist_help.items():
     series = {}

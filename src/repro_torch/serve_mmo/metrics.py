@@ -11,8 +11,14 @@ not p99 after the run.
 
 Per bucket, rolling windows for queue latency (submit → batch pick) and
 service latency (batch pick → results ready), plus per-batch host time
-(pad-and-stack + split) and device compute time — the host/device breakdown
-the engine measures around each batch.  Percentiles come from the last
+(pad-and-stack + split-results) and the host-clock time of the device
+phase (around the host-to-device copy, the launches and the
+device-to-host copy that waits for them).  While the engine traces, each
+stage of a batch gets a window too (``STAGE_WINDOWS``: observability.py's
+``STAGES``): the host stages (stack, nan scan, split), the device stages
+timed by CUDA events (h2d, compute, select, d2h) and the host's wait in
+each synchronisation of a closure's fixpoint loop (sync, one observation
+per synchronisation).  Percentiles come from the last
 ``window`` observations — a rolling estimate that tracks load shifts
 instead of averaging them away.  A window that has seen nothing reports its
 percentiles as ``None`` (never NaN: ``json.dumps`` renders NaN as the
@@ -25,7 +31,9 @@ scrapes and instances; the windows answer "now" for humans, the histograms
 answer "since start" for the scraper.
 
 Global counters (submitted / completed / rejected / expired / failed /
-batches / h2d_bytes) are plain monotonic ints.
+batches / h2d_bytes / d2h_bytes / retries / syncs) are plain monotonic
+ints; ``syncs`` counts the host synchronisations of the batches stamped
+while tracing (fixpoint checks, one per output copied).
 
 The same per-batch service-latency observations that fill these windows
 also feed the engine's adaptive EWMA estimator (serve_mmo/estimator.py) —
@@ -41,6 +49,7 @@ import time
 from typing import Optional
 
 from repro_torch.serve_mmo.exposition import HISTOGRAM_BOUNDS_S, LogHistogram
+from repro_torch.serve_mmo.observability import STAGES
 
 __all__ = ["RollingWindow", "ServeMetrics", "bucket_label"]
 
@@ -116,8 +125,9 @@ class ServeMetrics:
   """
 
   COUNTERS = ("submitted", "completed", "rejected", "expired", "failed",
-              "batches", "h2d_bytes", "retries")
-  WINDOWS = ("queue", "service", "host", "device")
+              "batches", "h2d_bytes", "retries", "d2h_bytes", "syncs")
+  STAGE_WINDOWS = STAGES
+  WINDOWS = ("queue", "service", "host", "device") + STAGE_WINDOWS
 
   def __init__(self, *, clock=None, window: int = 512):
     self._clock = clock if clock is not None else time.perf_counter
@@ -141,6 +151,9 @@ class ServeMetrics:
           **{name: RollingWindow(self._window) for name in self.WINDOWS},
           **{f"{name}_hist": LogHistogram() for name in self.WINDOWS},
       }
+      # each stage's (window, histogram): one lookup an observation
+      b["stage_pairs"] = {name: (b[name], b[f"{name}_hist"])
+                          for name in self.STAGE_WINDOWS}
     return b
 
   def on_submit(self) -> None:
@@ -181,14 +194,23 @@ class ServeMetrics:
 
   def on_batch(self, key=None, *, host_s: Optional[float] = None,
                device_s: Optional[float] = None,
-               h2d_bytes: Optional[int] = None) -> None:
+               h2d_bytes: Optional[int] = None,
+               d2h_bytes: Optional[int] = None,
+               stages=None) -> None:
     """One executed batch.  With a bucket key, also records the batch's
     host/device time breakdown (host = pad-and-stack + split-results,
-    device = compiled-program execution) and the bytes staged host→device."""
+    device = the host clock around the host-to-device copy, the launches
+    and the device-to-host copy) and the bytes staged each way.
+    ``stages`` (an observability ``StageRecord``) adds its stage
+    observations and synchronisations."""
     with self._lock:
       self._counters["batches"] += 1
       if h2d_bytes:
         self._counters["h2d_bytes"] += int(h2d_bytes)
+      if d2h_bytes:
+        self._counters["d2h_bytes"] += int(d2h_bytes)
+      if stages is not None:
+        self._counters["syncs"] += stages.syncs
       if key is not None:
         b = self._bucket_locked(key)
         if host_s is not None:
@@ -197,6 +219,12 @@ class ServeMetrics:
         if device_s is not None:
           b["device"].add(device_s)
           b["device_hist"].add(device_s)
+        if stages is not None:
+          pairs = b["stage_pairs"]
+          for name, seconds in stages.seconds:
+            window, hist = pairs[name]
+            window.add(seconds)
+            hist.add(seconds)
 
   def on_complete(self, key, queue_s: float, service_s: float) -> None:
     with self._lock:

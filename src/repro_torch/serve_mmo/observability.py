@@ -1,15 +1,16 @@
 """Request-lifecycle tracing: a bounded flight recorder over the serving path.
 
-Counterpart of ``repro/serve_mmo/observability.py``, with the same Chrome
-trace-event set.  Latency percentiles say *how much* time a request spent;
-they never say *where*.  This module stamps spans at every state transition
-a request goes through — submit, admit/reject, queued, batch pick,
-pad-and-stack, resolve+build, device compute (with per-iteration slices for
-closures), split-results, done/expired/failed — into a ``FlightRecorder``:
-a fixed-capacity ring buffer of Chrome trace events.  A ring of the last N
-events costs one short lock + one deque extend per emission and keeps
-memory constant under any load; ``stats()`` reports how many fell off the
-back, so a truncated window is visible, never silent.
+Counterpart of ``repro/serve_mmo/observability.py``, with its Chrome
+trace-event set and, on top of it, the port's stage stamps.  Latency
+percentiles say *how much* time a request spent; they never say *where*.
+This module stamps spans at every state transition a request goes through
+— submit, admit/reject, queued, batch pick, pad-and-stack, resolve+build,
+device compute, split-results, done/expired/failed — and at every stage
+of a batch, into a ``FlightRecorder``: a fixed-capacity ring buffer of
+Chrome trace events.  A ring of the last N events costs one short lock +
+one deque extend per emission and keeps memory constant under any load;
+``stats()`` reports how many fell off the back, so a truncated window is
+visible, never silent.
 
 The export format is Chrome trace-event JSON (``export()`` →
 ``{"traceEvents": [...]}``), loadable in Perfetto / ``about://tracing``:
@@ -19,18 +20,26 @@ The export format is Chrome trace-event JSON (``export()`` →
     ``execute`` slice (pick → results), with kind/op/tenant on the begin
     and the terminal outcome (done / expired / failed) on the end; a
     retried or bisected attempt closes its slice 'retried' and opens a new
-    one (``batch_attempt_fail`` / ``batch_attempt_begin``);
+    one (``batch_attempt_fail`` / ``batch_attempt_begin``).  An expired
+    request's ``queued`` end says how long it waited and which batch was
+    in service (bucket, size, pick time: the batch that just ended when
+    the expiry is found between two batches);
   * per-batch phases — complete events (``ph`` 'X') on the executing
     thread's track: ``pad_and_stack``, ``resolve_compile`` (args say cache
     hit or miss), ``device_compute`` (the host-to-device copy, the launches
     and the device-to-host copy that waits for them; args carry backend,
     schedule, padded batch, H2D bytes, measured iterations),
     ``split_results``;
-  * closure iterations — the port's fixpoint syncs once per iteration or
-    per fused chunk inside the device window, but the tracer does not stamp
-    those syncs: it apportions the measured device window evenly across the
-    batch's measured max iteration count into ``squaring_iter k`` slices
-    (at most ``MAX_ITERATION_SLICES``), marked ``"apportioned": true``;
+  * per-batch stages (``BatchStamps``, ``STAGES``), X events nested in the
+    phases: on the executing thread's track the host stages ``stack`` (in
+    pad_and_stack), ``h2d`` (the host's copy call) and one ``sync`` per
+    host synchronisation of a closure's fixpoint loop (in device_compute;
+    at most ``MAX_SYNC_SPANS`` a batch, each one observed by the metrics),
+    ``nan_scan`` and ``split`` (in split_results); on the device track
+    (``DEVICE_TID``) ``h2d``, ``compute``, ``select`` (KNN only) and
+    ``d2h``, timed by CUDA events recorded at the stage boundaries and
+    placed on the host clock by the event recorded when the last output
+    copy returned (on a CPU engine, host times);
   * arena slots — ``arena_admit`` closes ``queued`` and opens ``execute``
     with the slot index, ``arena_tick`` X-events land inside it;
   * instants (``ph`` 'i') for admission rejections, batch failures,
@@ -46,18 +55,127 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
-__all__ = ["FlightRecorder", "DEFAULT_TRACE_CAPACITY",
-           "MAX_ITERATION_SLICES"]
+__all__ = ["FlightRecorder", "BatchStamps", "DEFAULT_TRACE_CAPACITY",
+           "MAX_SYNC_SPANS", "STAGES", "DEVICE_TID"]
 
 DEFAULT_TRACE_CAPACITY = 65536
-# per-batch cap on apportioned squaring_iter slices: a 1024-node
-# Bellman-Ford bucket measures up to 1023 relaxations; tracing them all
-# would let one batch evict half the ring
-MAX_ITERATION_SLICES = 32
+# per-batch cap on emitted sync spans: a 1024-node Bellman-Ford bucket
+# syncs up to 1023 times; tracing them all would let one batch evict half
+# the ring (the metrics still observe every one)
+MAX_SYNC_SPANS = 32
+# a batch's stages, in the order they run (also ServeMetrics' stage windows)
+STAGES = ("stack", "h2d", "compute", "select", "sync", "d2h", "nan_scan",
+          "split")
+# the device track: outside the range of host thread ids (masked to 31 bits)
+DEVICE_TID = 1 << 31
 
 _PID = 1  # one engine process per recorder
+
+
+class StageRecord(NamedTuple):
+  """One batch's stages, read from its ``BatchStamps``: (name, start,
+  end) spans on the engine clock for the host track and the device track,
+  (name, seconds) observations for the metrics (one per stage, one per
+  sync) and the count of the batch's host synchronisations."""
+  host: tuple
+  device: tuple
+  seconds: tuple
+  syncs: int
+
+
+class BatchStamps:
+  """The stage stamps of one batch at a time, reused batch after batch (the
+  engine pools them, so their CUDA events are made once).
+
+  The engine calls ``begin`` before a batch, ``span`` for each host stage
+  it times (stack, nan scan, split), ``boundary`` at the device stages'
+  boundaries (``H2D`` before the host-to-device copy, ``COMPUTE`` after
+  it, ``D2H`` before the first output copy, ``END`` when the last one
+  returned), and installs the stamps through ``core.stamps`` around the
+  batch function, whose fixpoint loops reach ``sync`` and whose KNN
+  selection reaches ``mark``.  ``read`` gives the batch's ``StageRecord``.
+
+  On a card each boundary records one of a fixed set of CUDA events, on
+  the stream current when the set was made (the engine's: it launches on
+  its device's current stream), beside the host time; nothing waits on an
+  event.  ``read`` runs after the output copies returned, so every event
+  before ``END`` has completed; ``END``, recorded on the stream those
+  copies left idle, anchors the device stages at the host time it was
+  recorded.  A batch whose ``END`` has not completed by then (elapsed_time
+  refuses it) keeps host times for its device stages; so does every batch
+  on a CPU engine.
+  """
+
+  H2D, COMPUTE, SELECT, D2H, END = range(5)
+
+  def __init__(self, device=None, clock=None):
+    self._clock = clock if clock is not None else time.perf_counter
+    self._events = self._stream = None
+    if device is not None and getattr(device, "type", device) == "cuda":
+      import torch
+      self._events = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(5))
+      self._stream = torch.cuda.current_stream(device)
+    self._at = [0.0] * 5
+    self.begin()
+
+  def begin(self) -> None:
+    """Reset for the next batch."""
+    self._host = []
+    self._syncs = []
+    self._at[self.SELECT] = None
+
+  def span(self, name: str, t0_s: float, t1_s: float) -> None:
+    self._host.append((name, t0_s, t1_s))
+
+  def boundary(self, which: int) -> None:
+    self._at[which] = self._clock()
+    if self._events is not None:
+      self._events[which].record(self._stream)
+
+  def mark(self, stage: str) -> None:
+    """``core.stamps.mark``: only the selection starts below the engine."""
+    if stage == "select":
+      self.boundary(self.SELECT)
+
+  def sync(self, value, read):
+    """``core.stamps.sync``: the host's wait in one synchronisation."""
+    t0 = self._clock()
+    out = read(value)
+    self._syncs.append((t0, self._clock()))
+    return out
+
+  _PLAIN = (("h2d", "compute", "d2h"), (H2D, COMPUTE, D2H, END))
+  _SELECTING = (("h2d", "compute", "select", "d2h"),
+                (H2D, COMPUTE, SELECT, D2H, END))
+
+  def read(self, copies: int) -> StageRecord:
+    """The batch's record, after its last output copy returned and its
+    host stages were spanned; ``copies`` is the outputs copied to the
+    host (one synchronisation each)."""
+    at = self._at
+    names, idx = self._PLAIN if at[self.SELECT] is None else self._SELECTING
+    times = [at[i] for i in idx]
+    ev = self._events
+    if ev is not None:
+      end, t_end = ev[self.END], at[self.END]
+      try:
+        times[:-1] = [t_end - ev[i].elapsed_time(end) * 1e-3
+                      for i in idx[:-1]]
+      except RuntimeError:
+        pass  # END not reached yet: host times
+    device = [(n, times[k], times[k + 1]) for k, n in enumerate(names)]
+    host = self._host
+    seconds = [(n, t1 - t0) for n, t0, t1 in host]
+    seconds += [(n, t1 - t0) for n, t0, t1 in device]
+    syncs = self._syncs
+    seconds += [("sync", t1 - t0) for t0, t1 in syncs]
+    host.append(("h2d", at[self.H2D], at[self.COMPUTE]))
+    host += [("sync", t0, t1) for t0, t1 in syncs[:MAX_SYNC_SPANS]]
+    return StageRecord(host=host, device=device, seconds=seconds,
+                       syncs=len(syncs) + copies)
 
 
 class FlightRecorder:
@@ -196,14 +314,17 @@ class FlightRecorder:
                      batch: int, padded: int, h2d_bytes: int,
                      cache_hit: bool, request_ids: Sequence[int],
                      arrivals_s: Sequence[float],
-                     iterations=None, emit_pick: bool = True) -> None:
+                     iterations=None, emit_pick: bool = True,
+                     stages: Optional[StageRecord] = None) -> None:
     """Emit one completed batch's whole event set in a single lock
     acquisition: the four phase spans (pad_and_stack / resolve_compile /
-    device_compute / split_results), the apportioned squaring-iteration
-    slices for closures, and every member request's queued→execute
-    transition (at the pick instant) and ``execute`` end (outcome done,
-    with its latency).  This is the serving loop's only steady-state trace
-    call, so its cost IS the tracing overhead the bench budgets.
+    device_compute / split_results), the batch's stage spans when
+    ``stages`` carries them (host stages on this thread's track, device
+    stages on ``DEVICE_TID``'s, held inside device_compute), and every
+    member request's queued→execute transition (at the pick instant) and
+    ``execute`` end (outcome done, with its latency).  This is the serving
+    loop's only steady-state trace call, so its cost IS the tracing
+    overhead the bench budgets.
 
     ``emit_pick=False`` skips the per-request queued→execute transition:
     retried/bisected sub-batches already closed ``queued`` and opened a
@@ -238,18 +359,19 @@ class FlightRecorder:
          "args": {"bucket": label}},
     ]
     if iterations is not None and len(iterations):
-      its = [int(i) for i in iterations]
-      dev_args["iterations"] = its
-      max_it = max(its)
-      if max_it >= 1 and ts_dev > ts_exec:
-        # see module docstring: apportioned slices, not stamped syncs
-        n = min(max_it, MAX_ITERATION_SLICES)
-        dur = (ts_dev - ts_exec) / n
-        events.extend(
-            {"ph": "X", "cat": "batch", "name": f"squaring_iter {i}",
-             "pid": _PID, "tid": tid, "ts": ts_exec + i * dur, "dur": dur,
-             "args": {"apportioned": True, "iterations": max_it}}
-            for i in range(n))
+      dev_args["iterations"] = [int(i) for i in iterations]
+    if stages is not None:
+      for name, t0, t1 in stages.host:
+        events.append({"ph": "X", "cat": "stage", "name": name, "pid": _PID,
+                       "tid": tid, "ts": t0 * 1e6,
+                       "dur": max(0.0, (t1 - t0) * 1e6)})
+      for name, t0, t1 in stages.device:
+        # the anchor may put a boundary microseconds outside the phase
+        ts0 = min(max(t0 * 1e6, ts_exec), ts_dev)
+        ts1 = min(max(t1 * 1e6, ts0), ts_dev)
+        events.append({"ph": "X", "cat": "device", "name": name,
+                       "pid": _PID, "tid": DEVICE_TID, "ts": ts0,
+                       "dur": ts1 - ts0})
     for rid, arrival_s in zip(request_ids, arrivals_s):
       if emit_pick:
         events.append({"ph": "e", "cat": "request", "id": rid,
@@ -351,4 +473,9 @@ class FlightRecorder:
     slices and per-thread batch tracks come from the ring."""
     meta = [{"ph": "M", "pid": _PID, "name": "process_name",
              "args": {"name": process_name}}]
-    return {"traceEvents": meta + self.events(), "displayTimeUnit": "ms"}
+    events = self.events()
+    if any(ev.get("tid") == DEVICE_TID for ev in events):
+      events.append({"ph": "M", "pid": _PID, "tid": DEVICE_TID,
+                     "name": "thread_name",
+                     "args": {"name": "device (CUDA events)"}})
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}

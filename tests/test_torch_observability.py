@@ -10,6 +10,7 @@ under ``conftest.FakeClock`` must give the reference's sequence of trace
 event names and the reference's exposition text.  Servers bind port 0;
 every engine started here is stopped and every thread joined.
 """
+import contextlib
 import json
 import os
 import re
@@ -30,8 +31,14 @@ from repro.serve_mmo.exposition import \
     render_prometheus as j_render  # noqa: E402
 from repro_torch import serve_mmo as tserve  # noqa: E402
 from repro_torch.apps import graphs  # noqa: E402
-from repro_torch.serve_mmo import (DeadlineExceededError, MMOEngine,  # noqa: E402
-                                   RejectedError, apsp_request, mmo_request)
+from fixtures import closure_corpus as corpus  # noqa: E402
+from repro_torch.core import closure as tcl  # noqa: E402
+from repro_torch.core import stamps as stage_hook  # noqa: E402
+from repro_torch.kernels import closure_megakernel as tmk  # noqa: E402
+from repro_torch.serve_mmo import (DeadlineExceededError, FaultInjector,  # noqa: E402
+                                   FaultRule, MMOEngine, RejectedError,
+                                   apsp_request, knn_request, mmo_request)
+from repro_torch.serve_mmo import engine as engine_mod  # noqa: E402
 from repro_torch.serve_mmo.exposition import (HISTOGRAM_BOUNDS_S,  # noqa: E402
                                               LogHistogram,
                                               escape_label_value,
@@ -41,7 +48,7 @@ from repro_torch.serve_mmo.httpd import (PROMETHEUS_CONTENT_TYPE,  # noqa: E402
 from repro_torch.serve_mmo.metrics import (RollingWindow,  # noqa: E402
                                            ServeMetrics, bucket_label)
 from repro_torch.serve_mmo.observability import (  # noqa: E402
-    MAX_ITERATION_SLICES, FlightRecorder)
+    DEVICE_TID, MAX_SYNC_SPANS, STAGES, BatchStamps, FlightRecorder)
 from repro_torch.serve_mmo.scheduler import (BucketKey,  # noqa: E402
                                              request_bucket)
 
@@ -144,11 +151,39 @@ def test_lifecycle_timestamps_come_from_injected_clock():
   assert evs[-1]["args"]["outcome"] == "done"
 
 
+def _stamped(times, *, select=False, syncs=(), copies=2):
+  """A ``BatchStamps`` walked through one batch on a fake clock: ``times``
+  gives the clock at each call in order (stack start/end, then the device
+  boundaries H2D, COMPUTE, [SELECT,] D2H, END, then the nan scan and split
+  starts and ends); each sync in ``syncs`` takes (start, end)."""
+  clock = FakeClock()
+  st = BatchStamps(None, clock)
+  st.begin()
+  it = iter(times)
+  st.span("stack", next(it), next(it))
+  bounds = [st.H2D, st.COMPUTE] + ([st.SELECT] if select else [])
+  for b in bounds:
+    clock.t = next(it)
+    st.boundary(b)
+  for t0, t1 in syncs:
+    ticks = iter((t0, t1))
+    st._clock = lambda: next(ticks)
+    assert st.sync(torch.tensor(True), bool) is True
+  st._clock = clock
+  for b in (st.D2H, st.END):
+    clock.t = next(it)
+    st.boundary(b)
+  st.span("nan_scan", next(it), next(it))
+  st.span("split", next(it), next(it))
+  return st.read(copies)
+
+
 def test_batch_complete_emits_the_reference_events():
-  """Phase spans, apportioned iteration slices and per-request completion
-  args, event for event as the reference's recorder emits them (tids
-  aside)."""
-  def emit(mod):
+  """Phase spans and per-request completion args, event for event as the
+  reference's recorder emits them (tids aside), except the reference's
+  apportioned squaring slices: the port stamps each sync where it runs,
+  and emits its stage spans, host and device, nested in their phases."""
+  def emit(mod, **kw):
     rec = mod.FlightRecorder(clock=FakeClock())
     rec.request_begin(1, kind="closure", op="minplus", tenant="t", t_s=0.0)
     rec.request_begin(2, kind="closure", op="minplus", tenant="t", t_s=0.1)
@@ -157,39 +192,69 @@ def test_batch_complete_emits_the_reference_events():
                        device_s=1.7, completed_s=1.8, backend="xla",
                        schedule="local", batch=2, padded=2, h2d_bytes=2048,
                        cache_hit=True, request_ids=[1, 2],
-                       arrivals_s=[0.0, 0.1], iterations=[3, 5])
+                       arrivals_s=[0.0, 0.1], iterations=[3, 5], **kw)
     return [{k: v for k, v in ev.items() if k != "tid"}
             for ev in rec.events()]
 
+  want = [ev for ev in emit(jserve)
+          if not ev["name"].startswith("squaring_iter")]
   evs = emit(tserve)
-  assert evs == emit(jserve)
+  assert evs == want
   _assert_balanced(evs)
-  phases = {ev["name"]: ev for ev in evs
-            if ev["ph"] == "X" and not ev["name"].startswith("squaring")}
+  phases = {ev["name"]: ev for ev in evs if ev["ph"] == "X"}
   assert set(phases) == {"pad_and_stack", "resolve_compile",
                          "device_compute", "split_results"}
   assert phases["device_compute"]["dur"] == pytest.approx(0.4e6)
   assert phases["device_compute"]["args"]["iterations"] == [3, 5]
-  slices = [ev for ev in evs if ev["name"].startswith("squaring_iter")]
-  assert len(slices) == 5
-  assert all(ev["args"]["apportioned"] is True for ev in slices)
-  assert sum(ev["dur"] for ev in slices) == pytest.approx(0.4e6)
   done = [ev for ev in evs if ev.get("cat") == "request"
           and ev["ph"] == "e" and ev["name"] == "execute"]
   assert {ev["id"]: ev["args"]["latency_ms"] for ev in done} == \
       {1: pytest.approx(1800.0), 2: pytest.approx(1700.0)}
 
+  rec = _stamped([1.0, 1.05, 1.31, 1.35, 1.6, 1.69, 1.71, 1.75, 1.76, 1.79],
+                 syncs=[(1.4, 1.41), (1.5, 1.52)])
+  staged = emit(tserve, stages=rec)
+  spans = [ev for ev in staged if ev.get("cat") in ("stage", "device")]
+  assert [ev for ev in staged if ev not in spans] == evs
+  got = sorted((ev["cat"], ev["name"], round(ev["ts"]), round(ev["dur"]))
+               for ev in spans)
+  assert got == sorted([
+      ("stage", "stack", 1_000_000, 50_000),
+      ("stage", "h2d", 1_310_000, 40_000),
+      ("stage", "sync", 1_400_000, 10_000),
+      ("stage", "sync", 1_500_000, 20_000),
+      ("stage", "nan_scan", 1_710_000, 40_000),
+      ("stage", "split", 1_760_000, 30_000),
+      ("device", "h2d", 1_310_000, 40_000),
+      ("device", "compute", 1_350_000, 250_000),
+      ("device", "d2h", 1_600_000, 90_000)])
+  assert rec.syncs == 4   # two fixpoint checks, two output copies
+  assert sorted(n for n, _ in rec.seconds) == sorted(
+      ["stack", "h2d", "compute", "d2h", "sync", "sync", "nan_scan",
+       "split"])
+
 
 def test_iteration_slices_are_capped():
-  rec = FlightRecorder(clock=FakeClock())
-  rec.batch_complete(label="b", scheduled_s=0.0, stacked_s=0.0,
-                     executed_s=0.0, device_s=1.0, completed_s=1.0,
-                     backend="xla", schedule="local", batch=1, padded=1,
-                     h2d_bytes=0, cache_hit=True, request_ids=[],
-                     arrivals_s=[], iterations=[1000])
-  slices = [ev for ev in rec.events()
-            if ev["name"].startswith("squaring_iter")]
-  assert len(slices) == MAX_ITERATION_SLICES
+  """The stamped syncs that replaced the apportioned iteration slices:
+  a batch emits at most ``MAX_SYNC_SPANS`` sync spans, and the metrics
+  still observe every sync."""
+  n = 1000
+  rec = _stamped([0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+                 syncs=[(0.001 * i, 0.001 * i + 0.0005) for i in range(n)],
+                 copies=2)
+  assert rec.syncs == n + 2
+  assert sum(1 for name, _ in rec.seconds if name == "sync") == n
+  recorder = FlightRecorder(clock=FakeClock())
+  recorder.batch_complete(label="b", scheduled_s=0.0, stacked_s=0.0,
+                          executed_s=0.0, device_s=1.0, completed_s=1.0,
+                          backend="xla", schedule="local", batch=1,
+                          padded=1, h2d_bytes=0, cache_hit=True,
+                          request_ids=[], arrivals_s=[], iterations=[n],
+                          stages=rec)
+  syncs = [ev for ev in recorder.events() if ev["name"] == "sync"]
+  assert len(syncs) == MAX_SYNC_SPANS
+  assert not any(ev["name"].startswith("squaring_iter")
+                 for ev in recorder.events())
 
 
 def test_export_is_json_serializable_chrome_trace():
@@ -235,7 +300,8 @@ def test_live_trace_is_balanced_and_loads_as_json(served_engine):
                   and "iterations" in ev.get("args", {})]
   assert closure_devs and all(
       min(ev["args"]["iterations"]) >= 1 for ev in closure_devs)
-  assert any(ev["name"].startswith("squaring_iter") for ev in evs)
+  assert any(ev["name"] == "sync" for ev in evs)
+  assert not any(ev["name"].startswith("squaring_iter") for ev in evs)
   done = [ev for ev in evs if ev.get("cat") == "request"
           and ev["ph"] == "e" and ev["name"] == "execute"]
   assert len(done) == 4
@@ -311,6 +377,304 @@ def test_trace_off_engine_records_nothing():
   assert "serve_trace_enabled 0" in text
 
 
+# ---------------------------------------------------------------------------
+# stage stamps: each stage of a batch where it runs
+# ---------------------------------------------------------------------------
+
+# each stage span's phase span
+_PARENT = {"stack": "pad_and_stack", "h2d": "device_compute",
+           "compute": "device_compute", "select": "device_compute",
+           "sync": "device_compute", "d2h": "device_compute",
+           "nan_scan": "split_results", "split": "split_results"}
+
+
+def _knn_req(seed=0):
+  ref, qry = graphs.knn_points(48, 12, 8, seed=seed)
+  return knn_request(qry, ref, k=3)
+
+
+def _stage_hists(engine) -> dict:
+  """bucket label → {window: (sum s, observations)} of every histogram."""
+  state = engine.observability_state()["metrics"]
+  return {label: {name: (h[1], h[2]) for name, h in b["histograms"].items()}
+          for label, b in state["buckets"].items()}
+
+
+@contextlib.contextmanager
+def _counted_fixpoints():
+  """Count the closure fixpoint loops' host synchronisations from their
+  steps, per batch, in order: the dispatch loop syncs before each step and
+  once more when it stops early, the fused arm once after each chunk."""
+  per_batch, seen = [], []
+  orig_step, orig_chunk = tcl._fixpoint_step, tmk.fixpoint_chunk
+  orig_loop, orig_mk = tcl._batched_fixpoint, tmk.megakernel_fixpoint
+
+  def step(state, step_fn):
+    seen.append(stage_hook.current())
+    per_batch[-1][0] += 1
+    return orig_step(state, step_fn)
+
+  def chunk(*a, **kw):
+    seen.append(stage_hook.current())
+    per_batch[-1][0] += 1
+    return orig_chunk(*a, **kw)
+
+  def loop(adj, step_fn, max_iters, valid_n=None):
+    per_batch.append([0, max_iters, "dispatch"])
+    return orig_loop(adj, step_fn, max_iters, valid_n=valid_n)
+
+  def fused(adj, **kw):
+    per_batch.append([0, None, "fused"])
+    return orig_mk(adj, **kw)
+
+  tcl._fixpoint_step, tmk.fixpoint_chunk = step, chunk
+  tcl._batched_fixpoint, tmk.megakernel_fixpoint = loop, fused
+  try:
+    yield per_batch, seen
+  finally:
+    tcl._fixpoint_step, tmk.fixpoint_chunk = orig_step, orig_chunk
+    tcl._batched_fixpoint, tmk.megakernel_fixpoint = orig_loop, orig_mk
+
+
+def _syncs_of(counted) -> int:
+  steps, budget, arm = counted
+  if arm == "fused":
+    return steps
+  return steps + (1 if steps < budget else 0)
+
+
+def _nested(evs) -> None:
+  """Every stage span lies inside one span of its phase; device stages on
+  the device track, host stages on their phase's thread."""
+  phases = [ev for ev in evs if ev["ph"] == "X" and ev.get("cat") == "batch"]
+  stages = [ev for ev in evs if ev.get("cat") in ("stage", "device")]
+  assert stages
+  for st in stages:
+    assert (st["tid"] == DEVICE_TID) == (st["cat"] == "device")
+    homes = [ph for ph in phases if ph["name"] == _PARENT[st["name"]]
+             and ph["ts"] - 1e-3 <= st["ts"]
+             and st["ts"] + st["dur"] <= ph["ts"] + ph["dur"] + 1e-3
+             and (st["cat"] == "device" or st["tid"] == ph["tid"])]
+    assert len(homes) == 1, st
+
+
+@pytest.mark.parametrize("backend", ["xla", "megakernel"])
+def test_each_stage_is_observed_once_per_batch(backend):
+  """Closure and KNN buckets: every stage histogram observes once per
+  batch (the selection in KNN batches only), ``sync`` once per fixpoint
+  synchronisation (closure batches only)."""
+  engine = _engine(backend=backend, max_batch=2)
+  with _counted_fixpoints() as (counted, _):
+    futs = [engine.submit(r) for r in
+            [_apsp_req(seed=s) for s in range(3)]
+            + [_knn_req(s) for s in range(3)]]
+    engine.run_until_idle()
+  for f in futs:
+    f.result(timeout=5)
+  hists = _stage_hists(engine)
+  kinds = {label.split("/")[0]: h for label, h in hists.items()}
+  assert set(kinds) == {"closure", "knn"}
+  for kind, h in kinds.items():
+    batches = h["host"][1]
+    assert batches == 2
+    for name in ("stack", "h2d", "compute", "d2h", "nan_scan", "split"):
+      assert h[name][1] == batches, (kind, name)
+    if kind == "knn":
+      assert h["select"][1] == batches and "sync" not in h
+    else:
+      assert "select" not in h
+      assert h["sync"][1] == sum(_syncs_of(c) for c in counted)
+
+
+def test_host_stages_never_exceed_host_time():
+  engine = _engine(max_batch=2)
+  for r in ([_apsp_req(seed=s) for s in range(3)]
+            + [_knn_req(s) for s in range(2)] + [_mmo_req(), _mmo_req()]):
+    engine.submit(r)
+  engine.run_until_idle()
+  for label, h in _stage_hists(engine).items():
+    inner = sum(h[name][0] for name in ("stack", "nan_scan", "split"))
+    assert 0.0 < inner <= h["host"][0], label
+
+
+def test_every_stage_span_nests_in_its_phase(served_engine):
+  evs = served_engine.export_trace()["traceEvents"]
+  _nested(evs)
+  names = {ev["name"] for ev in evs if ev.get("cat") == "device"}
+  assert names == {"h2d", "compute", "d2h"}
+  assert evs[-1] == {"ph": "M", "pid": 1, "tid": DEVICE_TID,
+                     "name": "thread_name",
+                     "args": {"name": "device (CUDA events)"}}
+
+
+@pytest.mark.parametrize("backend", ["xla", "megakernel"])
+def test_sync_spans_are_the_fixpoint_loops_syncs(backend):
+  """One closure a batch: its sync spans are the syncs the wrapped loop
+  made, on both arms; a Bellman-Ford line of 40 makes more than the cap,
+  which holds while the histogram still sees every sync."""
+  engine = _engine(backend=backend, max_batch=1)
+  reqs = [_apsp_req(n=14, seed=s) for s in range(3)] + [
+      apsp_request(corpus.line_graph(40), algorithm="bellman_ford")]
+  with _counted_fixpoints() as (counted, _):
+    for r in reqs:
+      engine.submit(r)
+      engine.run_until_idle()
+  assert len(counted) == len(reqs)
+  evs = engine.export_trace()["traceEvents"]
+  _nested(evs)
+  devs = [ev for ev in evs if ev["name"] == "device_compute"]
+  assert len(devs) == len(reqs)
+  want = [_syncs_of(c) for c in counted]
+  got = [sum(1 for ev in evs if ev["name"] == "sync"
+             and dev["ts"] <= ev["ts"] <= dev["ts"] + dev["dur"])
+         for dev in devs]
+  assert got == [min(w, MAX_SYNC_SPANS) for w in want]
+  if backend == "xla":
+    assert want[-1] > MAX_SYNC_SPANS
+  observed = sum(h["sync"][1] for h in _stage_hists(engine).values())
+  assert observed == sum(want)
+
+
+def test_syncs_and_d2h_bytes_count_what_was_done(monkeypatch):
+  copies, nbytes = [], []
+  orig = engine_mod._outputs_to_numpy
+
+  def to_numpy(out):
+    host = orig(out)
+    arrs = host if isinstance(host, tuple) else (host,)
+    copies.append(len(arrs))
+    nbytes.append(sum(a.nbytes for a in arrs))
+    return host
+
+  monkeypatch.setattr(engine_mod, "_outputs_to_numpy", to_numpy)
+  engine = _engine(max_batch=2)
+  with _counted_fixpoints() as (counted, _):
+    for r in ([_apsp_req(seed=s) for s in range(3)]
+              + [_knn_req(s) for s in range(2)] + [_mmo_req()]):
+      engine.submit(r)
+    engine.run_until_idle()
+  counters = engine.metrics_snapshot()["counters"]
+  assert len(copies) == counters["batches"] == 4
+  assert counters["syncs"] == sum(copies) + sum(_syncs_of(c)
+                                                for c in counted)
+  assert counters["d2h_bytes"] == sum(nbytes) > 0
+
+
+def test_trace_off_engine_stamps_nothing():
+  """No stage span, no stage histogram, the hook unset inside the batch
+  (a traced engine's batches see their stamps there); d2h bytes still
+  count, syncs do not."""
+  seen = {}
+  for trace in (True, False):
+    engine = _engine(trace=trace, max_batch=2)
+    with _counted_fixpoints() as (_, hooks):
+      for r in [_apsp_req(seed=1), _apsp_req(seed=2), _knn_req()]:
+        engine.submit(r)
+      engine.run_until_idle()
+    seen[trace] = (engine, hooks)
+  engine, hooks = seen[False]
+  assert hooks and all(h is None for h in hooks)
+  assert all(isinstance(h, BatchStamps) for h in seen[True][1])
+  assert engine.tracer.stats()["recorded"] == 0
+  for h in _stage_hists(engine).values():
+    assert not set(h) & set(STAGES)
+  counters = engine.metrics_snapshot()["counters"]
+  assert counters["syncs"] == 0 and counters["d2h_bytes"] > 0
+  assert engine._stamp_pool == []
+  assert stage_hook.current() is None
+
+
+def test_stamps_follow_a_batch_into_the_watchdog_worker():
+  engine = _engine(watchdog_s=60.0, max_batch=2)
+  threads = []
+  orig = tcl._fixpoint_step
+
+  def step(state, step_fn):
+    threads.append((threading.current_thread().name,
+                    stage_hook.current() is not None))
+    return orig(state, step_fn)
+
+  tcl._fixpoint_step = step
+  try:
+    futs = [engine.submit(_apsp_req(seed=s)) for s in range(2)]
+    engine.run_until_idle()
+  finally:
+    tcl._fixpoint_step = orig
+  for f in futs:
+    f.result(timeout=5)
+  assert threads and set(threads) == {("mmo-batch-watchdog", True)}
+  assert stage_hook.current() is None   # never installed in this thread
+  evs = engine.export_trace()["traceEvents"]
+  assert any(ev["name"] == "sync" for ev in evs)
+  _nested(evs)
+  assert engine.join_abandoned(timeout=10.0) == 0
+
+
+def test_stamps_are_pooled_and_a_timed_out_batch_keeps_its_set():
+  """Batches reuse one set of stamps (no per-batch events); a batch the
+  watchdog abandons keeps its set, so the next batch takes a new one."""
+  inj = FaultInjector([FaultRule(point="slow", mode="transient", count=1,
+                                 delay_s=0.5)])
+  engine = _engine(max_batch=1, faults=inj, transient_retries=0,
+                   bisect=False, breaker_threshold=None, watchdog_s=0.05)
+  taken = []
+  orig = engine._take_stamps
+
+  def take():
+    taken.append(orig())
+    return taken[-1]
+
+  engine._take_stamps = take
+  first = engine.submit(_mmo_req())
+  engine.run_until_idle()
+  with pytest.raises(Exception):
+    first.result(timeout=5)
+  assert engine._stamp_pool == []          # the worker still holds it
+  for _ in range(3):
+    engine.submit(_mmo_req())
+    engine.run_until_idle()
+  assert len(taken) == 4
+  assert taken[1] is not taken[0]
+  assert taken[1] is taken[2] is taken[3]
+  assert engine._stamp_pool == [taken[1]]
+  assert engine.join_abandoned(timeout=10.0) == 0
+
+
+def test_expired_request_names_the_batch_in_service():
+  """An expiry's ``queued`` end carries its wait and the batch it waited
+  behind: bucket, size and pick time on the engine clock."""
+  clock = FakeClock()
+  engine = _engine(clock=clock)
+  bulk = engine.submit(_apsp_req(n=16, seed=4))
+  doomed = _mmo_req()
+  doomed.deadline_s = 0.5
+  doomed_fut = engine.submit(doomed)
+  orig = tcl._fixpoint_step
+
+  def slow_step(state, step_fn):
+    clock.t += 0.2   # each squaring takes 0.2 s on the engine clock
+    return orig(state, step_fn)
+
+  tcl._fixpoint_step = slow_step
+  try:
+    engine.run_until_idle()
+  finally:
+    tcl._fixpoint_step = orig
+  assert bulk.done() and clock.t > 0.5
+  with pytest.raises(DeadlineExceededError):
+    doomed_fut.result(timeout=5)
+  evs = engine.export_trace()["traceEvents"]
+  (end,) = [ev for ev in evs if ev.get("ph") == "e"
+            and ev["name"] == "queued"
+            and ev["id"] == doomed.request_id]
+  assert end["args"]["outcome"] == "expired"
+  assert end["args"]["waited_ms"] == pytest.approx(clock.t * 1e3)
+  assert end["args"]["in_service"] == {
+      "bucket": bucket_label(request_bucket(bulk.request)), "batch": 1,
+      "start_s": 0.0}
+  _assert_balanced(evs)
+
+
 def _specs():
   rng = np.random.default_rng(3)
   out = []
@@ -363,16 +727,38 @@ def test_trace_and_exposition_match_the_reference_engine(mode):
   got = _serve_traced(tserve, render_prometheus, mode)
   assert got[0] == want[0]
   assert {"rejected", "expired", "done"} <= set(got[0])
-  assert got[1] == want[1]
+  # the port stamps each batch's stages where the reference apportions
+  # squaring slices, and exposes their histograms and two counters more
+  assert {"stack", "select", "d2h"} <= set(got[1])
+  assert ("sync" in got[1]) == (mode == "batch")  # arena closures: no batch
+  assert ([n for n in got[1] if n not in STAGES and n != "thread_name"]
+          == [n for n in want[1] if not n.startswith("squaring_iter")])
   if mode == "arena":
     assert "arena_tick" in got[1]
+  port_only = tuple(f"serve_{name}" for name in (
+      "batch_stack_", "batch_h2d_", "batch_compute_", "batch_select_",
+      "sync_seconds", "batch_d2h_", "batch_nan_scan_", "batch_split_",
+      "d2h_bytes_total", "syncs_total"))
+  port_only += tuple(f"# {k} {name}" for k in ("HELP", "TYPE")
+                     for name in port_only)
 
-  def stable(text):
+  def recorded(names, text):
+    # every event recorded is in the trace: the names less the metadata
+    meta = sum(1 for n in names if n in ("process_name", "thread_name"))
+    return f"serve_trace_events_total {len(names) - meta}" in text
+
+  assert recorded(got[1], got[2]) and recorded(want[1], want[2])
+
+  def stable(text, port=False):
+    # the port's help says what the device window times: the host clock
+    skip = ("serve_scheduler_pick_seconds_total", "serve_estimator_",
+            "# HELP serve_batch_device_seconds", "serve_trace_events_total")
     return [line for line in text.splitlines()
-            if not line.startswith(("serve_scheduler_pick_seconds_total",
-                                    "serve_estimator_"))]
+            if not line.startswith(skip)
+            and not (port and line.startswith(port_only))]
 
-  assert stable(got[2]) == stable(want[2])
+  assert any(line.startswith(port_only) for line in got[2].splitlines())
+  assert stable(got[2], port=True) == stable(want[2])
 
 
 # ---------------------------------------------------------------------------

@@ -239,8 +239,10 @@ def test_engine_stream_matches_the_reference(policy):
   assert (tst.completed, tst.rejected, tst.expired) == (
       jst.completed, jst.rejected, jst.expired)
   assert teng.admission.snapshot() == jeng.admission.snapshot()
-  assert (teng.metrics_snapshot()["counters"]
-          == jeng.metrics_snapshot()["counters"])
+  # the port also counts its batches' syncs and device-to-host bytes
+  tcounters = dict(teng.metrics_snapshot()["counters"])
+  assert tcounters.pop("syncs") > 0 and tcounters.pop("d2h_bytes") > 0
+  assert tcounters == jeng.metrics_snapshot()["counters"]
   assert (teng.metrics_snapshot()["rejected_by_reason"]
           == jeng.metrics_snapshot()["rejected_by_reason"])
 

@@ -36,6 +36,7 @@ from repro_torch.serve_mmo import (BatchTimeoutError, FaultInjector,  # noqa: E4
                                    parse_fault_spec)
 from repro_torch.serve_mmo import batching  # noqa: E402
 from repro_torch.serve_mmo.faults import classify_failure  # noqa: E402
+from repro_torch.serve_mmo.observability import STAGES  # noqa: E402
 from repro_torch.serve_mmo.scheduler import request_bucket  # noqa: E402
 
 EXACT = ("minplus", "maxplus", "minmul", "maxmul", "minmax", "maxmin",
@@ -657,10 +658,19 @@ def _run_parity(api, spec, knobs, seed, specs, extra):
     except Exception as e:  # noqa: BLE001 — the outcome is the comparison
       outcomes.append((type(e).__name__, None))
   snap = eng.metrics_snapshot()
-  return {"outcomes": outcomes, "counters": snap["counters"],
+  names = [ev["name"] for ev in eng.export_trace()["traceEvents"]]
+  counters = dict(snap["counters"])
+  if api is tserve:
+    # the port stamps each batch's stages where the reference apportions
+    # squaring slices: compare what both record
+    assert counters.pop("syncs") > 0 and counters.pop("d2h_bytes") > 0
+    names = [n for n in names if n not in STAGES and n != "thread_name"]
+  else:
+    names = [n for n in names if not n.startswith("squaring_iter")]
+  return {"outcomes": outcomes, "counters": counters,
           "kinds": snap["batch_failures_by_kind"],
           "breakers": eng.resilience.snapshot(),
-          "names": [ev["name"] for ev in eng.export_trace()["traceEvents"]],
+          "names": names,
           "fired": eng.faults.stats()["fired"]}
 
 
